@@ -1,0 +1,50 @@
+"""Numeric core: trellis tables, encoder, channels, metrics, ACS, oracle."""
+from repro_torch.core.acs import acs_step
+from repro_torch.core.channel import (
+    awgn,
+    bpsk_modulate,
+    bsc,
+    hard_branch_metrics,
+    soft_branch_metrics,
+)
+from repro_torch.core.encoder import encode, pack_symbols, unpack_symbols
+from repro_torch.core.puncture import (
+    PUNCTURE_2_3,
+    PUNCTURE_3_4,
+    PUNCTURE_5_6,
+    pattern_mask,
+    punctured_hard_metrics,
+)
+from repro_torch.core.trellis import (
+    CODE_K3_PAPER,
+    CODE_K3_STD,
+    CODE_K5_GSM,
+    CODE_K7_NASA,
+    NEG_UNREACHABLE,
+    ConvCode,
+)
+from repro_torch.core.viterbi import viterbi_decode
+
+__all__ = [
+    "CODE_K3_PAPER",
+    "CODE_K3_STD",
+    "CODE_K5_GSM",
+    "CODE_K7_NASA",
+    "NEG_UNREACHABLE",
+    "PUNCTURE_2_3",
+    "PUNCTURE_3_4",
+    "PUNCTURE_5_6",
+    "ConvCode",
+    "acs_step",
+    "awgn",
+    "bpsk_modulate",
+    "bsc",
+    "encode",
+    "hard_branch_metrics",
+    "pack_symbols",
+    "pattern_mask",
+    "punctured_hard_metrics",
+    "soft_branch_metrics",
+    "unpack_symbols",
+    "viterbi_decode",
+]

@@ -1,0 +1,230 @@
+"""Shape-aware decode planner.
+
+``plan_decode(spec, shape)`` picks a backend from the problem shape
+(B, T, S) and the context.  The choice is a pure function of its inputs,
+can always be overridden with ``backend=...``, and every plan carries an
+``explain()`` string.  The rules are the reference planner's, so both name
+the same backend for the same (spec, shape, context):
+
+  * explicit ``backend=`` override wins (validated against capabilities);
+  * a streaming context (``ctx.streaming``) -> ``streaming``;
+  * long blocks (T >= LONG_BLOCK_T) -> rule ``long-conv-tiled``: the
+    time-parallel ``tiled`` backend with the pinned ``ctx.tiles`` or
+    ``kernels/tiling.default_tiles`` (``parallel`` for trellises past the
+    tiled cap);
+  * everything else (short batched blocks) -> ``fused_packed`` (packed
+    scan + traceback kernels; in-kernel branch metrics when the request
+    carries raw symbols), ``parallel`` for trellises past the fused cap.
+
+The planner runs on ``ctx.device``: ``"cuda"`` without a card raises here,
+before anything runs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.core.trellis import ConvCode
+from repro_torch.decode import backends as _backends  # noqa: F401  (populates the registry)
+from repro_torch.decode.registry import RegisteredDecoder, get_decoder
+from repro_torch.decode.request import DecodeContext, DecodeRequest, DecodeResult
+from repro_torch.decode.spec import CodecSpec, spec_family
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.tiling import default_tiles
+
+#: Above this many trellis steps the time-parallel decoders take over from
+#: the sequential-scan forward pass.
+LONG_BLOCK_T = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """A resolved decode: spec + shape + backend choice + why."""
+
+    spec: CodecSpec
+    backend: str
+    batch: int
+    steps: int
+    ctx: DecodeContext
+    reason: str
+    device_kind: str
+
+    @property
+    def decoder(self) -> RegisteredDecoder:
+        return get_decoder(self.backend)
+
+    def predicted_costs(self) -> Optional[dict]:
+        """Predicted flops/bytes of the planned decode.  None: the port has
+        no cost model yet (the reference returns None too for backends its
+        tracer cannot follow)."""
+        return None
+
+    def explain(self) -> str:
+        """Human-readable plan summary."""
+        caps = self.decoder.capabilities
+        return (
+            f"plan: backend={self.backend!r} for shape (B={self.batch}, T={self.steps}, "
+            f"S={self.spec.code.n_states}) on {self.device_kind}\n"
+            f"  spec: {self.spec.describe()}\n"
+            f"  why:  {self.reason}\n"
+            f"  caps: mesh={caps.supports_mesh} streaming={caps.supports_streaming} "
+            f"max_states={caps.max_states} needs_terminated={caps.needs_terminated}"
+        )
+
+    def execute(self, bm_tables) -> DecodeResult:
+        """Run the planned backend on (B, T, M) branch-metric tables."""
+        result = self.decoder(self.spec, bm_tables, ctx=self.ctx)
+        result.plan = self
+        return result
+
+    def execute_request(self, request: DecodeRequest) -> DecodeResult:
+        """Run the plan on a DecodeRequest, routing raw channel output to
+        the backend's in-kernel-metric entry when it has one — the bm table
+        is only built for backends that need it.  Precomputed ``bm_tables``
+        take precedence over ``received``."""
+        if request.bm_tables is not None:
+            return self.execute(request.bm_tables)
+        if request.received is None:
+            raise ValueError("DecodeRequest needs received or bm_tables")
+        received = self.ctx.place(request.received)
+        if self.decoder.from_received is None:
+            return self.execute(self.spec.branch_metrics(received))
+        bad = int((~torch.isfinite(received)).sum())
+        if bad:
+            # the in-kernel metric path skips every table build where bad
+            # values would otherwise surface — guard here, or a single NaN
+            # symbol poisons the whole decode
+            raise ValueError(
+                f"non-finite input: {bad} NaN/Inf value(s) in received "
+                f"symbols {tuple(received.shape)} — in-kernel branch metrics "
+                "would silently corrupt the path metrics"
+            )
+        result = self.decoder.decode_received(self.spec, received, ctx=self.ctx)
+        result.plan = self
+        return result
+
+
+def _normalize_shape(shape: Sequence[int]) -> Tuple[int, int]:
+    """Accept (B, T) or a full (B, T, M) bm-table shape."""
+    if len(shape) in (2, 3):
+        return int(shape[0]), int(shape[1])
+    raise ValueError(f"shape must be (B, T) or (B, T, M), got {tuple(shape)}")
+
+
+def _validate(decoder: RegisteredDecoder, spec: CodecSpec) -> None:
+    caps = decoder.capabilities
+    fam = spec_family(spec)
+    if caps.family != fam:
+        raise ValueError(
+            f"backend {decoder.name!r} decodes the {caps.family!r} code family, "
+            f"spec is {fam!r} — pick a backend registered for that family"
+        )
+    S = spec.code.n_states
+    if caps.requires_mesh:
+        raise ValueError(f"backend {decoder.name!r} requires a mesh")
+    if caps.max_states is not None and S > caps.max_states:
+        raise ValueError(
+            f"backend {decoder.name!r} handles at most {caps.max_states} states, "
+            f"spec has {S}"
+        )
+    if caps.needs_terminated and not spec.terminated:
+        raise ValueError(f"backend {decoder.name!r} only decodes terminated trellises")
+
+
+def plan_decode(
+    spec: Union[CodecSpec, ConvCode],
+    shape: Sequence[int],
+    *,
+    backend: Optional[str] = None,
+    ctx: Optional[DecodeContext] = None,
+) -> DecodePlan:
+    """Pick (or validate) a decode backend for a (B, T[, M]) problem.
+
+    Args:
+      spec: the CodecSpec (a bare ConvCode is promoted with defaults).
+      shape: (B, T) or the full (B, T, M) branch-metric table shape.
+      backend: explicit registry name — skips auto-selection (still
+        capability-validated).
+      ctx: execution context (device, streaming flag, pinned tiles).
+
+    Returns:
+      DecodePlan; ``plan.execute_request(request)`` runs it, ``plan.explain()``
+      says why.
+    """
+    spec = CodecSpec.of(spec)
+    B, T = _normalize_shape(shape)
+    ctx = ctx or DecodeContext()
+    dev = resolve_device(ctx.device)
+    device_kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    S = spec.code.n_states
+
+    if backend is not None:
+        choice, reason = backend, f"explicit backend={backend!r} override"
+    elif ctx.streaming:
+        choice = "streaming"
+        reason = "session context given -> windowed online decode (O(depth+chunk) memory)"
+    elif T >= LONG_BLOCK_T:
+        tiled_max = get_decoder("tiled").capabilities.max_states
+        if tiled_max is not None and S > tiled_max:
+            choice = "parallel"
+            reason = (
+                f"long block (T={T} >= {LONG_BLOCK_T}), no mesh, and "
+                f"S={S} exceeds the tiled cap ({tiled_max}) -> "
+                "single-device (min,+) associative scan"
+            )
+        else:
+            choice = "tiled"
+            if ctx.tiles is not None:
+                tiles, how = int(ctx.tiles), "ctx.tiles pinned by caller"
+            else:
+                tiles = default_tiles(B, T, S)
+                how = "kernels/tiling.default_tiles; no cost model yet"
+                ctx = dataclasses.replace(ctx, tiles=tiles)
+            reason = (
+                f"long block (T={T} >= {LONG_BLOCK_T}), no mesh -> "
+                f"rule 'long-conv-tiled': time-parallel tiled decode, "
+                f"P={tiles} ({how})"
+            )
+    else:
+        fused_max = get_decoder("fused_packed").capabilities.max_states
+        if fused_max is not None and S > fused_max:
+            choice = "parallel"
+            reason = (
+                f"short block but S={S} exceeds the fused cap ({fused_max}) -> chunked scan"
+            )
+        else:
+            choice = "fused_packed"
+            reason = (
+                f"short batched block (T={T} < {LONG_BLOCK_T}) -> "
+                "packed scan kernel with on-chip path metrics + packed "
+                "traceback kernel"
+            )
+
+    decoder = get_decoder(choice)
+    _validate(decoder, spec)
+    return DecodePlan(
+        spec=spec, backend=choice, batch=B, steps=T, ctx=ctx,
+        reason=reason, device_kind=device_kind,
+    )
+
+
+def decode(
+    request: Union[DecodeRequest, CodecSpec, ConvCode],
+    received=None,
+    *,
+    backend: Optional[str] = None,
+    ctx: Optional[DecodeContext] = None,
+) -> DecodeResult:
+    """One-shot decode: plan + execute.
+
+    Either ``decode(DecodeRequest(spec, received=rx))`` or the shorthand
+    ``decode(spec, rx)``.  Returns a DecodeResult whose ``info_bits`` has
+    flush bits stripped per the spec.  Runs on ``ctx.device`` (default
+    ``"cuda"``; raises when no card is present).
+    """
+    if not isinstance(request, DecodeRequest):
+        request = DecodeRequest(spec=CodecSpec.of(request), received=received)
+    plan = plan_decode(request.spec, request.shape(), backend=backend, ctx=ctx)
+    return plan.execute_request(request)

@@ -1,0 +1,61 @@
+"""Shared kernel policy: survivor packing width, the kernel-or-plain rule,
+and the launch counters.
+
+Kernel or plain version.  Every kernel wrapper decides by the device of the
+tensors it is given: a CUDA tensor launches the hand-written kernel (or the
+wrapper raises — there is no fallback), a CPU tensor runs the plain PyTorch
+version.  Anything that composes more than one kernel (the decode entry
+points in ops.py) moves its inputs to ONE device up front, so every kernel
+of that decode sees the same device and takes the same side of the rule —
+one decode can never split across the kernel and the plain version.
+
+Counters.  ``launch_counts[name]`` rises by one where a wrapper launches its
+kernel and nowhere else; ``plain_counts[name]`` where a wrapper runs its
+plain version.  A run proves it went through the kernels by zeroing both
+(``reset_counts``) before it and reading them after.
+"""
+from __future__ import annotations
+
+from collections import Counter
+from typing import Sequence
+
+import torch
+
+#: Survivor bits packed per word along the time axis (32-bit words).
+PACK_BITS = 32
+
+#: kernel name -> launches of the hand-written kernel
+launch_counts: Counter = Counter()
+#: kernel name -> calls of the plain PyTorch version
+plain_counts: Counter = Counter()
+
+
+def reset_counts() -> None:
+    """Zero every launch and plain-version counter."""
+    launch_counts.clear()
+    plain_counts.clear()
+
+
+def on_card(name: str, tensors: Sequence[torch.Tensor]) -> bool:
+    """True when ``tensors`` lie on a CUDA device (launch the kernel), False
+    when they lie on the CPU (run the plain version).  Raises when they are
+    spread over more than one device or lie on any other device."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on several devices {sorted(map(str, devices))}")
+    (dev,) = devices
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def resolve_device(device) -> torch.device:
+    """The device a decode runs on.  ``"cuda"`` without a usable card raises:
+    a decode asked for the card never carries on silently on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
