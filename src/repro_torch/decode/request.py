@@ -1,8 +1,9 @@
 """Request/result/context dataclasses of the decode API.
 
 DecodeContext  where/how to run that is not part of the codec itself: the
-               device, the streaming flag, a pinned tile count.  The planner
-               consumes it to pick a backend; the backend to execute.
+               device, chunking, streaming window depth, the streaming flag,
+               a pinned tile count and overlap.  The planner consumes it to
+               pick a backend; the backend to execute.
 DecodeRequest  one decode job: a CodecSpec plus either raw channel output
                (``received``) or precomputed branch-metric tables.
 DecodeResult   bits + path metric + per-stream diagnostics + the plan that
@@ -27,17 +28,27 @@ class DecodeContext:
     """Execution context shared by the planner and every backend.
 
     Attributes:
+      chunk: chunk length for chunked backends (streaming).
+      stream_depth: truncated-traceback depth for the streaming backend
+        (None = the textbook 5*K).
       streaming: a live session context — the caller consumes bits a fixed
         lag behind the channel, so the planner picks a windowed backend.
       tiles: time-tile count for the ``tiled`` backend (None = the planner
         picks kernels/tiling.default_tiles).
+      tile_overlap: per-tile warm-up steps for the ``tiled`` backend.  None
+        (the default) and any value >= the truncation depth 5·K select the
+        exact min-plus seam resolution (bit-exact); smaller values select
+        the cheaper truncated warm-up approximation.
       device: where the decode runs.  ``"cuda"`` (the default) launches the
         hand-written kernels and raises when no card is present; ``"cpu"``
         runs their plain PyTorch versions.
     """
 
+    chunk: int = 64
+    stream_depth: Optional[int] = None
     streaming: bool = False
     tiles: Optional[int] = None
+    tile_overlap: Optional[int] = None
     device: str = "cuda"
 
     def place(self, x) -> torch.Tensor:

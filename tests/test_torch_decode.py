@@ -2,8 +2,9 @@
 (repro.decode) on identical numpy inputs: the decode grid (K3/K7 x hard/soft
 x unpunctured/punctured-2/3 x terminated/open) through ``decode()`` on raw
 symbols, through ``fused_packed`` on bm tables and through ``sequential``;
-planner parity; the registry's capability records; and the error paths
-(backends not ported yet, non-finite input, no card)."""
+planner parity; the registry's capability records; the routes ported since
+the first slice (``tiled``, ``streaming``) through their registry entries;
+and the error paths (backends not ported yet, non-finite input, no card)."""
 import dataclasses
 import zlib
 
@@ -24,8 +25,9 @@ torch.set_num_threads(1)
 
 CPU = PD.DecodeContext(device="cpu")
 GRID_CODES = {"k3": (3, (0b111, 0b101)), "k7": (7, (0o171, 0o133))}
-NOT_PORTED = ("bcjr", "fused", "parallel", "seqparallel", "sharded_stream", "streaming",
-              "tiled", "turbo")
+NOT_PORTED = ("bcjr", "fused", "parallel", "seqparallel", "sharded_stream", "turbo")
+#: backends that raised in the first slice and run now
+PORTED_SINCE = ("streaming", "tiled")
 
 
 def _specs(code_name, metric, punctured, terminated):
@@ -202,14 +204,33 @@ def test_backends_not_ported_raise_by_name(name):
             dec.decode_received(pspec, torch.zeros((2, 10, 2)), ctx=CPU)
 
 
+@pytest.mark.parametrize("name", PORTED_SINCE)
+def test_ported_routes_run_and_match_reference(name):
+    rspec, pspec = _specs("k7", "hard", False, False)
+    _, rx = _grid_inputs(pspec, seed=8)
+    bm = np.array(rspec.branch_metrics(jnp.asarray(rx)))
+    rctx = RD.DecodeContext(tiles=3, stream_depth=20, chunk=16)
+    pctx = dataclasses.replace(CPU, tiles=3, stream_depth=20, chunk=16)
+    ref = RD.get_decoder(name)(rspec, jnp.asarray(bm), ctx=rctx)
+    res = PD.get_decoder(name)(pspec, torch.from_numpy(bm), ctx=pctx)
+    assert res.diagnostics == ref.diagnostics and res.diagnostics["backend"] == name
+    np.testing.assert_array_equal(res.bits.numpy(), np.asarray(ref.bits))
+    np.testing.assert_array_equal(res.path_metric.numpy(), np.asarray(ref.path_metric))
+    dec = PD.get_decoder(name)
+    if dec.from_received is not None:
+        got = dec.decode_received(pspec, torch.from_numpy(rx), ctx=pctx)
+        np.testing.assert_array_equal(got.bits.numpy(), np.asarray(ref.bits))
+
+
 def test_planned_not_ported_backend_raises_instead_of_falling_back():
-    _, pspec = _specs("k3", "hard", False, True)
-    rx = torch.zeros((2, 2000, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="tiled"):
+    # a long block past the tiled cap plans `parallel`, which is not ported
+    K, polys = BIG_CODE
+    pspec = PD.CodecSpec(code=PCode(K, polys))
+    rx = torch.zeros((1, 1030, 2), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="parallel"):
         PD.decode(PD.DecodeRequest(pspec, received=rx), ctx=CPU)
-    streaming = dataclasses.replace(CPU, streaming=True)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        PD.decode(PD.DecodeRequest(pspec, received=rx[:, :50]), ctx=streaming)
+    with pytest.raises(NotImplementedError, match="parallel"):
+        PD.decode(PD.DecodeRequest(pspec, received=rx[:, :50]), ctx=CPU)
 
 
 def test_registry_rejects_duplicates_and_unknown():
