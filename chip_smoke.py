@@ -27,14 +27,28 @@ Phases (any failure raises and exits non-zero):
                carried unpacked scan kernel); BERs beside the block decode of
                the same symbols, and a smaller case with depth >= T that must
                equal the block decode exactly;
-  5. parity  — each kernel against its plain PyTorch version on the card,
-               exactly (words, selects, metrics, bits, entry states), at
-               K=3, 7, 11 (13 for the PR-11 kernels) small shapes with
-               T % 32 != 0, partial windows and carried metrics holding 1e30;
-  6. timing  — CUDA-event times of each kernel and each plain version at the
+  5. fused   — the unpacked route at phase 2's shape and symbols:
+               ``decode(..., backend="fused")`` (the unpacked scan kernel +
+               the plain traceback), hard and soft, bits (and the hard
+               metric) equal to the ``fused_packed`` decode exactly;
+  6. texpand — the paper's one-step instruction driven over all T=1006 steps
+               of the same bm tables, one launch a step: final metrics and
+               stacked selects equal the unpacked scan's exactly;
+  7. siso    — ``decode()`` through the planner's family rule: the K=4 LTE
+               RSC code through ``bcjr`` (B=8192 x 1000 bits, terminated),
+               the repo's turbo configuration (QPP N=512, B=8192, 6
+               iterations, early exit) and LTE's largest block (QPP N=6144,
+               B=1024) at Eb/N0 1 dB; the turbo BER must be below the rate-1/3
+               K=7 soft Viterbi baseline's on the same info bits;
+  8. parity  — each kernel against its plain PyTorch version on the card,
+               exactly (words, selects, metrics, bits, entry states, alphas,
+               LLRs), at K=3, 7, 11 (13 for the PR-11 kernels) small shapes
+               with T % 32 != 0, partial windows and carried metrics holding
+               1e30, and both named RSC codes, terminated and open;
+  9. timing  — CUDA-event times of each kernel and each plain version at the
                shape its path gives it (kernels: median of 5 rounds, every
                round printed), each held against its plain output exactly,
-               with each kernel's bound; end-to-end times of the three paths.
+               with each kernel's bound; end-to-end times of every path.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -45,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -176,7 +191,7 @@ def phase_decode(gen):
             _fail(f"{name}: fused_packed bits differ from the sequential oracle")
         if not torch.allclose(seq.path_metric, res.path_metric[:16], rtol=1e-5, atol=0):
             _fail(f"{name}: fused_packed metrics differ from the sequential oracle")
-    return launches, inputs, hard
+    return launches, inputs, hard, results
 
 
 def _parity_case(code, data, weights):
@@ -727,6 +742,379 @@ def phase_timing_seeded(tiled, stream):
     return rows, e2e
 
 
+# --------------------------------------------------------------------------- #
+# the unpacked route, the paper's one-step instruction, the SISO family       #
+# --------------------------------------------------------------------------- #
+
+#: ``TURBO_SPEC`` of tests/test_golden_ber.py and benchmarks/siso_throughput.py:
+#: the K=4 LTE constituent with a QPP interleaver of N=512, at B=8192 blocks;
+#: LTE's largest code block (3GPP TS 36.212 Table 5.1.3-3) at B=1024
+TURBO_B, TURBO_N, TURBO_QPP = 8192, 512, (512, 31, 64)
+LTE_B, LTE_QPP = 1024, (6144, 263, 480)
+EBN0_DB = 1.0
+TEXPAND_SRC = "src/repro_torch/csrc/texpand.cu"
+BCJR_SRC = "src/repro_torch/csrc/bcjr.cu"
+
+
+def phase_fused(inputs, results):
+    """The unpacked route through ``decode(..., backend="fused")`` on phase
+    2's symbols, against phase 2's ``fused_packed`` decodes."""
+    import torch
+
+    from repro_torch.decode import DecodeRequest, decode
+    from repro_torch.kernels import reset_counts
+
+    reset_counts()
+    for name in ("hard", "soft"):
+        rx = inputs[name][2]
+        spec = results[name].spec
+        before = _counts()[0].get("viterbi_scan", 0)
+        res = decode(DecodeRequest(spec, received=rx), backend="fused")
+        torch.cuda.synchronize()
+        la, pa = _counts()
+        if la.get("viterbi_scan", 0) - before != 1 or any(pa.values()):
+            _fail(f"fused {name}: launches {la}, plain calls {pa}")
+        packed = results[name]
+        if res.plan.backend != "fused" or not torch.equal(res.bits, packed.bits):
+            _fail(f"fused {name}: bits differ from the fused_packed decode of the same symbols")
+        d_metric = float((res.path_metric - packed.path_metric).abs().max())
+        if name == "hard" and d_metric:
+            _fail(f"fused hard: metric differs from fused_packed by {d_metric}")
+        # soft: the table route and the in-kernel route round the metric's
+        # sums differently; the reference's float32 contract
+        if not torch.allclose(res.path_metric, packed.path_metric, rtol=1e-5, atol=0):
+            _fail(f"fused {name}: metric beyond float32 rounding of fused_packed's")
+        ber = _ber(res.info_bits, inputs[name][0])
+        print(f"[fused] {name}: B={rx.shape[0]} T={rx.shape[1]} bits equal fused_packed's, "
+              f"max |metric diff| {d_metric!r}, BER={ber!r}")
+    launches = _counts()[0]
+    print(f"[fused] launches {launches}")
+    return launches
+
+
+def _texpand_steps(code, bm_t):
+    """Drive ``texpand_op`` over every step of (T, B, M) tables from the
+    state-0 start: (final pm (B, S), selects (T, B, S) int32)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    T, B, _ = bm_t.shape
+    pm = torch.full((B, code.n_states), 1e30, dtype=torch.float32, device=bm_t.device)
+    pm[:, 0] = 0.0
+    bps = []
+    for t in range(T):
+        pm, bp = ops.texpand_op(code, pm, bm_t[t])
+        bps.append(bp)
+    return pm, torch.stack(bps)
+
+
+def _texpand_decode(code, bm_t):
+    """A terminated decode driven one ``texpand`` launch per step, traced
+    back by the plain traceback of core/viterbi.py: (bits, metric)."""
+    import torch
+
+    from repro_torch.core.viterbi import _traceback
+
+    pm, bps = _texpand_steps(code, bm_t)
+    final_state = torch.zeros((pm.shape[0],), dtype=torch.int32, device=pm.device)
+    return _traceback(code, bps, final_state)[0], pm[:, 0]
+
+
+def phase_texpand(inputs, results):
+    """The paper's instruction driven step by step over phase 2's bm tables,
+    against one launch of the unpacked scan."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_counts, viterbi_scan
+
+    tables = {}
+    reset_counts()
+    for name in ("hard", "soft"):
+        spec = results[name].spec
+        bm = spec.branch_metrics(inputs[name][2]).contiguous()
+        bm_t = bm.transpose(0, 1).contiguous()  # (T, B, M): one contiguous row a step
+        torch.cuda.synchronize()
+        before = launch_counts["texpand"]
+        pm, bps = _texpand_steps(spec.code, bm_t)
+        torch.cuda.synchronize()
+        steps = launch_counts["texpand"] - before
+        if steps != bm.shape[1]:
+            _fail(f"texpand {name}: {steps} launches for T={bm.shape[1]}")
+        want_pm, want_bps = viterbi_scan.viterbi_scan(spec.code, bm)
+        torch.cuda.synchronize()
+        if not (torch.equal(pm, want_pm) and torch.equal(bps, want_bps)):
+            _fail(f"texpand {name}: the stepped metrics or selects differ from the scan's")
+        print(f"[texpand] {name}: {steps} launches, final metrics and (T, B, S) selects equal "
+              "the unpacked scan's exactly")
+        del bps, want_bps
+        tables[name] = (spec, inputs[name][2], bm, bm_t)
+    launches, plain = _counts()
+    if any(plain.values()):
+        _fail(f"texpand: plain versions ran: {plain}")
+    print(f"[texpand] launches {launches}")
+    return launches, tables
+
+
+def _ebn0_channel(rate: float) -> float:
+    """Es/N0 (dB) of Eb/N0 = EBN0_DB at code rate ``rate``."""
+    return EBN0_DB + 10 * math.log10(rate)
+
+
+def phase_siso(gen):
+    """The SISO family through ``decode()``: bcjr and turbo at full width."""
+    import torch
+
+    from repro_torch.core import ConvCode
+    from repro_torch.decode import CodecSpec, DecodeContext, DecodeRequest, decode
+    from repro_torch.kernels import reset_counts
+    from repro_torch.siso import RSC_K4_LTE, QPPInterleaver, TurboSpec
+
+    reset_counts()
+    out = {}
+    # --- the LTE constituent alone through the bcjr backend, rate 1/2
+    spec = CodecSpec(code=RSC_K4_LTE, metric="soft", terminated=True)
+    bits = torch.randint(0, 2, (B_MAIN, N_INFO), generator=gen, device="cuda", dtype=torch.int32)
+    coded = spec.encode(bits)
+    snr = _ebn0_channel(1 / RSC_K4_LTE.n_out)
+    rx = spec.channel(gen, coded, snr_db=snr)
+    torch.cuda.synchronize()
+    before = _counts()[0]
+    res = decode(DecodeRequest(spec, received=rx))
+    torch.cuda.synchronize()
+    after = _counts()[0]
+    for k in ("bcjr_alpha_scan", "bcjr_beta_llr_scan"):
+        if after.get(k, 0) - before.get(k, 0) != 1:
+            _fail(f"bcjr decode: {k} launched {after.get(k, 0) - before.get(k, 0)} times")
+    if res.plan.backend != "bcjr" or res.bits.shape != (B_MAIN, spec.n_steps(N_INFO)):
+        _fail(f"bcjr decode: backend {res.plan.backend!r}, bits {tuple(res.bits.shape)}")
+    if not torch.isfinite(res.path_metric).all():
+        _fail("bcjr decode: non-finite metrics")
+    clean = decode(DecodeRequest(spec, received=1.0 - 2.0 * coded.float()))
+    if not torch.equal(clean.info_bits, bits):
+        _fail("noiseless RSC block did not decode to its info bits")
+    ber = _ber(res.info_bits, bits)
+    print(f"[siso] bcjr {spec.describe()}: B={B_MAIN} T={spec.n_steps(N_INFO)} Es/N0={snr!r} dB "
+          f"BER={ber!r} | {res.plan.explain()}")
+    uncoded = 0.5 * math.erfc(math.sqrt(10 ** (EBN0_DB / 10)))  # BPSK at the same Eb/N0
+    if not ber < uncoded:
+        _fail(f"bcjr decode: BER {ber} is not below uncoded BPSK's {uncoded} at this Eb/N0")
+    out["bcjr"] = dict(spec=spec, rx=rx, bits=bits, ber=ber, snr_db=snr)
+
+    # --- turbo: the repo's configuration and LTE's largest block
+    snr = _ebn0_channel(1 / 3)
+    for label, B, qpp in (("turbo", TURBO_B, TURBO_QPP), ("lte6144", LTE_B, LTE_QPP)):
+        tspec = TurboSpec(code=RSC_K4_LTE, interleaver=QPPInterleaver(*qpp))
+        tbits = torch.randint(0, 2, (B, tspec.block_len), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        trx = tspec.channel(gen, tspec.encode(tbits), snr_db=snr)
+        torch.cuda.synchronize()
+        before = _counts()[0]
+        t0 = time.perf_counter()
+        tres = decode(DecodeRequest(tspec, received=trx))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = _counts()[0]
+        n_it = tres.diagnostics["iterations"]
+        for k in ("bcjr_alpha_scan", "bcjr_beta_llr_scan"):
+            if after.get(k, 0) - before.get(k, 0) != 2 * n_it:
+                _fail(f"{label}: {k} launched {after.get(k, 0) - before.get(k, 0)} times "
+                      f"for {n_it} iterations")
+        if tres.plan.backend != "turbo" or tres.bits.shape != (B, tspec.block_len):
+            _fail(f"{label}: backend {tres.plan.backend!r}, bits {tuple(tres.bits.shape)}")
+        if not torch.isfinite(tres.diagnostics["llr"]).all():
+            _fail(f"{label}: non-finite LLRs")
+        tber = _ber(tres.bits, tbits)
+        print(f"[siso] {label} {tspec.describe()}: B={B} Es/N0={snr!r} dB iterations_run={n_it} "
+              f"agreement={list(tres.diagnostics['agreement'])} converged "
+              f"{int(tres.diagnostics['converged'].sum())}/{B} BER={tber!r} ({wall!r} s)")
+        out[label] = dict(spec=tspec, rx=trx, bits=tbits, ber=tber, iterations=n_it,
+                          agreement=list(tres.diagnostics["agreement"]))
+
+    # the repo's gate (tests/test_golden_ber.py): turbo strictly below the
+    # rate-1/3 K=7 soft Viterbi baseline on the same info bits, open trellis
+    base = CodecSpec(code=ConvCode(7, (0o133, 0o171, 0o165)), metric="soft", terminated=False)
+    tbits = out["turbo"]["bits"]
+    brx = base.channel(gen, base.encode(tbits), snr_db=snr)
+    bres = decode(DecodeRequest(base, received=brx))
+    bber = _ber(bres.info_bits, tbits)
+    print(f"[siso] baseline {base.describe()} via {bres.plan.backend}: BER={bber!r}; turbo "
+          f"N={TURBO_N} BER={out['turbo']['ber']!r} at Eb/N0 {EBN0_DB} dB")
+    if not out["turbo"]["ber"] < bber:
+        _fail(f"turbo BER {out['turbo']['ber']} is not below the K=7 Viterbi baseline's {bber}")
+    launches, plain = _counts()
+    if any(plain.values()):
+        _fail(f"siso: plain versions ran: {plain}")
+    out["baseline_ber"] = bber
+    print(f"[siso] launches {launches}")
+    # a slice of the bcjr decode against the plain versions on the CPU
+    # (after the counters are read: these are not the path's launches)
+    on_cpu = decode(DecodeRequest(spec, received=rx[:16].cpu()), ctx=DecodeContext(device="cpu"))
+    if not (torch.equal(on_cpu.bits, res.bits[:16].cpu())
+            and torch.equal(on_cpu.path_metric, res.path_metric[:16].cpu())):
+        _fail("bcjr decode on the card differs from the plain decode on the CPU")
+    print("[siso] bcjr decode of 16 blocks on the card equals the plain decode on the CPU")
+    return launches, out
+
+
+def phase_parity_siso(gen):
+    """The unpacked scan, texpand and both BCJR scans against their plain
+    versions at small shapes."""
+    import torch
+
+    from repro_torch.core import CODE_K3_STD, CODE_K7_NASA, ConvCode
+    from repro_torch.kernels import bcjr, texpand, viterbi_scan
+    from repro_torch.siso import RSC_K3_75, RSC_K4_LTE
+
+    for code, B, T in ((CODE_K3_STD, 37, 100), (CODE_K7_NASA, 300, 70),
+                       (ConvCode(11, (0o3345, 0o3613)), 9, 45)):
+        S, M, K = code.n_states, code.n_symbols, code.constraint
+        for tables in (torch.randint(0, 3, (B, T, M), generator=gen, device="cuda").float(),
+                       torch.randn((B, T, M), generator=gen, device="cuda")):
+            _same(f"unpacked scan K={K}", viterbi_scan.viterbi_scan(code, tables),
+                  viterbi_scan.viterbi_scan_plain(code, tables))
+        for pm, bm in ((_seed_metrics(gen, B, S),
+                        torch.randint(0, 2, (B, M), generator=gen, device="cuda").float()),
+                       (torch.randn((B, S), generator=gen, device="cuda") * 10,
+                        torch.randn((B, M), generator=gen, device="cuda"))):
+            _same(f"texpand K={K}", texpand.texpand(code, pm, bm),
+                  texpand.texpand_plain(code, pm, bm))
+        print(f"[parity] K={K} B={B} T={T} unpacked scan (int, soft tables), texpand "
+              "(1e30 seeds, ties, soft): exact")
+    for code in (RSC_K3_75, RSC_K4_LTE):
+        feat = torch.randn((90, code.n_features, 333), generator=gen, device="cuda") * 2
+        alphas, final_pm = bcjr.bcjr_alpha_scan(code, feat)
+        _same(f"alpha scan K={code.constraint}", (alphas, final_pm),
+              bcjr.bcjr_alpha_scan_plain(code, feat))
+        for terminated in (True, False):
+            _same(f"beta/LLR scan K={code.constraint} terminated={terminated}",
+                  (bcjr.bcjr_beta_llr_scan(code, alphas, feat, terminated),),
+                  (bcjr.bcjr_beta_llr_scan_plain(code, alphas, feat, terminated),))
+        print(f"[parity] RSC K={code.constraint} B=333 T=90 alpha scan, beta/LLR scan "
+              "(terminated, open): exact")
+
+
+def _unique_rows(*weights) -> int:
+    """Distinct weight rows among (S, F) tables: the branch costs the
+    function needs per step (every other row repeats one of them)."""
+    import numpy as np
+
+    return len({tuple(r) for w in weights for r in np.asarray(w)})
+
+
+def phase_timing_siso(texpand_tables, siso):
+    """The unpacked scan, texpand and both BCJR scans at the shapes their
+    paths give them, each against its plain version; end-to-end times of the
+    fused, texpand-driven, bcjr and turbo decodes."""
+    import torch
+
+    from repro_torch.decode import DecodeRequest, decode
+    from repro_torch.kernels import bcjr, texpand, viterbi_scan
+
+    rows = []
+    e2e = {}
+    spec, rx, bm, bm_t = texpand_tables["hard"]
+    code = spec.code
+    B, T, M = bm.shape
+    S = code.n_states
+    # --- row 6: one unpacked scan over the K=7 B=8192 T=1006 hard tables
+    r, pms, k, p = _timed(lambda: viterbi_scan.viterbi_scan(code, bm),
+                          lambda: viterbi_scan.viterbi_scan_plain(code, bm), 5)
+    err = _same("unpacked scan at the fused shape", k, p)
+    del k, p
+    print(f"[timing] rounds (ms): viterbi_scan {r}")
+    row = _row("viterbi_scan", SCAN_SRC, "src/repro/kernels/viterbi_scan.py:190",
+               statistics.median(r), pms, 4 * (B * T * M + T * B * S + B * S + 2 * S * M + 2 * S),
+               B * T * (M * 2 * M + 7 * S))
+    row.update(max_abs_err=err, shape=f"{B} streams x {T} steps, K=7")
+    rows.append(row)
+    scan_ms = row["ms"]
+    # --- row 8: one texpand step at the same shape, and all T of them
+    pm_mid, _ = _texpand_steps(code, bm_t[:40])  # a frontier with every state reachable
+    r, pms, k, p = _timed(lambda: texpand.texpand(code, pm_mid, bm_t[40]),
+                          lambda: texpand.texpand_plain(code, pm_mid, bm_t[40]), 200)
+    err = _same("texpand at the fused shape", k, p)
+    print(f"[timing] rounds (ms): texpand (one step) {r}")
+    row = _row("texpand", TEXPAND_SRC, "src/repro/kernels/texpand.py:46", statistics.median(r),
+               pms, 4 * (3 * B * S + B * M + 2 * S), 4 * B * S)
+    row.update(max_abs_err=err, shape=f"{B} streams x 1 step, K=7")
+    rows.append(row)
+    loop_rounds = _event_ms(lambda: _texpand_steps(code, bm_t), 1, rounds=5, warmup=1)
+    loop_ms = statistics.median(loop_rounds)
+    print(f"[timing] texpand over all {T} steps (one launch a step): rounds {loop_rounds} median "
+          f"{loop_ms!r} ms = {loop_ms / T!r} ms a step, against one viterbi_scan launch "
+          f"{scan_ms!r} ms ({loop_ms / scan_ms!r}x)")
+    e2e["texpand_steps_ms"] = loop_ms
+    e2e["texpand_per_step_ms"] = loop_ms / T
+    e2e["viterbi_scan_ms"] = scan_ms
+
+    # --- end to end: the fused decode (raw symbols in, as phase 5) and the
+    # texpand-driven decode (bm tables in)
+    request = DecodeRequest(spec, received=rx)
+    for label, fn in (("fused decode()", lambda: decode(request, backend="fused")),
+                      ("texpand-driven decode", lambda: _texpand_decode(code, bm_t))):
+        rounds = _event_ms(fn, 1, rounds=5, warmup=1)
+        ms = statistics.median(rounds)
+        peak = _peak_bytes(fn)
+        key = "fused" if label.startswith("fused") else "texpand_decode"
+        e2e[key] = dict(ms=ms, rounds=rounds, bits_per_s=B * N_INFO / (ms / 1e3),
+                        peak_bytes=peak)
+        print(f"[timing] {label} K=7 hard B={B} T={T}: rounds {rounds} median {ms!r} ms, "
+              f"{B * N_INFO / (ms / 1e3)!r} decoded bits/s, peak device memory {peak} bytes "
+              "above the live tensors")
+
+    # --- rows 9 and 10: the first SISO pass of the N=512 turbo decode
+    tspec = siso["turbo"]["spec"]
+    rcode = tspec.code
+    llrs = tspec.channel_llrs(siso["turbo"]["rx"])
+    coded = torch.cat([llrs[..., :1], llrs[..., 1:1 + rcode.n_parity]], dim=-1)
+    Bt, N, _ = coded.shape
+    feat = torch.cat([coded, torch.zeros((Bt, N, 1), device="cuda")], dim=-1)
+    feat = feat.permute(1, 2, 0).contiguous()  # (T, F, B), as bcjr_llr_op builds it
+    F, Sr = rcode.n_features, rcode.n_states
+    R = _unique_rows(*rcode.alpha_weights, *rcode.beta_weights, *rcode.llr_weights)
+    r, pms, k, p = _timed(lambda: bcjr.bcjr_alpha_scan(rcode, feat),
+                          lambda: bcjr.bcjr_alpha_scan_plain(rcode, feat), 10)
+    err = _same("alpha scan at the turbo shape", k, p)
+    alphas = k[0]
+    print(f"[timing] rounds (ms): bcjr_alpha_scan {r}")
+    # per (lane, step): R distinct F-term branch costs, then per state two
+    # adds, a min, the renorm min, subtract and clamp
+    row = _row("bcjr_alpha_scan", BCJR_SRC, "src/repro/kernels/bcjr.py:117", statistics.median(r),
+               pms, 4 * (N * F * Bt + N * Sr * Bt + Sr * Bt + 2 * Sr * F),
+               Bt * N * (R * 2 * F + 6 * Sr))
+    row.update(max_abs_err=err, shape=f"{Bt} blocks x {N} steps, S={Sr}")
+    rows.append(row)
+    del k, p
+    r, pms, k, p = _timed(lambda: bcjr.bcjr_beta_llr_scan(rcode, alphas, feat, False),
+                          lambda: bcjr.bcjr_beta_llr_scan_plain(rcode, alphas, feat, False), 10)
+    err = _same("beta/LLR scan at the turbo shape", (k,), (p,))
+    print(f"[timing] rounds (ms): bcjr_beta_llr_scan {r}")
+    # per (lane, step): R branch costs; the LLR's two costs, two mins per
+    # state and one subtract; the beta retire's two adds, min and renorm
+    row = _row("bcjr_beta_llr_scan", BCJR_SRC, "src/repro/kernels/bcjr.py:165",
+               statistics.median(r), pms,
+               4 * (N * Sr * Bt + N * F * Bt + N * Bt + 4 * Sr * F + 2 * Sr),
+               Bt * N * (R * 2 * F + 12 * Sr + 1))
+    row.update(max_abs_err=err, shape=f"{Bt} blocks x {N} steps, S={Sr}")
+    rows.append(row)
+    del alphas, k, p, feat
+
+    # --- end to end: the bcjr decode and both turbo decodes
+    for label in ("bcjr", "turbo", "lte6144"):
+        cspec, crx = siso[label]["spec"], siso[label]["rx"]
+        request = DecodeRequest(cspec, received=crx)
+        rounds = _event_ms(lambda rq=request: decode(rq), 1, rounds=5, warmup=1)
+        ms = statistics.median(rounds)
+        n_bits = crx.shape[0] * (cspec.block_len if label != "bcjr" else N_INFO)
+        peak = _peak_bytes(lambda rq=request: decode(rq))
+        e2e[label] = dict(ms=ms, rounds=rounds, bits_per_s=n_bits / (ms / 1e3), peak_bytes=peak)
+        print(f"[timing] {label} decode() B={crx.shape[0]} T={crx.shape[1]}: rounds {rounds} "
+              f"median {ms!r} ms, {n_bits / (ms / 1e3)!r} decoded bits/s, peak device memory "
+              f"{peak} bytes above the live tensors")
+    return rows, e2e
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -745,13 +1133,18 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    wall0 = time.perf_counter()
     smi = phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    launches, inputs, hard_spec = phase_decode(gen)
+    launches, inputs, hard_spec, results = phase_decode(gen)
     tiled = phase_tiled(gen)
     stream = phase_stream(gen)
+    fused_launches = phase_fused(inputs, results)
+    texpand_launches, texpand_tables = phase_texpand(inputs, results)
+    siso_launches, siso = phase_siso(gen)
     feats, weights, errs = phase_parity(gen, inputs["hard"], hard_spec)
     phase_parity_seeded(gen)
+    phase_parity_siso(gen)
     rows, e2e = phase_timing(hard_spec, inputs["hard"][2], feats, weights)
     for row, err in zip(rows, errs):
         row["launches"] = launches.get(row["name"], 0)
@@ -764,17 +1157,32 @@ def main(argv=None) -> int:
         "viterbi_scan_packed_window": tiled["hard"]["launches_pinned"],
         "traceback_packed_window": tiled["hard"]["launches_pinned"],
     }
-    for row in seeded_rows:
+    siso_rows, siso_e2e = phase_timing_siso(texpand_tables, siso)
+    path_launches.update(viterbi_scan=fused_launches, texpand=texpand_launches,
+                         bcjr_alpha_scan=siso_launches, bcjr_beta_llr_scan=siso_launches)
+    for row in seeded_rows + siso_rows:
         row["launches"] = path_launches[row["name"]].get(row["name"], 0)
-    rows += seeded_rows
+    rows += seeded_rows + siso_rows
     e2e = {"decode_short": e2e, "tiled_nasa_frame": tiled_e2e, "stream_64k": stream["e2e"],
+           "fused_texpand_siso": siso_e2e,
            "ber": {"tiled_hard": tiled["hard"]["ber"], "tiled_soft": tiled["soft"]["ber"],
-                   "stream": stream["ber"]}}
+                   "stream": stream["ber"],
+                   "siso": {k: siso[k]["ber"] for k in ("bcjr", "turbo", "lte6144")},
+                   "turbo_baseline_k7": siso["baseline_ber"]},
+           "turbo_iterations": {k: siso[k]["iterations"] for k in ("turbo", "lte6144")}}
+    # the kernels' table in the order of the TPU kernels' rows (PERF.md)
+    order = ["viterbi_scan_packed", "traceback_packed", "viterbi_scan_packed_carry",
+             "viterbi_scan_packed_window", "traceback_packed_window", "viterbi_scan",
+             "viterbi_scan_carry", "texpand", "bcjr_alpha_scan", "bcjr_beta_llr_scan"]
+    rows.sort(key=lambda row: order.index(row["name"]))
+    if [row["name"] for row in rows] != order or not all(row["launches"] > 0 for row in rows):
+        _fail(f"kernel rows incomplete: {[(row['name'], row['launches']) for row in rows]}")
     kernels = [{k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")} for row in rows]
     print(json.dumps({"end_to_end": e2e, "bound_inputs": [
         {k: r[k] for k in ("name", "bytes", "operations", "shape") if k in r} for r in rows]}))
+    print(f"[done] wall time {time.perf_counter() - wall0!r} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

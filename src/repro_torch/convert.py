@@ -1,8 +1,11 @@
 """Bridge from the reference package's state to the port's.
 
 The decoder has no learned weights; its parameters are the code tables
-(rebuilt from constraint length + polynomials), the folded metric operands
-(a FusedMetricPlan's weight and bias) and the survivor words.  These helpers
+(rebuilt from constraint length + polynomials: ``(constraint, polys)`` of a
+ConvCode, ``(constraint, feedback, forward)`` of an RSCCode), the
+interleaver parameters (``(n, f1, f2)`` of a QPP interleaver, ``(rows,
+cols)`` of a block interleaver), the folded metric operands (a
+FusedMetricPlan's weight and bias) and the survivor words.  These helpers
 take them as plain numpy arrays — what the reference's objects hold or
 return — so both packages compute with the same operands without this
 package importing the reference.
@@ -16,11 +19,31 @@ import torch
 
 from repro_torch.core.trellis import ConvCode
 from repro_torch.kernels.metrics import FusedMetricPlan
+from repro_torch.siso.interleave import BlockInterleaver, QPPInterleaver
+from repro_torch.siso.rsc import RSCCode
 
 
 def code_from_arrays(constraint: int, polys: Sequence[int]) -> ConvCode:
     """The port's ConvCode for the reference's ``ConvCode(constraint, polys)``."""
     return ConvCode(int(constraint), tuple(int(g) for g in polys))
+
+
+def rsc_code_from_arrays(constraint: int, feedback: int, forward: Sequence[int]) -> RSCCode:
+    """The port's RSCCode for the reference's ``RSCCode(constraint, feedback,
+    forward)``."""
+    return RSCCode(int(constraint), int(feedback), tuple(int(g) for g in forward))
+
+
+def qpp_from_arrays(n: int, f1: int, f2: int) -> QPPInterleaver:
+    """The port's QPP interleaver for the reference's ``QPPInterleaver(n, f1,
+    f2)``."""
+    return QPPInterleaver(int(n), int(f1), int(f2))
+
+
+def block_interleaver_from_arrays(rows: int, cols: int) -> BlockInterleaver:
+    """The port's block interleaver for the reference's
+    ``BlockInterleaver(rows, cols)``."""
+    return BlockInterleaver(int(rows), int(cols))
 
 
 def plan_from_arrays(

@@ -12,6 +12,8 @@ from repro_torch.core.puncture import (
     PUNCTURE_2_3,
     PUNCTURE_3_4,
     PUNCTURE_5_6,
+    PUNCTURE_TURBO_1_2,
+    effective_rate,
     pattern_mask,
     punctured_hard_metrics,
 )
@@ -34,11 +36,13 @@ __all__ = [
     "PUNCTURE_2_3",
     "PUNCTURE_3_4",
     "PUNCTURE_5_6",
+    "PUNCTURE_TURBO_1_2",
     "ConvCode",
     "acs_step",
     "awgn",
     "bpsk_modulate",
     "bsc",
+    "effective_rate",
     "encode",
     "hard_branch_metrics",
     "pack_symbols",

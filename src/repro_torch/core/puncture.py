@@ -17,6 +17,11 @@ PUNCTURE_2_3 = np.array([[1, 1], [1, 0]])
 PUNCTURE_3_4 = np.array([[1, 1, 0], [1, 0, 1]])
 PUNCTURE_5_6 = np.array([[1, 1, 0, 1, 0], [1, 0, 1, 0, 1]])
 
+#: WIMAX-style turbo puncturing over the [systematic, parity1, parity2]
+#: streams: keep every systematic bit, alternate the parities -> rate 1/2
+#: from the rate-1/3 mother turbo code.
+PUNCTURE_TURBO_1_2 = np.array([[1, 1], [1, 0], [0, 1]])
+
 
 def pattern_mask(code, T: int, pattern: np.ndarray, device="cpu") -> torch.Tensor:
     """(T, n_out) float32 0/1 mask from a (n_out, period) pattern.
@@ -47,3 +52,9 @@ def punctured_hard_metrics(code: ConvCode, received_bits: torch.Tensor,
     r = received_bits.to(torch.float32)[..., None, :]  # (..., T, 1, n)
     diff = torch.abs(r - bits[None, :, :])  # (..., T, M, n)
     return (diff * mask[:, None, :]).sum(-1)
+
+
+def effective_rate(code, pattern: np.ndarray) -> float:
+    """k/n after puncturing: period input bits -> surviving coded bits."""
+    period = pattern.shape[1]
+    return period / float(pattern.sum())

@@ -11,6 +11,8 @@
 //                                      windowed=True) both passes of the tiled decode
 //   viterbi_scan_carry_launch          `viterbi_scan_carry`         (carry=True, pack=False)
 //                                      the `streaming` backend's chunk scan, bm tables in
+//   viterbi_scan_launch                `viterbi_scan`               (carry=False, pack=False)
+//                                      the `fused` backend's scan, bm tables in
 //
 // What it computes, for every stream (lane) b and trellis step t:
 //   cand_j[s'] = (pm[2v + j] + sum_f b_j[s', f] * x[b, t, f]) + rb[s', j]
@@ -265,6 +267,14 @@ extern "C" int viterbi_scan_packed_window_launch(const void* pm0, const void* da
                                                  int S, void* stream) {
   return dispatch<true, true, true>(
       args(pm0, data, b0, b1, rb, lo, hi, final_pm, packed, B, T, F, S), stream);
+}
+
+// `viterbi_scan`: state-0 init, one int32 select per (T, B, S).
+extern "C" int viterbi_scan_launch(const void* data, const void* b0, const void* b1,
+                                   const void* rb, void* final_pm, void* bps, int B,
+                                   int T, int F, int S, void* stream) {
+  return dispatch<false, false, false>(
+      args(nullptr, data, b0, b1, rb, nullptr, nullptr, final_pm, bps, B, T, F, S), stream);
 }
 
 // `viterbi_scan_carry`: seeded from pm0, one int32 select per (T, B, S).

@@ -3,9 +3,11 @@
 Ported: ``fused_packed`` (the packed scan + traceback kernels, with a
 raw-symbol entry that computes branch metrics in the scan kernel and a
 bm-table entry that feeds the same kernel through ``table_weights``),
+``fused`` (the scan with unpacked survivors + the plain traceback),
 ``tiled`` (the windowed scan + windowed traceback kernels, both entries),
-``streaming`` (the carried unpacked scan behind a windowed stream session)
-and ``sequential`` (the plain oracle).  Every other backend name of the reference
+``streaming`` (the carried unpacked scan behind a windowed stream session),
+``bcjr`` and ``turbo`` (the two BCJR scan kernels, the SISO family) and
+``sequential`` (the plain oracle).  Every other backend name of the reference
 is registered with the reference's capability record, so the planner and
 validation behave the same, but its entry raises ``NotImplementedError``
 naming the ROADMAP.md item that ports it — it never falls back to another
@@ -14,18 +16,23 @@ populates the registry.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.viterbi import viterbi_decode
 from repro_torch.decode.registry import BackendCapabilities, register_decoder
 from repro_torch.decode.request import DecodeContext, DecodeResult
 from repro_torch.decode.spec import CodecSpec
 from repro_torch.kernels.metrics import fused_metric_plan
 from repro_torch.kernels.ops import (
+    bcjr_llr_op,
+    viterbi_decode_fused,
     viterbi_decode_fused_packed,
     viterbi_decode_packed,
     viterbi_decode_tiled_fused,
     viterbi_decode_tiled_op,
 )
 from repro_torch.kernels.tiling import default_tiles
+from repro_torch.siso.turbo import turbo_decode
 
 #: Largest trellis the fused scan takes: the planner's cap for the fused
 #: routes, kept equal to the reference's so both pick the same backend (the
@@ -33,7 +40,7 @@ from repro_torch.kernels.tiling import default_tiles
 FUSED_MAX_STATES = 4096
 
 
-def _result(spec: CodecSpec, bits, metric, **diag) -> DecodeResult:
+def _result(spec, bits, metric, **diag) -> DecodeResult:
     return DecodeResult(bits=bits, path_metric=metric, spec=spec, diagnostics=diag)
 
 
@@ -47,6 +54,20 @@ def _not_ported(name: str, item: int):
         )
 
     return entry
+
+
+@register_decoder(
+    "fused",
+    capabilities=BackendCapabilities(family="conv", max_states=FUSED_MAX_STATES),
+)
+def decode_fused(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> DecodeResult:
+    """Scan kernel with on-chip path metrics and unpacked int32 survivors
+    (the paper's Texpand loop kept on the chip) + the plain torch traceback
+    of core/viterbi.py."""
+    bits, metric = viterbi_decode_fused(
+        spec.code, ctx.place(bm_tables), terminated=spec.terminated
+    )
+    return _result(spec, bits, metric, backend="fused")
 
 
 def _fused_packed_from_received(
@@ -153,12 +174,6 @@ def decode_sequential(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> Deco
 
 
 register_decoder(
-    "fused",
-    capabilities=BackendCapabilities(family="conv", max_states=FUSED_MAX_STATES),
-    summary="scan with unpacked survivors (not ported yet)",
-)(_not_ported("fused", 7))
-
-register_decoder(
     "parallel",
     capabilities=BackendCapabilities(family="conv"),
     summary="(min,+) associative scan over chunks (not ported yet)",
@@ -184,18 +199,49 @@ register_decoder(
     summary="mesh-sharded streaming scheduler (not ported yet)",
 )(_not_ported("sharded_stream", 9))
 
-register_decoder(
+
+def _bcjr_from_received(spec: CodecSpec, received, *, ctx: DecodeContext) -> DecodeResult:
+    """Raw-symbol entry: channel output -> per-coded-bit LLR columns through
+    the spec (puncture-masked), then the SISO kernels."""
+    return decode_bcjr(spec, spec.branch_metrics(ctx.place(received)), ctx=ctx)
+
+
+@register_decoder(
     "bcjr",
     capabilities=BackendCapabilities(
         family="rsc", max_states=FUSED_MAX_STATES, accepts_received=True
     ),
-    summary="max-log-MAP BCJR SISO decoder (not ported yet)",
-    from_received=_not_ported("bcjr", 8),
-)(_not_ported("bcjr", 8))
+    from_received=_bcjr_from_received,
+)
+def decode_bcjr(spec: CodecSpec, llr_coded, *, ctx: DecodeContext) -> DecodeResult:
+    """Max-log-MAP BCJR SISO decoder (the alpha and beta/LLR scan kernels)
+    for recursive systematic codes — bits are LLR signs, posterior LLRs ride
+    along in the diagnostics for iterative (turbo) consumers."""
+    llr, metric = bcjr_llr_op(spec.code, ctx.place(llr_coded), terminated=spec.terminated)
+    bits = (llr < 0).to(torch.int32)
+    return _result(spec, bits, metric, backend="bcjr", llr=llr)
 
-register_decoder(
+
+def _turbo_from_received(spec, received, *, ctx: DecodeContext) -> DecodeResult:
+    """Raw-symbol entry: channel output -> depunctured stream LLRs through
+    the TurboSpec, then the iterative loop."""
+    return decode_turbo(spec, spec.channel_llrs(ctx.place(received)), ctx=ctx)
+
+
+@register_decoder(
     "turbo",
     capabilities=BackendCapabilities(family="turbo", accepts_received=True),
-    summary="iterative turbo decoder (not ported yet)",
-    from_received=_not_ported("turbo", 8),
-)(_not_ported("turbo", 8))
+    from_received=_turbo_from_received,
+)
+def decode_turbo(spec, llrs, *, ctx: DecodeContext) -> DecodeResult:
+    """Iterative turbo decoder: two BCJR SISO passes per iteration exchanging
+    scaled extrinsic LLRs through the spec's interleaver, early-exiting on
+    LLR-sign agreement.  ``path_metric`` is the negated mean posterior |LLR|
+    (lower = more confident, matching the minimized-metric convention)."""
+    result = turbo_decode(spec, ctx.place(llrs), device=ctx.device)
+    metric = -torch.mean(torch.abs(result.llr), dim=-1)
+    return _result(
+        spec, result.bits, metric, backend="turbo",
+        iterations=result.iterations_run, converged=result.converged,
+        agreement=result.agreement, llr=result.llr,
+    )

@@ -1,12 +1,15 @@
 """Shape-aware decode planner.
 
-``plan_decode(spec, shape)`` picks a backend from the problem shape
-(B, T, S) and the context.  The choice is a pure function of its inputs,
-can always be overridden with ``backend=...``, and every plan carries an
-``explain()`` string.  The rules are the reference planner's, so both name
-the same backend for the same (spec, shape, context):
+``plan_decode(spec, shape)`` picks a backend from the code family, the
+problem shape (B, T, S) and the context.  The choice is a pure function of
+its inputs, can always be overridden with ``backend=...``, and every plan
+carries an ``explain()`` string.  The rules are the reference planner's, so
+both name the same backend for the same (spec, shape, context):
 
   * explicit ``backend=`` override wins (validated against capabilities);
+  * non-Viterbi code families route first — a TurboSpec to ``turbo``, an
+    RSC CodecSpec to ``bcjr`` — so the shape rules below select only among
+    the Viterbi backends;
   * a streaming context (``ctx.streaming``) -> ``streaming``;
   * long blocks (T >= LONG_BLOCK_T) -> rule ``long-conv-tiled``: the
     time-parallel ``tiled`` backend with the pinned ``ctx.tiles`` or
@@ -33,6 +36,10 @@ from repro_torch.decode.request import DecodeContext, DecodeRequest, DecodeResul
 from repro_torch.decode.spec import CodecSpec, spec_family
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.tiling import default_tiles
+from repro_torch.siso.turbo import TurboSpec
+
+#: family -> SISO backend the planner routes non-Viterbi specs to.
+FAMILY_BACKENDS = {"rsc": "bcjr", "turbo": "turbo"}
 
 #: Above this many trellis steps the time-parallel decoders take over from
 #: the sequential-scan forward pass.
@@ -43,7 +50,7 @@ LONG_BLOCK_T = 1024
 class DecodePlan:
     """A resolved decode: spec + shape + backend choice + why."""
 
-    spec: CodecSpec
+    spec: Union[CodecSpec, TurboSpec]
     backend: str
     batch: int
     steps: int
@@ -113,7 +120,17 @@ def _normalize_shape(shape: Sequence[int]) -> Tuple[int, int]:
     raise ValueError(f"shape must be (B, T) or (B, T, M), got {tuple(shape)}")
 
 
-def _validate(decoder: RegisteredDecoder, spec: CodecSpec) -> None:
+def _normalize_spec(spec):
+    """Promote a bare ConvCode to a CodecSpec; family specs with their own
+    encode/metric surface (TurboSpec) pass through untouched."""
+    if isinstance(spec, (CodecSpec, ConvCode)):
+        return CodecSpec.of(spec)
+    if isinstance(spec, TurboSpec):
+        return spec
+    raise TypeError(f"expected CodecSpec, ConvCode or TurboSpec, got {type(spec).__name__}")
+
+
+def _validate(decoder: RegisteredDecoder, spec) -> None:
     caps = decoder.capabilities
     fam = spec_family(spec)
     if caps.family != fam:
@@ -134,7 +151,7 @@ def _validate(decoder: RegisteredDecoder, spec: CodecSpec) -> None:
 
 
 def plan_decode(
-    spec: Union[CodecSpec, ConvCode],
+    spec: Union[CodecSpec, ConvCode, TurboSpec],
     shape: Sequence[int],
     *,
     backend: Optional[str] = None,
@@ -143,7 +160,8 @@ def plan_decode(
     """Pick (or validate) a decode backend for a (B, T[, M]) problem.
 
     Args:
-      spec: the CodecSpec (a bare ConvCode is promoted with defaults).
+      spec: the CodecSpec or TurboSpec (a bare ConvCode is promoted with
+        defaults).
       shape: (B, T) or the full (B, T, M) branch-metric table shape.
       backend: explicit registry name — skips auto-selection (still
         capability-validated).
@@ -153,15 +171,23 @@ def plan_decode(
       DecodePlan; ``plan.execute_request(request)`` runs it, ``plan.explain()``
       says why.
     """
-    spec = CodecSpec.of(spec)
+    spec = _normalize_spec(spec)
     B, T = _normalize_shape(shape)
     ctx = ctx or DecodeContext()
     dev = resolve_device(ctx.device)
     device_kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     S = spec.code.n_states
 
+    fam = spec_family(spec)
     if backend is not None:
         choice, reason = backend, f"explicit backend={backend!r} override"
+    elif fam in FAMILY_BACKENDS:
+        choice = FAMILY_BACKENDS[fam]
+        reason = (
+            f"code family {fam!r} -> registry family rule routes to "
+            f"{choice!r} (shape rules below select only among 'conv'/Viterbi "
+            "backends)"
+        )
     elif ctx.streaming:
         choice = "streaming"
         reason = "session context given -> windowed online decode (O(depth+chunk) memory)"
@@ -211,7 +237,7 @@ def plan_decode(
 
 
 def decode(
-    request: Union[DecodeRequest, CodecSpec, ConvCode],
+    request: Union[DecodeRequest, CodecSpec, ConvCode, TurboSpec],
     received=None,
     *,
     backend: Optional[str] = None,
@@ -225,6 +251,6 @@ def decode(
     ``"cuda"``; raises when no card is present).
     """
     if not isinstance(request, DecodeRequest):
-        request = DecodeRequest(spec=CodecSpec.of(request), received=received)
+        request = DecodeRequest(spec=_normalize_spec(request), received=received)
     plan = plan_decode(request.spec, request.shape(), backend=backend, ctx=ctx)
     return plan.execute_request(request)

@@ -5,8 +5,9 @@ One spec bundles the convolutional code (trellis), the branch-metric kind
 (punctured positions are erasures) and whether the trellis is terminated.
 A CodecSpec is hashable (puncture patterns are normalized to nested tuples).
 
-Only the feed-forward convolutional family ("conv") is ported; a recursive
-systematic code raises ``NotImplementedError``.
+Two code families: a feed-forward ``ConvCode`` ("conv", Viterbi-decoded)
+and a recursive systematic ``RSCCode`` ("rsc", SISO/BCJR-decoded).  The
+turbo family has its own spec, ``siso.turbo.TurboSpec``.
 """
 from __future__ import annotations
 
@@ -26,13 +27,15 @@ from repro_torch.core.channel import (
 from repro_torch.core.encoder import encode
 from repro_torch.core.puncture import pattern_mask, punctured_hard_metrics
 from repro_torch.core.trellis import CODE_K3_STD, ConvCode
+from repro_torch.siso.rsc import RSCCode
 
 METRIC_KINDS = ("hard", "soft")
 
 
 def spec_family(spec) -> str:
-    """Code family of a decode spec ("conv" for every spec this package
-    builds); the planner and capability validation dispatch on it."""
+    """Code family of any decode spec: "conv" (feed-forward convolutional),
+    "rsc" (recursive systematic, SISO-decoded), or "turbo" (TurboSpec).
+    The planner and capability validation dispatch on it."""
     return getattr(spec, "family", "conv")
 
 
@@ -41,7 +44,9 @@ class CodecSpec:
     """Immutable codec description shared by every decode backend.
 
     Attributes:
-      code: the feed-forward convolutional code (Viterbi-decoded).
+      code: a feed-forward ConvCode (Viterbi-decoded) or a recursive
+        systematic RSCCode (SISO/BCJR-decoded; the planner routes by
+        ``family``).
       metric: ``"hard"`` (Hamming distance over received bits) or ``"soft"``
         (correlation metric over real channel outputs).
       puncture: optional (n_out, period) 0/1 pattern; accepted as any
@@ -51,16 +56,16 @@ class CodecSpec:
         from the best frontier state instead.
     """
 
-    code: ConvCode = CODE_K3_STD
+    code: Union[ConvCode, RSCCode] = CODE_K3_STD
     metric: str = "hard"
     puncture: Optional[Tuple[Tuple[int, ...], ...]] = None
     terminated: bool = True
 
     def __post_init__(self):
-        if not isinstance(self.code, ConvCode):
-            raise NotImplementedError(
-                f"{type(self.code).__name__} not ported yet: repro_torch decodes "
-                "feed-forward ConvCode specs only (SISO codes: ROADMAP.md queue 1, item 8)"
+        if not isinstance(self.code, (ConvCode, RSCCode)):
+            raise TypeError(
+                f"code must be a repro_torch ConvCode or RSCCode, got "
+                f"{type(self.code).__module__}.{type(self.code).__name__}"
             )
         if self.metric not in METRIC_KINDS:
             raise ValueError(f"metric must be one of {METRIC_KINDS}, got {self.metric!r}")
@@ -88,12 +93,13 @@ class CodecSpec:
 
     @property
     def family(self) -> str:
-        return "conv"
+        return "rsc" if isinstance(self.code, RSCCode) else "conv"
 
     @property
     def table_width(self) -> int:
-        """Last-axis width of the (B, T, M) bm table."""
-        return self.code.n_symbols
+        """Last-axis width of the per-step decoder input: the (B, T, M)
+        bm table for the Viterbi family, per-bit LLR columns for SISO."""
+        return self.code.n_out if self.family == "rsc" else self.code.n_symbols
 
     @property
     def soft(self) -> bool:
@@ -117,7 +123,10 @@ class CodecSpec:
     def encode(self, bits: torch.Tensor) -> torch.Tensor:
         """(..., T) info bits -> (..., T + n_flush, n_out) int32 coded bits,
         with punctured positions zeroed (not transmitted)."""
-        coded = encode(self.code, bits, terminate=self.terminated)
+        if self.family == "rsc":
+            coded = self.code.encode(bits, terminate=self.terminated)
+        else:
+            coded = encode(self.code, bits, terminate=self.terminated)
         if self.puncture is not None:
             mask = pattern_mask(self.code, coded.shape[-2], self.puncture_array, coded.device)
             coded = (coded * mask).to(coded.dtype)
@@ -141,9 +150,22 @@ class CodecSpec:
     # ---------------------------- decode side ---------------------------- #
 
     def branch_metrics(self, received: torch.Tensor) -> torch.Tensor:
-        """(..., T, n_out) received bits / channel values -> (..., T, M)
-        branch-metric tables (to be minimized).  Punctured positions are
-        erasures (contribute 0)."""
+        """(..., T, n_out) received bits / channel values -> the per-step
+        decoder input.
+
+        Viterbi (conv) family: (..., T, M) branch-metric tables (to be
+        minimized).  SISO (rsc) family: (..., T, n_out) per-coded-bit LLRs
+        with the convention ``lambda = log P(0)/P(1)`` — soft channel values
+        pass through (max-log is scale-invariant), hard bits map to +-1.
+        Punctured positions are erasures (contribute 0) in both.
+        """
+        if self.family == "rsc":
+            r = received.to(torch.float32)
+            lam = r if self.soft else 1.0 - 2.0 * r
+            if self.puncture is not None:
+                lam = lam * pattern_mask(self.code, received.shape[-2], self.puncture_array,
+                                         received.device)
+            return lam
         if self.soft:
             if self.puncture is not None:
                 mask = pattern_mask(self.code, received.shape[-2], self.puncture_array,
@@ -162,8 +184,14 @@ class CodecSpec:
     def describe(self) -> str:
         punct = "unpunctured" if self.puncture is None else f"punctured{self.puncture}"
         term = "terminated" if self.terminated else "open"
-        head = (
-            f"ConvCode(K={self.code.constraint}, "
-            f"polys={tuple(oct(g) for g in self.code.polys)}"
-        )
+        if self.family == "rsc":
+            head = (
+                f"RSCCode(K={self.code.constraint}, fb={oct(self.code.feedback)}, "
+                f"fwd={tuple(oct(g) for g in self.code.forward)}"
+            )
+        else:
+            head = (
+                f"ConvCode(K={self.code.constraint}, "
+                f"polys={tuple(oct(g) for g in self.code.polys)}"
+            )
         return f"{head}, S={self.code.n_states}) {self.metric}/{punct}/{term}"

@@ -2,18 +2,29 @@
 PyTorch version.
 
 viterbi_scan.py — forward ACS scans with in-kernel branch metrics: from
-                  state 0, carried, windowed (packed) and carried unpacked
-                  (one template in csrc/viterbi_scan.cu)
+                  state 0, carried, windowed (packed), unpacked and carried
+                  unpacked (one template in csrc/viterbi_scan.cu)
+texpand.py      — the paper's one-step instruction (csrc/texpand.cu)
+bcjr.py         — max-log-MAP alpha scan and fused beta/LLR scan
+                  (csrc/bcjr.cu)
 survivors.py    — 32-per-word pack/unpack helpers + the packed and windowed
                   tracebacks (csrc/survivors.cu)
 metrics.py      — affine in-kernel branch-metric plans (hard/soft/punctured)
 minplus.py      — (min,+) state-map algebra of the tiled seams (plain torch)
 tiling.py       — time-tile plans and the default tile count
-ops.py          — public wrappers: packed and tiled decode pipelines, the
-                  streaming chunk ops
+ops.py          — public wrappers: texpand, the unpacked, packed and tiled
+                  decode pipelines, the streaming chunk ops, the SISO op
 common.py       — survivor word width, kernel-or-plain rule, launch counters
 _build.py       — nvcc build at first use + ctypes loading
 """
+from repro_torch.kernels.bcjr import MAX_FEATURES as BCJR_MAX_FEATURES
+from repro_torch.kernels.bcjr import MAX_STATES as BCJR_MAX_STATES
+from repro_torch.kernels.bcjr import (
+    bcjr_alpha_scan,
+    bcjr_alpha_scan_plain,
+    bcjr_beta_llr_scan,
+    bcjr_beta_llr_scan_plain,
+)
 from repro_torch.kernels.common import launch_counts, plain_counts, reset_counts
 from repro_torch.kernels.metrics import FusedMetricPlan, fused_metric_plan
 from repro_torch.kernels.minplus import (
@@ -24,12 +35,16 @@ from repro_torch.kernels.minplus import (
     tile_entry_metrics,
 )
 from repro_torch.kernels.ops import (
+    bcjr_llr_op,
+    texpand_op,
+    viterbi_decode_fused,
     viterbi_decode_fused_packed,
     viterbi_decode_packed,
     viterbi_decode_tiled_fused,
     viterbi_decode_tiled_op,
     viterbi_forward_chunk_op,
     viterbi_forward_fused_op,
+    viterbi_forward_op,
     viterbi_forward_packed_op,
     viterbi_forward_weighted_op,
     viterbi_traceback_op,
@@ -42,12 +57,14 @@ from repro_torch.kernels.survivors import (
     traceback_packed_window_plain,
     unpack_survivors,
 )
+from repro_torch.kernels.texpand import texpand_plain
 from repro_torch.kernels.tiling import (
     TilePlan,
     default_tiles,
     plan_tiles,
     truncation_depth,
 )
+from repro_torch.kernels.viterbi_scan import MAX_STATES as SCAN_MAX_STATES
 from repro_torch.kernels.viterbi_scan import (
     table_weights,
     viterbi_scan_carry,
@@ -58,11 +75,20 @@ from repro_torch.kernels.viterbi_scan import (
     viterbi_scan_packed_plain,
     viterbi_scan_packed_window,
     viterbi_scan_packed_window_plain,
+    viterbi_scan_plain,
 )
 
 __all__ = [
+    "BCJR_MAX_FEATURES",
+    "BCJR_MAX_STATES",
     "FusedMetricPlan",
+    "SCAN_MAX_STATES",
     "TilePlan",
+    "bcjr_alpha_scan",
+    "bcjr_alpha_scan_plain",
+    "bcjr_beta_llr_scan",
+    "bcjr_beta_llr_scan_plain",
+    "bcjr_llr_op",
     "compose_maps",
     "default_tiles",
     "fused_metric_plan",
@@ -75,6 +101,8 @@ __all__ = [
     "reset_counts",
     "seam_argmin",
     "table_weights",
+    "texpand_op",
+    "texpand_plain",
     "tile_entry_metrics",
     "traceback_packed",
     "traceback_packed_plain",
@@ -82,12 +110,14 @@ __all__ = [
     "traceback_packed_window_plain",
     "truncation_depth",
     "unpack_survivors",
+    "viterbi_decode_fused",
     "viterbi_decode_fused_packed",
     "viterbi_decode_packed",
     "viterbi_decode_tiled_fused",
     "viterbi_decode_tiled_op",
     "viterbi_forward_chunk_op",
     "viterbi_forward_fused_op",
+    "viterbi_forward_op",
     "viterbi_forward_packed_op",
     "viterbi_forward_weighted_op",
     "viterbi_scan_carry",
@@ -98,5 +128,6 @@ __all__ = [
     "viterbi_scan_packed_plain",
     "viterbi_scan_packed_window",
     "viterbi_scan_packed_window_plain",
+    "viterbi_scan_plain",
     "viterbi_traceback_op",
 ]

@@ -1,6 +1,10 @@
-"""Public wrappers around the kernels: the packed and tiled decode pipelines
-and the streaming chunk ops.
+"""Public wrappers around the kernels: the decode pipelines, the paper's
+one-step instruction, the streaming chunk ops and the SISO op.
 
+  texpand       texpand_op: ONE fused ACS step (the paper's Texpand).
+  classic       viterbi_decode_fused: bm tables in, unpacked (T, B, S) int32
+                survivors out of the scan kernel, the plain torch traceback
+                of core/viterbi.py (as the reference's XLA scan).
   packed        viterbi_decode_packed: bm tables in, packed survivors, packed
                 traceback kernel.
   fused+packed  viterbi_decode_fused_packed: raw received symbols in, branch
@@ -13,10 +17,12 @@ and the streaming chunk ops.
   chunk ops     viterbi_forward_weighted_op with a carried ``pm0`` (the packed
                 streaming step) and viterbi_forward_chunk_op (unpacked
                 survivors from bm tables, the ``streaming`` backend's step).
+  SISO          bcjr_llr_op: max-log-MAP BCJR of one RSC block, the alpha
+                scan then the fused beta/LLR scan (kernels/bcjr.py).
 
 Every function keeps the reference's user layout: inputs (B, T, F) or
 (B, T, M), metrics (B, S), packed survivors (W, B, S), unpacked survivors
-(C, B, S), bits (B, T).  Each decode derives every operand from its input
+(T, B, S), bits (B, T), LLRs (B, T).  Each decode derives every operand from its input
 tensor's device, so all the kernels of one decode launch (CUDA) or all run
 their plain versions (CPU) — see kernels/common.py.
 """
@@ -28,13 +34,34 @@ import numpy as np
 import torch
 
 from repro_torch.core.trellis import ConvCode
+from repro_torch.core.viterbi import _traceback
+from repro_torch.kernels import bcjr as _bcjr
 from repro_torch.kernels import minplus as _minplus
 from repro_torch.kernels import survivors as _surv
+from repro_torch.kernels import texpand as _texpand
 from repro_torch.kernels import tiling as _tiling
 from repro_torch.kernels import viterbi_scan as _vscan
 from repro_torch.kernels.metrics import FusedMetricPlan
 
 Weights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def texpand_op(
+    code: ConvCode, pm: torch.Tensor, bm_table: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paper's instruction: one fused ACS step in user layout.
+    pm: (B, S); bm_table: (B, M) -> new_pm (B, S) float32, bp (B, S) int32."""
+    return _texpand.texpand(
+        code, pm.to(torch.float32).contiguous(), bm_table.to(torch.float32).contiguous()
+    )
+
+
+def viterbi_forward_op(
+    code: ConvCode, bm_tables: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward pass with unpacked survivors.  bm_tables: (B, T, M) ->
+    final_pm (B, S) and backpointers (T, B, S) int32 (traceback layout)."""
+    return _vscan.viterbi_scan(code, bm_tables.to(torch.float32).contiguous())
 
 
 def viterbi_forward_weighted_op(
@@ -115,6 +142,17 @@ def _frontier(final_pm: torch.Tensor, terminated: bool) -> Tuple[torch.Tensor, t
         final_state = torch.argmin(final_pm, dim=-1).to(torch.int32)
         metric = final_pm.min(dim=-1).values
     return final_state, metric
+
+
+def viterbi_decode_fused(
+    code: ConvCode, bm_tables: torch.Tensor, terminated: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scan kernel with unpacked survivors + the plain traceback of
+    core/viterbi.py.  bm_tables: (B, T, M) -> (bits (B, T), metric (B,))."""
+    final_pm, bps = viterbi_forward_op(code, bm_tables)
+    final_state, metric = _frontier(final_pm, terminated)
+    bits, _ = _traceback(code, bps, final_state)
+    return bits, metric
 
 
 def viterbi_decode_packed(
@@ -307,3 +345,36 @@ def viterbi_decode_tiled_fused(
     return _tiled_weighted_decode(
         plan.code, feats, plan.folded(received.device), n_tiles, overlap, terminated, capture
     )
+
+
+def bcjr_llr_op(
+    code,
+    llr_coded: torch.Tensor,
+    llr_apriori: Optional[torch.Tensor] = None,
+    terminated: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Max-log-MAP SISO decode of one RSC code block (kernels/bcjr.py): the
+    forward (alpha) scan, then the time-reversed scan that fuses the beta
+    recursion with the per-step LLR.  Both kernels run on the device of
+    ``llr_coded``.
+
+    Args:
+      code: an RSC code (duck-typed — kernels/ never imports siso/).
+      llr_coded: (B, T, n_out) per-coded-bit channel LLRs, convention
+        ``lambda = log P(0)/P(1)`` (punctured positions = 0).
+      llr_apriori: (B, T) a-priori LLRs on the info bits (None -> zeros).
+      terminated: trellis flushed to state 0 (beta seeded there) vs open.
+    Returns:
+      llr: (B, T) float32 a-posteriori LLRs (negative -> decide bit 1).
+      metric: (B,) float32 best-path terminal cost.
+    """
+    B, T, _ = llr_coded.shape
+    coded = llr_coded.to(torch.float32)
+    if llr_apriori is None:
+        llr_apriori = torch.zeros((B, T), dtype=torch.float32, device=coded.device)
+    feat = torch.cat([coded, llr_apriori.to(torch.float32)[..., None]], dim=-1)
+    feat = feat.permute(1, 2, 0).contiguous()  # (T, F, B): lanes fastest
+    alphas, final_pm = _bcjr.bcjr_alpha_scan(code, feat)
+    llr = _bcjr.bcjr_beta_llr_scan(code, alphas, feat, terminated)
+    metric = final_pm[0] if terminated else final_pm.min(dim=0).values
+    return llr.T.contiguous(), metric

@@ -1,6 +1,6 @@
 """Forward ACS scans: one CUDA kernel template and its plain PyTorch version.
 
-Four variants of one scan, each a TPU kernel of the reference
+Five variants of one scan, each a TPU kernel of the reference
 (``_make_scan_kernel(carry, pack, windowed)``) and each its own name in
 ``launch_counts`` / ``plain_counts``:
 
@@ -13,6 +13,8 @@ Four variants of one scan, each a TPU kernel of the reference
                               and the select bit is 0) — both tiled passes
   viterbi_scan_carry          seeded, bm tables in, one int32 select per
                               (step, lane, state) — the ``streaming`` chunk op
+  viterbi_scan                from state 0, bm tables in, one int32 select
+                              per (step, lane, state) — the ``fused`` backend
 
 Each step computes its branch metrics from a per-step input of F values
 through ``(S, F)`` weights.  With the branch one-hots as weights
@@ -48,6 +50,7 @@ NAME = "viterbi_scan_packed"
 CARRY_NAME = "viterbi_scan_packed_carry"
 WINDOW_NAME = "viterbi_scan_packed_window"
 UNPACKED_CARRY_NAME = "viterbi_scan_carry"
+UNPACKED_NAME = "viterbi_scan"
 
 Window = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -130,6 +133,12 @@ def viterbi_scan_packed_window_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`viterbi_scan_packed_window`."""
     return _scan_plain(code, pm0, data, b0, b1, rb, window=(lo, hi))
+
+
+def viterbi_scan_plain(code: ConvCode, bm_tables: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`viterbi_scan`."""
+    b0, b1, rb = _cached_table_weights(code, bm_tables.device)
+    return _scan_plain(code, None, bm_tables, b0, b1, rb, pack=False)
 
 
 def viterbi_scan_carry_plain(
@@ -259,3 +268,16 @@ def viterbi_scan_carry(
     """
     b0, b1, rb = _cached_table_weights(code, bm_tables.device)
     return _scan(UNPACKED_CARRY_NAME, code, pm0, bm_tables, b0, b1, rb, pack=False)
+
+
+def viterbi_scan(code: ConvCode, bm_tables: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward scan from state 0 over precomputed bm tables with unpacked
+    survivors — the ``fused`` backend's scan.
+
+    Args:
+      bm_tables: (B, T, M) float32 branch-metric tables.
+    Returns:
+      final_pm: (B, S) float32; bps: (T, B, S) int32 backpointer parities.
+    """
+    b0, b1, rb = _cached_table_weights(code, bm_tables.device)
+    return _scan(UNPACKED_NAME, code, None, bm_tables, b0, b1, rb, pack=False)

@@ -3,8 +3,9 @@
 x unpunctured/punctured-2/3 x terminated/open) through ``decode()`` on raw
 symbols, through ``fused_packed`` on bm tables and through ``sequential``;
 planner parity; the registry's capability records; the routes ported since
-the first slice (``tiled``, ``streaming``) through their registry entries;
-and the error paths (backends not ported yet, non-finite input, no card)."""
+the first slice (``fused``, ``tiled``, ``streaming``) through their registry
+entries; and the error paths (backends not ported yet, non-finite input, no
+card)."""
 import dataclasses
 import zlib
 
@@ -25,9 +26,10 @@ torch.set_num_threads(1)
 
 CPU = PD.DecodeContext(device="cpu")
 GRID_CODES = {"k3": (3, (0b111, 0b101)), "k7": (7, (0o171, 0o133))}
-NOT_PORTED = ("bcjr", "fused", "parallel", "seqparallel", "sharded_stream", "turbo")
-#: backends that raised in the first slice and run now
-PORTED_SINCE = ("streaming", "tiled")
+NOT_PORTED = ("parallel", "seqparallel", "sharded_stream")
+#: conv backends that raised in the first slice and run now (the SISO
+#: backends bcjr and turbo: tests/test_torch_siso.py)
+PORTED_SINCE = ("fused", "streaming", "tiled")
 
 
 def _specs(code_name, metric, punctured, terminated):
@@ -267,10 +269,14 @@ def test_default_context_without_a_card_raises(monkeypatch):
 
 
 def test_non_conv_codes_are_not_ported():
+    """Since the SISO slice the port's own RSCCode is accepted (family
+    "rsc"); a code object of another package is refused by type."""
     from repro.siso.rsc import RSC_K3_75
+    from repro_torch.siso import RSC_K3_75 as P_RSC_K3_75
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="repro_torch ConvCode or RSCCode"):
         PD.CodecSpec(code=RSC_K3_75)
+    assert PD.CodecSpec(code=P_RSC_K3_75, metric="soft").family == "rsc"
     with pytest.raises(TypeError):
         PD.CodecSpec.of("k3")
 

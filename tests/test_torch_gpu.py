@@ -1,6 +1,7 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
 card, and the decode paths on the card (short blocks, tiled long blocks,
-streaming) against the same decodes on the CPU.
+streaming, the unpacked ``fused`` route, ``bcjr`` and turbo) against the
+same decodes on the CPU.
 
 Every test here is marked ``gpu`` and takes the ``card`` fixture, which
 skips inside the test when no CUDA device is present (so every worker
@@ -231,3 +232,108 @@ def test_streaming_decode_on_card_matches_cpu_decode(card):
                     ctx=DecodeContext(device="cpu", streaming=True))
     assert torch.equal(on_card.bits.cpu(), on_cpu.bits)
     assert torch.equal(on_card.path_metric.cpu(), on_cpu.path_metric)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,polys,batch,T", [
+    (3, (0b111, 0b101), 37, 100),
+    (7, (0o171, 0o133), 300, 70),
+    (11, (0o3345, 0o3613), 9, 45),
+])
+def test_unpacked_scan_and_texpand_match_plain_on_card(card, K, polys, batch, T):
+    from repro_torch.kernels import texpand
+
+    code = ConvCode(K, polys)
+    S, M = code.n_states, code.n_symbols
+    gen = torch.Generator(device=card).manual_seed(K + 300)
+    reset_counts()
+    for tables in (torch.randint(0, 3, (batch, T, M), generator=gen, device=card).float(),
+                   torch.randn((batch, T, M), generator=gen, device=card)):
+        pm, bps = viterbi_scan.viterbi_scan(code, tables)
+        pm_p, bps_p = viterbi_scan.viterbi_scan_plain(code, tables)
+        torch.cuda.synchronize()
+        assert torch.equal(bps, bps_p) and torch.equal(pm, pm_p)
+    # one step from carried metrics holding 1e30, integer (tie-heavy) and soft
+    for pm0, bm in ((_seed_metrics(gen, batch, S, card),
+                     torch.randint(0, 2, (batch, M), generator=gen, device=card).float()),
+                    (torch.randn((batch, S), generator=gen, device=card) * 10,
+                     torch.randn((batch, M), generator=gen, device=card))):
+        out = texpand.texpand(code, pm0, bm)
+        want = texpand.texpand_plain(code, pm0, bm)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    assert launch_counts["viterbi_scan"] == 2 and launch_counts["texpand"] == 2
+    assert not plain_counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("params", [
+    (3, 0b111, (0b101,)), (4, 0o13, (0o15,)), (5, 0o23, (0o35, 0o27)), (7, 0o133, (0o171,)),
+])
+def test_bcjr_scans_match_plain_on_card(card, params):
+    from repro_torch.kernels import bcjr
+    from repro_torch.siso import RSCCode
+
+    code = RSCCode(*params)
+    gen = torch.Generator(device=card).manual_seed(params[0] + 400)
+    feat = torch.randn((90, code.n_features, 333), generator=gen, device=card) * 2
+    reset_counts()
+    alphas, final_pm = bcjr.bcjr_alpha_scan(code, feat)
+    alphas_p, final_p = bcjr.bcjr_alpha_scan_plain(code, feat)
+    torch.cuda.synchronize()
+    assert torch.equal(alphas, alphas_p) and torch.equal(final_pm, final_p)
+    for terminated in (True, False):
+        llr = bcjr.bcjr_beta_llr_scan(code, alphas, feat, terminated)
+        torch.cuda.synchronize()
+        assert torch.equal(llr, bcjr.bcjr_beta_llr_scan_plain(code, alphas, feat, terminated))
+    assert launch_counts["bcjr_alpha_scan"] == 1 and launch_counts["bcjr_beta_llr_scan"] == 2
+    assert not plain_counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,terminated", [("hard", True), ("soft", False)])
+def test_fused_and_bcjr_decodes_on_card_match_cpu_decodes(card, metric, terminated):
+    from repro_torch.siso import RSC_K4_LTE
+
+    gen = torch.Generator().manual_seed(13)
+    for spec, backend, kernels in (
+        (CodecSpec(code=CODE_K7_NASA, metric=metric, terminated=terminated), "fused",
+         {"viterbi_scan": 1}),
+        (CodecSpec(code=RSC_K4_LTE, metric=metric, terminated=terminated), None,
+         {"bcjr_alpha_scan": 1, "bcjr_beta_llr_scan": 1}),
+    ):
+        coded = spec.encode(torch.randint(0, 2, (40, 300), generator=gen))
+        rx = (spec.channel(gen, coded, flip_prob=0.04) if metric == "hard"
+              else spec.channel(gen, coded, snr_db=1.0))
+        reset_counts()
+        on_card = decode(DecodeRequest(spec, received=rx.to(card)), backend=backend)
+        torch.cuda.synchronize()
+        assert dict(launch_counts) == kernels and not plain_counts
+        on_cpu = decode(DecodeRequest(spec, received=rx), backend=backend,
+                        ctx=DecodeContext(device="cpu"))
+        assert on_card.plan.backend == on_cpu.plan.backend
+        assert torch.equal(on_card.bits.cpu(), on_cpu.bits)
+        assert torch.equal(on_card.path_metric.cpu(), on_cpu.path_metric)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_turbo_decode_on_card_matches_cpu_decode(card, early_exit):
+    from repro_torch.siso import RSC_K4_LTE, QPPInterleaver, TurboSpec, turbo_decode
+
+    spec = TurboSpec(code=RSC_K4_LTE, interleaver=QPPInterleaver(512, 31, 64))
+    gen = torch.Generator().manual_seed(14)
+    rx = spec.channel(gen, spec.encode(torch.randint(0, 2, (24, 512), generator=gen)),
+                      snr_db=-3.5)
+    llrs = spec.channel_llrs(rx, snr_db=-3.5)
+    reset_counts()
+    on_card = turbo_decode(spec, llrs.to(card), early_exit=early_exit)
+    torch.cuda.synchronize()
+    n = on_card.iterations_run
+    assert dict(launch_counts) == {"bcjr_alpha_scan": 2 * n, "bcjr_beta_llr_scan": 2 * n}
+    assert not plain_counts
+    on_cpu = turbo_decode(spec, llrs, early_exit=early_exit, device="cpu")
+    assert n == on_cpu.iterations_run and on_card.agreement == on_cpu.agreement
+    assert torch.equal(on_card.bits.cpu(), on_cpu.bits)
+    assert torch.equal(on_card.llr.cpu(), on_cpu.llr)
+    assert torch.equal(on_card.converged.cpu(), on_cpu.converged)
