@@ -40,12 +40,24 @@ Phases (any failure raises and exits non-zero):
                iterations, early exit) and LTE's largest block (QPP N=6144,
                B=1024) at Eb/N0 1 dB; the turbo BER must be below the rate-1/3
                K=7 soft Viterbi baseline's on the same info bits;
-  8. parity  — each kernel against its plain PyTorch version on the card,
+  8. parallel — the block-parallel route, ``decode(..., backend="parallel")``:
+               (a) the NASA frame of phase 3 (hard and soft symbols, chunk
+               64: 17 chunks, the last of 6 steps), bits (and the hard
+               metric) equal to phase 3's planned decode, the soft metric
+               within rtol 1e-5; (b) the repo's long-stream example
+               (examples/long_context.py: K=3, one stream of 65536 info bits,
+               BSC p=0.01, chunk 512: 129 chunks), bits and metric equal to
+               the planned decode.  Counters prove the windowed scan, the
+               (min,+) product, the carried unpacked scan and the packed
+               traceback ran and no plain version did;
+  9. parity  — each kernel against its plain PyTorch version on the card,
                exactly (words, selects, metrics, bits, entry states, alphas,
-               LLRs), at K=3, 7, 11 (13 for the PR-11 kernels) small shapes
-               with T % 32 != 0, partial windows and carried metrics holding
-               1e30, and both named RSC codes, terminated and open;
-  9. timing  — CUDA-event times of each kernel and each plain version at the
+               LLRs, (min,+) products), at K=3, 7, 11 (13 for the short-block
+               kernels) small shapes with T % 32 != 0, partial windows and
+               carried metrics holding 1e30, both named RSC codes, terminated
+               and open, and (min,+) products at both inits with 1e30, 2e30
+               and NaN entries, K = 1, strided batches and an empty batch;
+ 10. timing  — CUDA-event times of each kernel and each plain version at the
                shape its path gives it (kernels: median of 5 rounds, every
                round printed), each held against its plain output exactly,
                with each kernel's bound; end-to-end times of every path.
@@ -487,7 +499,7 @@ def phase_tiled(gen):
         if max(bers) > 0.02:
             _fail(f"NASA frame {name}: BER {bers} is far above what this code and channel give")
         out[name] = dict(spec=spec, bits=bits, coded=coded, rx=rx, planned_tiles=P,
-                         launches_pinned=lb, ber=bers, pinned=tiled)
+                         launches_pinned=lb, ber=bers, pinned=tiled, planned=planned)
 
     hard = out["hard"]
     clean = decode(DecodeRequest(hard["spec"], received=hard["coded"]), ctx=pinned)
@@ -1115,6 +1127,213 @@ def phase_timing_siso(texpand_tables, siso):
     return rows, e2e
 
 
+# --------------------------------------------------------------------------- #
+# the block-parallel route and the (min,+) product                            #
+# --------------------------------------------------------------------------- #
+
+PARALLEL_CHUNK = 64
+#: examples/long_context.py: CODE_K3_STD, one stream of 65536 info bits,
+#: BSC p=0.01, chunk 512
+LONG_INFO, LONG_FLIP, LONG_CHUNK = 65536, 0.01, 512
+MINPLUS_SRC = "src/repro_torch/csrc/minplus.cu"
+PARALLEL_KERNELS = ("viterbi_scan_packed_window", "minplus_matmul", "viterbi_scan_carry",
+                    "traceback_packed")
+
+
+def phase_parallel(gen, tiled):
+    """The block-parallel decode through ``decode(..., backend="parallel")``
+    on the NASA frame and on the long-stream example."""
+    import torch
+
+    from repro_torch.core import CODE_K3_STD
+    from repro_torch.decode import CodecSpec, DecodeContext, DecodeRequest, decode
+    from repro_torch.kernels import reset_counts
+
+    spec_b = CodecSpec(code=CODE_K3_STD, metric="hard")
+    bits_b = torch.randint(0, 2, (1, LONG_INFO), generator=gen, device="cuda", dtype=torch.int32)
+    rx_b = spec_b.channel(gen, spec_b.encode(bits_b), flip_prob=LONG_FLIP)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    results = {name: decode(DecodeRequest(tiled[name]["spec"], received=tiled[name]["rx"]),
+                            backend="parallel", ctx=DecodeContext(chunk=PARALLEL_CHUNK))
+               for name in ("hard", "soft")}
+    results["long"] = decode(DecodeRequest(spec_b, received=rx_b), backend="parallel",
+                             ctx=DecodeContext(chunk=LONG_CHUNK))
+    torch.cuda.synchronize()
+    launches, plain = _counts()
+    print(f"[parallel] launches {launches} plain calls {plain}")
+    if any(launches.get(k, 0) < 1 for k in PARALLEL_KERNELS) or any(plain.values()):
+        _fail(f"parallel: launches {launches}, plain calls {plain}")
+
+    out = {}
+    for name in ("hard", "soft"):
+        res, ref = results[name], tiled[name]["planned"]
+        spec = tiled[name]["spec"]
+        T = spec.n_steps(NASA_INFO)
+        if res.plan.backend != "parallel" or res.diagnostics != {"backend": "parallel",
+                                                                   "chunk": PARALLEL_CHUNK}:
+            _fail(f"parallel {name}: backend {res.plan.backend!r} {res.diagnostics}")
+        if res.bits.shape != (NASA_B, T) or not torch.isfinite(res.path_metric).all():
+            _fail(f"parallel {name}: bad output shape or non-finite metrics")
+        if not torch.equal(res.bits, ref.bits):
+            _fail(f"parallel {name}: {int((res.bits != ref.bits).sum())} bits differ from the "
+                  "planned decode")
+        d_metric = float((res.path_metric - ref.path_metric).abs().max())
+        if name == "hard" and d_metric:
+            _fail(f"parallel hard: metric differs from the planned decode by {d_metric}")
+        # soft: bm tables vs in-kernel metrics round the sums differently;
+        # the reference's grid tolerance
+        if not torch.allclose(res.path_metric, ref.path_metric, rtol=1e-5, atol=0):
+            _fail(f"parallel {name}: metric beyond float32 rounding of the planned decode's")
+        ber = _ber(res.info_bits, tiled[name]["bits"])
+        out[name] = dict(ber=ber, planned_ber=tiled[name]["ber"][0])
+        print(f"[parallel] NASA frame {name}: B={NASA_B} T={T} chunk={PARALLEL_CHUNK} "
+              f"(nc={-(-T // PARALLEL_CHUNK)}) bits equal the planned "
+              f"({ref.plan.backend}) decode's, max |metric diff| {d_metric!r}, BER={ber!r} "
+              f"(planned {out[name]['planned_ber']!r})")
+
+    res = results["long"]
+    planned = decode(DecodeRequest(spec_b, received=rx_b))
+    T = spec_b.n_steps(LONG_INFO)
+    if res.bits.shape != (1, T) or not (torch.equal(res.bits, planned.bits)
+                                        and torch.equal(res.path_metric, planned.path_metric)):
+        _fail("parallel long stream: bits or metric differ from the planned decode")
+    ber = _ber(res.info_bits, bits_b)
+    planned_ber = _ber(planned.info_bits, bits_b)
+    if ber > 0.01:
+        _fail(f"parallel long stream: BER {ber} far above what K=3 at p=0.01 gives")
+    out["long"] = dict(ber=ber, planned_ber=planned_ber)
+    print(f"[parallel] long stream K=3 B=1 T={T} chunk={LONG_CHUNK} (nc={-(-T // LONG_CHUNK)}): "
+          f"bits and metric equal the planned ({planned.plan.backend}, P="
+          f"{planned.plan.ctx.tiles}) decode's, BER={ber!r} (planned {planned_ber!r})")
+    return launches, dict(out, spec_b=spec_b, rx_b=rx_b)
+
+
+def _same_nan(label, got, want) -> float:
+    """Fail unless ``got`` equals ``want`` with NaN exactly where it has
+    NaN; returns the largest absolute difference elsewhere (0.0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    if (got.shape != want.shape or not torch.equal(torch.isnan(got), nan)
+            or not torch.equal(got[~nan], want[~nan])):
+        _fail(f"{label}: kernel and plain version differ")
+    if not got[~nan].numel():
+        return 0.0
+    return float((got[~nan].double() - want[~nan].double()).abs().max())
+
+
+def phase_parity_minplus(gen):
+    """The (min,+) product against its plain version at both inits, with
+    unreachable (1e30, 2e30) and NaN entries, K = 1, strided batch views and
+    an empty batch."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, minplus
+
+    big = 1e30
+    for N, I, K, J in ((1, 4, 4, 4), (2, 8, 16, 8), (3, 130, 64, 70), (2, 5, 1, 3),
+                       (5, 64, 64, 64)):
+        a = torch.randn((N, I, K), generator=gen, device="cuda") * 5
+        b = torch.randn((N, K, J), generator=gen, device="cuda") * 5
+        for x in (a, b):
+            x[torch.rand(x.shape, generator=gen, device="cuda") < 0.2] = big
+            x[torch.rand(x.shape, generator=gen, device="cuda") < 0.1] = 2 * big
+        a[-1, 0, 0] = float("nan")
+        b[0, -1, -1] = float("nan")
+        for init in (big, math.inf):
+            _same_nan(f"minplus {N}x{I}x{K}x{J} init={init}", minplus.minplus_matmul(a, b, init),
+                      minplus.minplus_matmul_plain(a, b, init))
+            # the associative scan's strided slices of a (B, nc, S, S) stack
+            a4 = a.reshape(1, N, I, K)
+            b4 = b.reshape(1, N, K, J)
+            _same_nan(f"minplus strided {N}x{I}x{K}x{J} init={init}",
+                      minplus.minplus_matmul(a4[:, 0:-1:2], b4[:, 1::2], init),
+                      minplus.minplus_matmul_plain(a4[:, 0:-1:2].contiguous(),
+                                                   b4[:, 1::2].contiguous(), init))
+        print(f"[parity] minplus N={N} I={I} K={K} J={J} (1e30, 2e30, NaN; init 1e30 and inf; "
+              "strided batch): exact")
+    before = launch_counts["minplus_matmul"]
+    empty = minplus.minplus_matmul(torch.zeros((0, 4, 4), device="cuda"),
+                                   torch.zeros((0, 4, 4), device="cuda"), math.inf)
+    if empty.shape != (0, 4, 4) or launch_counts["minplus_matmul"] != before:
+        _fail("minplus: an empty batch must return an empty product without a launch")
+    print("[parity] minplus N=0: empty product, no launch")
+
+
+def phase_timing_parallel(tiled, parallel):
+    """Row 11 at the widest combine launch of the NASA-frame parallel decode,
+    and the parallel decode's end-to-end times."""
+    import torch
+
+    from repro_torch.decode import DecodeContext, DecodeRequest, decode
+    from repro_torch.kernels import minplus, ops
+
+    hard = tiled["hard"]
+    spec = hard["spec"]
+    bm = spec.branch_metrics(hard["rx"])
+    cap = {}
+    bits, metric = ops.viterbi_decode_parallel_op(spec.code, bm, PARALLEL_CHUNK, True, capture=cap)
+    del bits, metric
+    mats = cap["mats"]  # (B, nc, S, S)
+    # the first pairwise combine of the associative scan: chunk 2m with 2m+1
+    a, b = mats[:, 0:-1:2], mats[:, 1::2]
+    Bm, n1, I, K = a.shape
+    J = b.shape[-1]
+    N = Bm * n1
+    r, pms, k, p = _timed(lambda: minplus.minplus_matmul(a, b, math.inf),
+                          lambda: minplus.minplus_matmul_plain(a, b, math.inf), 20)
+    err = _same_nan("minplus at the widest combine", k, p)
+    del k, p
+    print(f"[timing] rounds (ms): minplus_matmul {r}")
+    # bytes: each operand matrix read once, each product written once;
+    # operations: one add and one min per (n, i, j, k)
+    row = _row("minplus_matmul", MINPLUS_SRC, "src/repro/kernels/minplus.py:59",
+               statistics.median(r), pms, 4 * N * (I * K + K * J + I * J), 2 * N * I * J * K)
+    row.update(max_abs_err=err, shape=f"{N} products of {I}x{K} by {K}x{J}")
+    print(f"[timing] minplus_matmul as two fp32 instructions a candidate at 33.5e12/s: "
+          f"{N * I * J * K * 2 / 33.5e12 * 1e3!r} ms")
+    del a, b
+    # the decode's steps one by one, on the operands it gave each of them
+    from repro_torch.core.viterbi import _associative_scan
+    from repro_torch.kernels import survivors, viterbi_scan
+
+    steps = {
+        "transfer matrices (viterbi_scan_packed_window)":
+            lambda: viterbi_scan.viterbi_scan_packed_window(*cap["pass1"]),
+        "associative scan (minplus_matmul)":
+            lambda: _associative_scan(ops._minplus_unclamped, mats, axis=1),
+        "re-scan (viterbi_scan_carry)": lambda: viterbi_scan.viterbi_scan_carry(*cap["rescan"]),
+        "pack selects (torch)": lambda: survivors.pack_survivors(cap["bps"]),
+        "walk (traceback_packed)": lambda: survivors.traceback_packed(*cap["walk"]),
+    }
+    breakdown = {label: statistics.median(_event_ms(fn, 1, rounds=3, warmup=1))
+                 for label, fn in steps.items()}
+    print(f"[timing] parallel decode NASA frame hard, steps (ms, median of 3): {breakdown}")
+    del cap, mats, steps
+
+    e2e = {"nasa_hard_steps_ms": breakdown}
+    for label, rq, chunk, n_bits in (
+            ("nasa_hard", DecodeRequest(spec, received=hard["rx"]), PARALLEL_CHUNK,
+             NASA_B * NASA_INFO),
+            ("nasa_soft", DecodeRequest(tiled["soft"]["spec"], received=tiled["soft"]["rx"]),
+             PARALLEL_CHUNK, NASA_B * NASA_INFO),
+            ("long_stream", DecodeRequest(parallel["spec_b"], received=parallel["rx_b"]),
+             LONG_CHUNK, LONG_INFO)):
+        ctx = DecodeContext(chunk=chunk)
+        rounds = _event_ms(lambda rq=rq, c=ctx: decode(rq, backend="parallel", ctx=c), 1,
+                           rounds=5, warmup=1)
+        ms = statistics.median(rounds)
+        peak = _peak_bytes(lambda rq=rq, c=ctx: decode(rq, backend="parallel", ctx=c))
+        e2e[label] = dict(ms=ms, rounds=rounds, bits_per_s=n_bits / (ms / 1e3), peak_bytes=peak)
+        print(f"[timing] parallel decode() {label} chunk={chunk}: rounds {rounds} median "
+              f"{ms!r} ms, {n_bits / (ms / 1e3)!r} decoded bits/s, peak device memory {peak} "
+              "bytes above the live tensors")
+    return [row], e2e
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1142,9 +1361,11 @@ def main(argv=None) -> int:
     fused_launches = phase_fused(inputs, results)
     texpand_launches, texpand_tables = phase_texpand(inputs, results)
     siso_launches, siso = phase_siso(gen)
+    parallel_launches, parallel = phase_parallel(gen, tiled)
     feats, weights, errs = phase_parity(gen, inputs["hard"], hard_spec)
     phase_parity_seeded(gen)
     phase_parity_siso(gen)
+    phase_parity_minplus(gen)
     rows, e2e = phase_timing(hard_spec, inputs["hard"][2], feats, weights)
     for row, err in zip(rows, errs):
         row["launches"] = launches.get(row["name"], 0)
@@ -1158,22 +1379,27 @@ def main(argv=None) -> int:
         "traceback_packed_window": tiled["hard"]["launches_pinned"],
     }
     siso_rows, siso_e2e = phase_timing_siso(texpand_tables, siso)
+    parallel_rows, parallel_e2e = phase_timing_parallel(tiled, parallel)
     path_launches.update(viterbi_scan=fused_launches, texpand=texpand_launches,
-                         bcjr_alpha_scan=siso_launches, bcjr_beta_llr_scan=siso_launches)
-    for row in seeded_rows + siso_rows:
+                         bcjr_alpha_scan=siso_launches, bcjr_beta_llr_scan=siso_launches,
+                         minplus_matmul=parallel_launches)
+    for row in seeded_rows + siso_rows + parallel_rows:
         row["launches"] = path_launches[row["name"]].get(row["name"], 0)
-    rows += seeded_rows + siso_rows
+    rows += seeded_rows + siso_rows + parallel_rows
     e2e = {"decode_short": e2e, "tiled_nasa_frame": tiled_e2e, "stream_64k": stream["e2e"],
-           "fused_texpand_siso": siso_e2e,
+           "fused_texpand_siso": siso_e2e, "parallel": parallel_e2e,
+           "parallel_launches": parallel_launches,
            "ber": {"tiled_hard": tiled["hard"]["ber"], "tiled_soft": tiled["soft"]["ber"],
                    "stream": stream["ber"],
                    "siso": {k: siso[k]["ber"] for k in ("bcjr", "turbo", "lte6144")},
-                   "turbo_baseline_k7": siso["baseline_ber"]},
+                   "turbo_baseline_k7": siso["baseline_ber"],
+                   "parallel": {k: parallel[k] for k in ("hard", "soft", "long")}},
            "turbo_iterations": {k: siso[k]["iterations"] for k in ("turbo", "lte6144")}}
     # the kernels' table in the order of the TPU kernels' rows (PERF.md)
     order = ["viterbi_scan_packed", "traceback_packed", "viterbi_scan_packed_carry",
              "viterbi_scan_packed_window", "traceback_packed_window", "viterbi_scan",
-             "viterbi_scan_carry", "texpand", "bcjr_alpha_scan", "bcjr_beta_llr_scan"]
+             "viterbi_scan_carry", "texpand", "bcjr_alpha_scan", "bcjr_beta_llr_scan",
+             "minplus_matmul"]
     rows.sort(key=lambda row: order.index(row["name"]))
     if [row["name"] for row in rows] != order or not all(row["launches"] > 0 for row in rows):
         _fail(f"kernel rows incomplete: {[(row['name'], row['launches']) for row in rows]}")

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the Viterbi decoding stack, for one NVIDIA H100.
 
 Beside the JAX package ``repro`` (the reference it is held against), module
-for module: ``core/`` (trellis tables, encoder, channels, ACS, sequential
-oracle), ``kernels/`` (hand-written Hopper kernels under ``csrc/``, each
-beside its plain PyTorch version; tile plans and the min-plus seam algebra),
+for module: ``core/`` (trellis tables, encoder, channels, ACS, the plain
+sequential, block-parallel and HMM decoders, the CRF), ``kernels/`` (hand-written Hopper kernels under ``csrc/``, each
+beside its plain PyTorch version; tile plans and the (min,+) product and
+seam algebra),
 ``decode/`` (spec, registry, planner, ``decode``), ``stream/`` (the
 sliding-window core and ``StreamSession``), ``siso/`` (RSC codes,
 interleavers, turbo), ``obs/`` (telemetry) and ``convert.py`` (state bridge

@@ -1,4 +1,5 @@
-"""Numeric core: trellis tables, encoder, channels, metrics, ACS, oracle."""
+"""Numeric core: trellis tables, encoder, channels, metrics, ACS, the plain
+decoders (sequential oracle, block-parallel, HMM) and the linear-chain CRF."""
 from repro_torch.core.acs import acs_step
 from repro_torch.core.channel import (
     awgn,
@@ -6,6 +7,13 @@ from repro_torch.core.channel import (
     bsc,
     hard_branch_metrics,
     soft_branch_metrics,
+)
+from repro_torch.core.crf import (
+    crf_decode,
+    crf_log_norm,
+    crf_loss,
+    crf_marginals,
+    crf_score,
 )
 from repro_torch.core.encoder import encode, pack_symbols, unpack_symbols
 from repro_torch.core.puncture import (
@@ -25,7 +33,12 @@ from repro_torch.core.trellis import (
     NEG_UNREACHABLE,
     ConvCode,
 )
-from repro_torch.core.viterbi import viterbi_decode
+from repro_torch.core.viterbi import (
+    hmm_viterbi,
+    minplus_matmul,
+    viterbi_decode,
+    viterbi_decode_parallel,
+)
 
 __all__ = [
     "CODE_K3_PAPER",
@@ -42,13 +55,21 @@ __all__ = [
     "awgn",
     "bpsk_modulate",
     "bsc",
+    "crf_decode",
+    "crf_log_norm",
+    "crf_loss",
+    "crf_marginals",
+    "crf_score",
     "effective_rate",
     "encode",
     "hard_branch_metrics",
+    "hmm_viterbi",
+    "minplus_matmul",
     "pack_symbols",
     "pattern_mask",
     "punctured_hard_metrics",
     "soft_branch_metrics",
     "unpack_symbols",
     "viterbi_decode",
+    "viterbi_decode_parallel",
 ]

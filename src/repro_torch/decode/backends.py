@@ -6,13 +6,14 @@ bm-table entry that feeds the same kernel through ``table_weights``),
 ``fused`` (the scan with unpacked survivors + the plain traceback),
 ``tiled`` (the windowed scan + windowed traceback kernels, both entries),
 ``streaming`` (the carried unpacked scan behind a windowed stream session),
-``bcjr`` and ``turbo`` (the two BCJR scan kernels, the SISO family) and
-``sequential`` (the plain oracle).  Every other backend name of the reference
-is registered with the reference's capability record, so the planner and
-validation behave the same, but its entry raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it — it never falls back to another
-backend.  Importing this module (which ``repro_torch.decode`` does)
-populates the registry.
+``parallel`` (the windowed scan, the (min,+) product, the carried unpacked
+scan and the packed traceback kernels), ``bcjr`` and ``turbo`` (the two
+BCJR scan kernels, the SISO family) and ``sequential`` (the plain oracle).
+Every other backend name of the reference is registered with the
+reference's capability record, so the planner and validation behave the
+same, but its entry raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it — it never falls back to another backend.  Importing
+this module (which ``repro_torch.decode`` does) populates the registry.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.kernels.ops import (
     viterbi_decode_fused,
     viterbi_decode_fused_packed,
     viterbi_decode_packed,
+    viterbi_decode_parallel_op,
     viterbi_decode_tiled_fused,
     viterbi_decode_tiled_op,
 )
@@ -173,11 +175,16 @@ def decode_sequential(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> Deco
     return _result(spec, bits, metric, backend="sequential")
 
 
-register_decoder(
-    "parallel",
-    capabilities=BackendCapabilities(family="conv"),
-    summary="(min,+) associative scan over chunks (not ported yet)",
-)(_not_ported("parallel", 9))
+@register_decoder("parallel", capabilities=BackendCapabilities(family="conv"))
+def decode_parallel(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> DecodeResult:
+    """(min,+) associative scan over chunk transfer matrices — log-depth in
+    the number of chunks, the single-device long-block decoder (trellises up
+    to the scan kernels' 4096 states)."""
+    bits, metric = viterbi_decode_parallel_op(
+        spec.code, ctx.place(bm_tables), chunk=ctx.chunk, terminated=spec.terminated
+    )
+    return _result(spec, bits, metric, backend="parallel", chunk=ctx.chunk)
+
 
 register_decoder(
     "seqparallel",

@@ -28,7 +28,8 @@ class DecodeContext:
     """Execution context shared by the planner and every backend.
 
     Attributes:
-      chunk: chunk length for chunked backends (streaming).
+      chunk: chunk length for chunked backends (the parallel scan's chunk
+        transfer matrices, streaming).
       stream_depth: truncated-traceback depth for the streaming backend
         (None = the textbook 5*K).
       streaming: a live session context — the caller consumes bits a fixed

@@ -10,10 +10,12 @@ bcjr.py         — max-log-MAP alpha scan and fused beta/LLR scan
 survivors.py    — 32-per-word pack/unpack helpers + the packed and windowed
                   tracebacks (csrc/survivors.cu)
 metrics.py      — affine in-kernel branch-metric plans (hard/soft/punctured)
-minplus.py      — (min,+) state-map algebra of the tiled seams (plain torch)
+minplus.py      — the batched (min,+) product (csrc/minplus.cu) and the
+                  (min,+) state-map algebra of the tiled seams (plain torch)
 tiling.py       — time-tile plans and the default tile count
-ops.py          — public wrappers: texpand, the unpacked, packed and tiled
-                  decode pipelines, the streaming chunk ops, the SISO op
+ops.py          — public wrappers: texpand, the unpacked, packed, tiled and
+                  block-parallel decode pipelines, the streaming chunk ops,
+                  the SISO op, the reference's (min,+) product op
 common.py       — survivor word width, kernel-or-plain rule, launch counters
 _build.py       — nvcc build at first use + ctypes loading
 """
@@ -30,16 +32,20 @@ from repro_torch.kernels.metrics import FusedMetricPlan, fused_metric_plan
 from repro_torch.kernels.minplus import (
     compose_maps,
     identity_map,
+    minplus_matmul,
+    minplus_matmul_plain,
     prefix_maps,
     seam_argmin,
     tile_entry_metrics,
 )
 from repro_torch.kernels.ops import (
     bcjr_llr_op,
+    minplus_matmul_op,
     texpand_op,
     viterbi_decode_fused,
     viterbi_decode_fused_packed,
     viterbi_decode_packed,
+    viterbi_decode_parallel_op,
     viterbi_decode_tiled_fused,
     viterbi_decode_tiled_op,
     viterbi_forward_chunk_op,
@@ -94,6 +100,9 @@ __all__ = [
     "fused_metric_plan",
     "identity_map",
     "launch_counts",
+    "minplus_matmul",
+    "minplus_matmul_op",
+    "minplus_matmul_plain",
     "pack_survivors",
     "plain_counts",
     "plan_tiles",
@@ -113,6 +122,7 @@ __all__ = [
     "viterbi_decode_fused",
     "viterbi_decode_fused_packed",
     "viterbi_decode_packed",
+    "viterbi_decode_parallel_op",
     "viterbi_decode_tiled_fused",
     "viterbi_decode_tiled_op",
     "viterbi_forward_chunk_op",

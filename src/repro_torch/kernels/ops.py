@@ -17,8 +17,14 @@ one-step instruction, the streaming chunk ops and the SISO op.
   chunk ops     viterbi_forward_weighted_op with a carried ``pm0`` (the packed
                 streaming step) and viterbi_forward_chunk_op (unpacked
                 survivors from bm tables, the ``streaming`` backend's step).
+  parallel      viterbi_decode_parallel_op: the block-parallel decode — chunk
+                transfer matrices from the windowed scan, a log-depth
+                associative scan over chunks with the (min,+) product kernel,
+                a carried re-scan of every chunk, the packed traceback.
   SISO          bcjr_llr_op: max-log-MAP BCJR of one RSC block, the alpha
                 scan then the fused beta/LLR scan (kernels/bcjr.py).
+  (min,+)       minplus_matmul_op: the reference op's clamped product
+                over any batch shape.
 
 Every function keeps the reference's user layout: inputs (B, T, F) or
 (B, T, M), metrics (B, S), packed survivors (W, B, S), unpacked survivors
@@ -28,13 +34,14 @@ their plain versions (CPU) — see kernels/common.py.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.trellis import ConvCode
-from repro_torch.core.viterbi import _traceback
+from repro_torch.core.trellis import NEG_UNREACHABLE, ConvCode
+from repro_torch.core.viterbi import _associative_scan, _traceback
 from repro_torch.kernels import bcjr as _bcjr
 from repro_torch.kernels import minplus as _minplus
 from repro_torch.kernels import survivors as _surv
@@ -378,3 +385,108 @@ def bcjr_llr_op(
     llr = _bcjr.bcjr_beta_llr_scan(code, alphas, feat, terminated)
     metric = final_pm[0] if terminated else final_pm.min(dim=0).values
     return llr.T.contiguous(), metric
+
+
+# --------------------------------------------------------------------------- #
+# Block-parallel decode: (min,+) associative scan over chunk transfer maps.   #
+# --------------------------------------------------------------------------- #
+
+
+def minplus_matmul_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched (min,+) product as the reference op computes it: any batch
+    shape, the kernel's accumulator from 1e30, then ``min(out, 1e30)``.  The
+    reference pads to its blocks with 1e30, which can only add candidates of
+    at least 2e30 that the clamp removes, so no padding is needed here.
+    a: (..., I, K), b: (..., K, J) -> (..., I, J) float32."""
+    batch = a.shape[:-2]
+    I, K = a.shape[-2:]
+    J = b.shape[-1]
+    a3 = a.to(torch.float32).reshape((-1, I, K)).contiguous()
+    b3 = b.to(torch.float32).reshape((-1, K, J)).contiguous()
+    out = _minplus.minplus_matmul(a3, b3, NEG_UNREACHABLE)
+    return torch.clamp(out, max=NEG_UNREACHABLE).reshape(batch + (I, J))
+
+
+def _minplus_unclamped(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The associative scan's combine: the product kernel from +inf, as the
+    reference's jnp ``minplus_matmul`` (no clamp)."""
+    return _minplus.minplus_matmul(a, b, math.inf)
+
+
+def viterbi_decode_parallel_op(
+    code: ConvCode,
+    bm_tables: torch.Tensor,
+    chunk: int = 64,
+    terminated: bool = True,
+    capture: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """core.viterbi.viterbi_decode_parallel through the kernels, equal to it
+    bit for bit (bits and metrics, soft included):
+
+    1. transfer matrices: the windowed packed scan over B·nc·S lanes (lanes
+       (b, c, i) run chunk c from a unit metric in state i), the last chunk
+       windowed to its valid steps — tiled pass 1's construction;
+    2. prefixes: the reference's associative-scan tree over the chunk axis
+       with the (min,+) product kernel from +inf (unclamped, as jnp's);
+    3. backpointers: the carried unpacked scan over B·nc lanes, each chunk
+       seeded with row 0 of its exclusive prefix (the metrics entering it
+       from state 0);
+    4. the selects packed 32 to a word and walked by the packed traceback.
+
+    bm_tables: (B, T, M) -> (bits (B, T), metric (B,)).  Takes trellises up
+    to the scan kernels' SCAN_MAX_STATES (raises above it, before any work).
+    ``capture``: an optional dict that receives the operands of each step
+    — ``pass1`` (the windowed scan's arguments), ``mats`` (the (B, nc, S, S)
+    transfer matrices the associative scan takes), ``rescan`` (the carried
+    scan's arguments), ``bps`` (the (T, B, S) selects) and ``walk`` (the
+    packed traceback's arguments) — so each step can be timed alone on
+    exactly what the decode gave it.
+    """
+    B, T, M = bm_tables.shape
+    S = code.n_states
+    if S > _vscan.MAX_STATES:
+        raise ValueError(f"parallel decode: S={S} exceeds the scan kernels' "
+                         f"{_vscan.MAX_STATES} states")
+    if chunk < 1:
+        raise ValueError(f"parallel decode needs chunk >= 1, got {chunk}")
+    dev = bm_tables.device
+    bm = bm_tables.to(torch.float32)
+    pad = (-T) % chunk
+    if pad:
+        bm = torch.nn.functional.pad(bm, (0, 0, 0, pad))
+    nc = (T + pad) // chunk
+    chunks = bm.reshape(B * nc, chunk, M).contiguous()  # lanes (b, c)
+    b0, b1, rb = _vscan.table_weights(code, dev)
+
+    # 1. lanes (b, c, i); outside [0, hi) the metrics pass through untouched,
+    # which is the reference's masked last-chunk matrix
+    hi = np.full((nc,), chunk, np.int32)
+    hi[-1] = T - (nc - 1) * chunk
+    eye = _minplus.identity_map(S, device=dev)
+    pass1 = (
+        code, eye.repeat(B * nc, 1), chunks.repeat_interleave(S, dim=0), b0, b1, rb,
+        torch.zeros((B * nc * S,), dtype=torch.int32, device=dev), _tile_lane_row(hi, B, S, dev),
+    )
+    mats = _vscan.viterbi_scan_packed_window(*pass1)[0].reshape(B, nc, S, S)
+    if capture is not None:
+        capture.update(pass1=pass1, mats=mats)
+    del pass1  # frees the S-fold repeated operands before the scan
+
+    # 2. inclusive prefixes; row 0 of the exclusive ones seeds each chunk
+    prefixes = _associative_scan(_minplus_unclamped, mats, axis=1)
+    del mats
+    entry = torch.cat([eye[0].expand(B, 1, S), prefixes[:, :-1, 0, :]], dim=1)  # (B, nc, S)
+    final_state, metric = _frontier(prefixes[:, -1, 0, :].clone(), terminated)
+    del prefixes
+
+    # 3. every chunk re-scanned at once: selects (chunk, B*nc, S)
+    rescan = (code, entry.reshape(B * nc, S).contiguous(), chunks)
+    _, sel = _vscan.viterbi_scan_carry(*rescan)
+    bps = sel.reshape(chunk, B, nc, S).permute(2, 0, 1, 3).reshape(nc * chunk, B, S)[:T]
+    del sel
+
+    # 4. the walk
+    walk = (code, _surv.pack_survivors(bps), final_state, T)
+    if capture is not None:
+        capture.update(rescan=rescan, bps=bps, walk=walk)
+    return viterbi_traceback_op(*walk), metric

@@ -3,9 +3,10 @@
 x unpunctured/punctured-2/3 x terminated/open) through ``decode()`` on raw
 symbols, through ``fused_packed`` on bm tables and through ``sequential``;
 planner parity; the registry's capability records; the routes ported since
-the first slice (``fused``, ``tiled``, ``streaming``) through their registry
-entries; and the error paths (backends not ported yet, non-finite input, no
-card)."""
+the first slice (``fused``, ``tiled``, ``streaming``, ``parallel``) through
+their registry entries; and the error paths (backends not ported yet, the
+planned ``parallel`` route past the scan kernels' states, non-finite input,
+no card)."""
 import dataclasses
 import zlib
 
@@ -26,10 +27,11 @@ torch.set_num_threads(1)
 
 CPU = PD.DecodeContext(device="cpu")
 GRID_CODES = {"k3": (3, (0b111, 0b101)), "k7": (7, (0o171, 0o133))}
-NOT_PORTED = ("parallel", "seqparallel", "sharded_stream")
+NOT_PORTED = ("seqparallel", "sharded_stream")
 #: conv backends that raised in the first slice and run now (the SISO
-#: backends bcjr and turbo: tests/test_torch_siso.py)
-PORTED_SINCE = ("fused", "streaming", "tiled")
+#: backends bcjr and turbo: tests/test_torch_siso.py; the parallel grid:
+#: tests/test_torch_parallel.py)
+PORTED_SINCE = ("fused", "parallel", "streaming", "tiled")
 
 
 def _specs(code_name, metric, punctured, terminated):
@@ -225,14 +227,21 @@ def test_ported_routes_run_and_match_reference(name):
 
 
 def test_planned_not_ported_backend_raises_instead_of_falling_back():
-    # a long block past the tiled cap plans `parallel`, which is not ported
+    # a block of a trellis past the 4096-state caps plans `parallel`, long or
+    # short, as the reference's planner does; the port's parallel route runs
+    # on the scan kernels, which take 4096 states, so a decode at that size
+    # raises (before any work) instead of falling back to another backend.
+    # No decode runs at this size: one 8192-state transfer matrix is 256 MB.
     K, polys = BIG_CODE
+    rspec = RD.CodecSpec(code=RCode(K, polys))
     pspec = PD.CodecSpec(code=PCode(K, polys))
-    rx = torch.zeros((1, 1030, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    for shape in ((1, 1030), (1, 50)):
+        plan = PD.plan_decode(pspec, shape, ctx=CPU)
+        assert plan.backend == RD.plan_decode(rspec, shape).backend == "parallel"
+        assert "exceeds" in plan.reason
+    rx = torch.zeros((1, 50, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="4096"):
         PD.decode(PD.DecodeRequest(pspec, received=rx), ctx=CPU)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        PD.decode(PD.DecodeRequest(pspec, received=rx[:, :50]), ctx=CPU)
 
 
 def test_registry_rejects_duplicates_and_unknown():

@@ -1,7 +1,7 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
 card, and the decode paths on the card (short blocks, tiled long blocks,
-streaming, the unpacked ``fused`` route, ``bcjr`` and turbo) against the
-same decodes on the CPU.
+streaming, the unpacked ``fused`` route, ``bcjr`` and turbo, the
+block-parallel ``parallel`` route) against the same decodes on the CPU.
 
 Every test here is marked ``gpu`` and takes the ``card`` fixture, which
 skips inside the test when no CUDA device is present (so every worker
@@ -16,7 +16,7 @@ import torch
 from repro_torch.core import CODE_K7_NASA, PUNCTURE_2_3, ConvCode
 from repro_torch.decode import CodecSpec, DecodeContext, DecodeRequest, decode
 from repro_torch.core.trellis import NEG_UNREACHABLE
-from repro_torch.kernels import ops, survivors, viterbi_scan
+from repro_torch.kernels import minplus, ops, survivors, viterbi_scan
 from repro_torch.kernels.common import launch_counts, plain_counts, reset_counts
 from repro_torch.kernels.metrics import fused_metric_plan
 
@@ -337,3 +337,77 @@ def test_turbo_decode_on_card_matches_cpu_decode(card, early_exit):
     assert torch.equal(on_card.bits.cpu(), on_cpu.bits)
     assert torch.equal(on_card.llr.cpu(), on_cpu.llr)
     assert torch.equal(on_card.converged.cpu(), on_cpu.converged)
+
+
+def _same_with_nan(got, want):
+    """Equal values, NaN where the other has NaN."""
+    assert got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got, nan=0.0), torch.nan_to_num(want, nan=0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 4, 4, 4), (2, 8, 16, 8), (3, 130, 64, 70), (2, 5, 1, 3),
+                                   (64, 64, 64, 64)])
+@pytest.mark.parametrize("init", [NEG_UNREACHABLE, float("inf")], ids=["1e30", "inf"])
+def test_minplus_matmul_matches_plain_on_card(card, shape, init):
+    N, I, K, J = shape
+    gen = torch.Generator(device=card).manual_seed(I + K)
+    a = torch.randn((N, I, K), generator=gen, device=card) * 5
+    b = torch.randn((N, K, J), generator=gen, device=card) * 5
+    for x in (a, b):  # unreachable metrics as transfer matrices hold them, and a NaN
+        x[torch.rand(x.shape, generator=gen, device=card) < 0.2] = NEG_UNREACHABLE
+        x[torch.rand(x.shape, generator=gen, device=card) < 0.1] = 2 * NEG_UNREACHABLE
+    a[0, 0, 0] = float("nan")
+    reset_counts()
+    got = minplus.minplus_matmul(a, b, init)
+    torch.cuda.synchronize()
+    _same_with_nan(got, minplus.minplus_matmul_plain(a, b, init))
+    assert torch.isnan(got[0, 0]).all()
+    # strided batch views, as the associative scan hands them over
+    a4, b4 = a.reshape(N, 1, I, K).expand(N, 3, I, K), b.reshape(N, 1, K, J).expand(N, 3, K, J)
+    got4 = minplus.minplus_matmul(a4[:, 0:-1:2], b4[:, 1::2], init)
+    torch.cuda.synchronize()
+    _same_with_nan(got4, minplus.minplus_matmul_plain(a4[:, 0:-1:2].contiguous(),
+                                                      b4[:, 1::2].contiguous(), init))
+    assert launch_counts["minplus_matmul"] == 2
+    # an empty batch launches nothing
+    assert minplus.minplus_matmul(a4[:, 0:0], b4[:, 0:0], init).shape == (N, 0, I, J)
+    assert launch_counts["minplus_matmul"] == 2
+
+
+@pytest.mark.gpu
+def test_minplus_wrapper_refuses_mixed_devices_and_counts_launches(card):
+    a = torch.zeros((2, 4, 3), device=card)
+    with pytest.raises(ValueError, match="several devices"):
+        minplus.minplus_matmul(a, torch.zeros((2, 3, 5)))
+    with pytest.raises(ValueError, match="row-major"):
+        minplus.minplus_matmul(a.transpose(1, 2), torch.zeros((2, 4, 5), device=card))
+    reset_counts()
+    minplus.minplus_matmul(a, torch.zeros((2, 3, 5), device=card))
+    torch.cuda.synchronize()
+    assert launch_counts["minplus_matmul"] == 1 and not plain_counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,terminated,chunk", [("hard", True, 16), ("soft", False, 64),
+                                                     ("soft", True, 7)])
+def test_parallel_decode_on_card_matches_cpu_decode(card, metric, terminated, chunk):
+    spec = CodecSpec(code=CODE_K7_NASA, metric=metric, terminated=terminated)
+    gen = torch.Generator().manual_seed(15)
+    coded = spec.encode(torch.randint(0, 2, (24, 300), generator=gen))
+    rx = (spec.channel(gen, coded, flip_prob=0.04) if metric == "hard"
+          else spec.channel(gen, coded, snr_db=1.0))
+    reset_counts()
+    on_card = decode(DecodeRequest(spec, received=rx.to(card)), backend="parallel",
+                     ctx=DecodeContext(chunk=chunk))
+    torch.cuda.synchronize()
+    assert {k: launch_counts[k] for k in ("viterbi_scan_packed_window", "viterbi_scan_carry",
+                                          "traceback_packed")} == dict.fromkeys(
+        ("viterbi_scan_packed_window", "viterbi_scan_carry", "traceback_packed"), 1)
+    assert launch_counts["minplus_matmul"] >= 1 and not plain_counts
+    on_cpu = decode(DecodeRequest(spec, received=rx), backend="parallel",
+                    ctx=DecodeContext(chunk=chunk, device="cpu"))
+    assert on_card.diagnostics == on_cpu.diagnostics == {"backend": "parallel", "chunk": chunk}
+    assert torch.equal(on_card.bits.cpu(), on_cpu.bits)
+    assert torch.equal(on_card.path_metric.cpu(), on_cpu.path_metric)

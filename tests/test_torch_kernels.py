@@ -283,7 +283,7 @@ def test_cpu_tensors_run_plain_versions_and_count_them():
 
 
 def test_kernel_sources_and_build_key_are_stable():
-    assert set(_build._sources()) == {"viterbi_scan", "survivors", "texpand", "bcjr"}
+    assert set(_build._sources()) == {"viterbi_scan", "survivors", "texpand", "bcjr", "minplus"}
     assert _build.build_dir() == _build.build_dir()
     assert _build.build_dir().parent == _build.BUILD_ROOT
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
