@@ -976,7 +976,7 @@ def phase_parity_siso(gen):
 
     from repro_torch.core import CODE_K3_STD, CODE_K7_NASA, ConvCode
     from repro_torch.kernels import bcjr, texpand, viterbi_scan
-    from repro_torch.siso import RSC_K3_75, RSC_K4_LTE
+    from repro_torch.siso import RSC_K3_75, RSC_K4_LTE, RSCCode
 
     for code, B, T in ((CODE_K3_STD, 37, 100), (CODE_K7_NASA, 300, 70),
                        (ConvCode(11, (0o3345, 0o3613)), 9, 45)):
@@ -993,17 +993,42 @@ def phase_parity_siso(gen):
                   texpand.texpand_plain(code, pm, bm))
         print(f"[parity] K={K} B={B} T={T} unpacked scan (int, soft tables), texpand "
               "(1e30 seeds, ties, soft): exact")
-    for code in (RSC_K3_75, RSC_K4_LTE):
-        feat = torch.randn((90, code.n_features, 333), generator=gen, device="cuda") * 2
-        alphas, final_pm = bcjr.bcjr_alpha_scan(code, feat)
-        _same(f"alpha scan K={code.constraint}", (alphas, final_pm),
-              bcjr.bcjr_alpha_scan_plain(code, feat))
-        for terminated in (True, False):
-            _same(f"beta/LLR scan K={code.constraint} terminated={terminated}",
-                  (bcjr.bcjr_beta_llr_scan(code, alphas, feat, terminated),),
-                  (bcjr.bcjr_beta_llr_scan_plain(code, alphas, feat, terminated),))
-        print(f"[parity] RSC K={code.constraint} B=333 T=90 alpha scan, beta/LLR scan "
-              "(terminated, open): exact")
+    # every S the BCJR kernels take, one- and two-parity codes, B off the
+    # group and block sizes, T = 1 and T off the chunk sizes, soft, tie-heavy
+    # and +-1e30 / NaN features; NaN-aware, one launch a call
+    for code in (RSCCode(2, 0b11, (0b10,)), RSC_K3_75, RSC_K4_LTE, RSCCode(4, 0o13, (0o15, 0o17)),
+                 RSCCode(5, 0o23, (0o35, 0o27)), RSCCode(6, 0o43, (0o75,)),
+                 RSCCode(7, 0o133, (0o171,)), RSCCode(7, 0o133, (0o171, 0o165))):
+        K, P = code.constraint, code.n_parity
+        for B, T, kind in ((333, 90, "soft"), (1, 1, "soft"), (33, 45, "ties"),
+                           (1000, 70, "extremes"), (64, 96, "soft")):
+            shape = (T, code.n_features, B)
+            if kind == "ties":
+                feat = torch.randint(-2, 3, shape, generator=gen, device="cuda").float()
+            else:
+                feat = torch.randn(shape, generator=gen, device="cuda") * 2
+            if kind == "extremes":
+                pick = torch.rand(shape, generator=gen, device="cuda")
+                feat[pick < 0.02] = 1e30
+                feat[(pick >= 0.02) & (pick < 0.04)] = -1e30
+                feat[:, :, ::7][pick[:, :, ::7] > 0.995] = float("nan")
+            before = _counts()[0]
+            alphas, final_pm = bcjr.bcjr_alpha_scan(code, feat)
+            want = bcjr.bcjr_alpha_scan_plain(code, feat)
+            _same_nan(f"alpha scan K={K} parities={P} B={B} T={T} {kind}", alphas, want[0])
+            _same_nan(f"alpha scan K={K} parities={P} B={B} T={T} {kind}", final_pm, want[1])
+            for terminated in (True, False):
+                _same_nan(f"beta/LLR scan K={K} parities={P} B={B} T={T} {kind} "
+                          f"terminated={terminated}",
+                          bcjr.bcjr_beta_llr_scan(code, alphas, feat, terminated),
+                          bcjr.bcjr_beta_llr_scan_plain(code, alphas, feat, terminated))
+            after = _counts()[0]
+            if [after.get(k, 0) - before.get(k, 0)
+                    for k in ("bcjr_alpha_scan", "bcjr_beta_llr_scan")] != [1, 2]:
+                _fail(f"BCJR parity K={K}: launches {after} after {before}")
+        print(f"[parity] RSC K={K} (S={code.n_states}) parities={P}: alpha scan, beta/LLR scan "
+              "(terminated, open) at B=333 T=90, B=1 T=1, B=33 T=45 ties, B=1000 T=70 "
+              "+-1e30/NaN, B=64 T=96: exact (NaN where the plain version has NaN)")
 
 
 def _unique_rows(*weights) -> int:
@@ -1012,6 +1037,85 @@ def _unique_rows(*weights) -> int:
     import numpy as np
 
     return len({tuple(r) for w in weights for r in np.asarray(w)})
+
+
+def _siso_features(run):
+    """(T, F, B) features of the first SISO pass of a ``phase_siso`` run, as
+    ops.bcjr_llr_op builds them: the channel LLRs of the systematic and
+    first-parity bits (turbo) or of every coded bit (bcjr), then a zero
+    a-priori column."""
+    import torch
+
+    spec, rx = run["spec"], run["rx"]
+    if hasattr(spec, "interleaver"):  # turbo: the first constituent's pass
+        llrs = spec.channel_llrs(rx)
+        coded = torch.cat([llrs[..., :1], llrs[..., 1:1 + spec.code.n_parity]], dim=-1)
+    else:
+        coded = spec.branch_metrics(rx).to(torch.float32)
+    B, N, _ = coded.shape
+    feat = torch.cat([coded, torch.zeros((B, N, 1), device=coded.device)], dim=-1)
+    return feat.permute(1, 2, 0).contiguous()
+
+
+def _timing_bcjr(siso, e2e):
+    """Rows 9 and 10 where their paths run them: the first SISO pass of the
+    N=512 turbo decode (the rows' own numbers, as in earlier runs), of the
+    N=6144 one and of the bcjr decode, each shape with its bound, its time a
+    step and its plain version's time (``shapes``); records one SISO pass
+    (alpha + beta) per shape in ``e2e``."""
+    from repro_torch.kernels import bcjr
+
+    rcode = siso["turbo"]["spec"].code
+    F, Sr = rcode.n_features, rcode.n_states
+    R = _unique_rows(*rcode.alpha_weights, *rcode.beta_weights, *rcode.llr_weights)
+    bcjr_rows = {}
+    for label, run, terminated, reps in (("turbo512", "turbo", False, 10),
+                                         ("lte6144", "lte6144", False, 2),
+                                         ("bcjr", "bcjr", True, 5)):
+        feat = _siso_features(siso[run])
+        N, _, Bt = feat.shape
+        r, pms, k, p = _timed(lambda: bcjr.bcjr_alpha_scan(rcode, feat),
+                              lambda: bcjr.bcjr_alpha_scan_plain(rcode, feat), reps)
+        a_err = _same(f"alpha scan at the {label} shape", k, p)
+        alphas = k[0]
+        del k, p
+        print(f"[timing] rounds (ms): bcjr_alpha_scan at {label} {r}")
+        # per (lane, step): R distinct F-term branch costs, then per state two
+        # adds, a min, the renorm min, subtract and clamp
+        a_row = _row("bcjr_alpha_scan", BCJR_SRC, "src/repro/kernels/bcjr.py:117",
+                     statistics.median(r), pms,
+                     4 * (N * F * Bt + N * Sr * Bt + Sr * Bt + 2 * Sr * F),
+                     Bt * N * (R * 2 * F + 6 * Sr))
+        a_row.update(max_abs_err=a_err, shape=f"{Bt} blocks x {N} steps, S={Sr}", rounds=r)
+        r, pms, k, p = _timed(lambda: bcjr.bcjr_beta_llr_scan(rcode, alphas, feat, terminated),
+                              lambda: bcjr.bcjr_beta_llr_scan_plain(rcode, alphas, feat,
+                                                                    terminated), reps)
+        b_err = _same(f"beta/LLR scan at the {label} shape", (k,), (p,))
+        del k, p, alphas, feat
+        print(f"[timing] rounds (ms): bcjr_beta_llr_scan at {label} {r}")
+        # per (lane, step): R branch costs; the LLR's two costs, two mins per
+        # state and one subtract; the beta retire's two adds, min and renorm
+        b_row = _row("bcjr_beta_llr_scan", BCJR_SRC, "src/repro/kernels/bcjr.py:165",
+                     statistics.median(r), pms,
+                     4 * (N * Sr * Bt + N * F * Bt + N * Bt + 4 * Sr * F + 2 * Sr),
+                     Bt * N * (R * 2 * F + 12 * Sr + 1))
+        b_row.update(max_abs_err=b_err, shape=f"{Bt} blocks x {N} steps, S={Sr}", rounds=r)
+        for row in (a_row, b_row):
+            us = row["ms"] * 1e3 / N
+            print(f"[timing] {row['name']} at {label} (B={Bt}, T={N}): {row['ms']!r} ms = "
+                  f"{us!r} us a step, bound {row['bound_ms']!r} ms ({row['bound_by']}), "
+                  f"{row['ms'] / row['bound_ms']!r}x the bound")
+            first = bcjr_rows.setdefault(row["name"], dict(row, shapes={}))
+            first["shapes"][label] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                          "max_abs_err", "rounds", "bytes",
+                                                          "operations")}
+            first["shapes"][label].update(B=Bt, T=N, us_per_step=us)
+            first["max_abs_err"] = max(first["max_abs_err"], row["max_abs_err"])
+    pass_ms = {label: sum(bcjr_rows[n]["shapes"][label]["ms"] for n in bcjr_rows)
+               for label in ("turbo512", "lte6144", "bcjr")}
+    print(f"[timing] one SISO pass (alpha + beta/LLR): {pass_ms}")
+    e2e["siso_pass_ms"] = pass_ms
+    return list(bcjr_rows.values())
 
 
 def phase_timing_siso(texpand_tables, siso):
@@ -1075,42 +1179,7 @@ def phase_timing_siso(texpand_tables, siso):
               f"{B * N_INFO / (ms / 1e3)!r} decoded bits/s, peak device memory {peak} bytes "
               "above the live tensors")
 
-    # --- rows 9 and 10: the first SISO pass of the N=512 turbo decode
-    tspec = siso["turbo"]["spec"]
-    rcode = tspec.code
-    llrs = tspec.channel_llrs(siso["turbo"]["rx"])
-    coded = torch.cat([llrs[..., :1], llrs[..., 1:1 + rcode.n_parity]], dim=-1)
-    Bt, N, _ = coded.shape
-    feat = torch.cat([coded, torch.zeros((Bt, N, 1), device="cuda")], dim=-1)
-    feat = feat.permute(1, 2, 0).contiguous()  # (T, F, B), as bcjr_llr_op builds it
-    F, Sr = rcode.n_features, rcode.n_states
-    R = _unique_rows(*rcode.alpha_weights, *rcode.beta_weights, *rcode.llr_weights)
-    r, pms, k, p = _timed(lambda: bcjr.bcjr_alpha_scan(rcode, feat),
-                          lambda: bcjr.bcjr_alpha_scan_plain(rcode, feat), 10)
-    err = _same("alpha scan at the turbo shape", k, p)
-    alphas = k[0]
-    print(f"[timing] rounds (ms): bcjr_alpha_scan {r}")
-    # per (lane, step): R distinct F-term branch costs, then per state two
-    # adds, a min, the renorm min, subtract and clamp
-    row = _row("bcjr_alpha_scan", BCJR_SRC, "src/repro/kernels/bcjr.py:117", statistics.median(r),
-               pms, 4 * (N * F * Bt + N * Sr * Bt + Sr * Bt + 2 * Sr * F),
-               Bt * N * (R * 2 * F + 6 * Sr))
-    row.update(max_abs_err=err, shape=f"{Bt} blocks x {N} steps, S={Sr}")
-    rows.append(row)
-    del k, p
-    r, pms, k, p = _timed(lambda: bcjr.bcjr_beta_llr_scan(rcode, alphas, feat, False),
-                          lambda: bcjr.bcjr_beta_llr_scan_plain(rcode, alphas, feat, False), 10)
-    err = _same("beta/LLR scan at the turbo shape", (k,), (p,))
-    print(f"[timing] rounds (ms): bcjr_beta_llr_scan {r}")
-    # per (lane, step): R branch costs; the LLR's two costs, two mins per
-    # state and one subtract; the beta retire's two adds, min and renorm
-    row = _row("bcjr_beta_llr_scan", BCJR_SRC, "src/repro/kernels/bcjr.py:165",
-               statistics.median(r), pms,
-               4 * (N * Sr * Bt + N * F * Bt + N * Bt + 4 * Sr * F + 2 * Sr),
-               Bt * N * (R * 2 * F + 12 * Sr + 1))
-    row.update(max_abs_err=err, shape=f"{Bt} blocks x {N} steps, S={Sr}")
-    rows.append(row)
-    del alphas, k, p, feat
+    rows += _timing_bcjr(siso, e2e)
 
     # --- end to end: the bcjr decode and both turbo decodes
     for label in ("bcjr", "turbo", "lte6144"):
@@ -1405,7 +1474,7 @@ def main(argv=None) -> int:
         _fail(f"kernel rows incomplete: {[(row['name'], row['launches']) for row in rows]}")
     kernels = [{k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")} for row in rows]
+                                    "library_ms", "shapes") if k in row} for row in rows]
     print(json.dumps({"end_to_end": e2e, "bound_inputs": [
         {k: r[k] for k in ("name", "bytes", "operations", "shape") if k in r} for r in rows]}))
     print(f"[done] wall time {time.perf_counter() - wall0!r} s")

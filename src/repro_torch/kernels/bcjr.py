@@ -17,10 +17,11 @@ operands are the cached tables of an RSC code (duck-typed: ``n_states``,
 ``next_state`` — ``kernels/`` never imports ``siso/``).
 
 On a CUDA tensor a wrapper launches ``csrc/bcjr.cu`` (see its header for the
-design); on a CPU tensor it runs the plain version, which follows the Pallas
-bodies of the reference (``kernels/bcjr.py:_alpha_kernel``,
-``_make_beta_kernel``) step for step in their float order, with the one-hot
-gathers taken as the exact index selections they are.  Each is counted
+design and the launch choice built for each S); on a CPU tensor it runs the
+plain version, which follows the Pallas bodies of the reference
+(``kernels/bcjr.py:_alpha_kernel``, ``_make_beta_kernel``) step for step in
+their float order, with the one-hot gathers taken as the exact index
+selections they are.  Each is counted
 under its own name in ``launch_counts`` / ``plain_counts``.
 
 Layouts: the reference's kernel layout, lanes fastest — feat (T, F, B),
@@ -31,8 +32,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.trellis import NEG_UNREACHABLE
@@ -42,8 +44,8 @@ from repro_torch.kernels.common import launch_counts, on_card, plain_counts
 ALPHA_NAME = "bcjr_alpha_scan"
 BETA_NAME = "bcjr_beta_llr_scan"
 
-#: Largest trellis the kernels take: one thread holds a lane's S metrics in
-#: registers.
+#: Largest trellis the kernels take: a group of at most 32 threads holds a
+#: lane's S metrics in registers, at most 8 a thread.
 MAX_STATES = 64
 #: Largest per-step feature width (n_out channel LLRs + one a-priori LLR).
 MAX_FEATURES = 8
@@ -52,7 +54,11 @@ MAX_FEATURES = 8
 @dataclasses.dataclass(frozen=True)
 class BCJROperands:
     """An RSC code's tables on one device: (S, F) float32 weights of the
-    alpha, beta and LLR branches and the (S, 2) int32 next-state table."""
+    alpha, beta and LLR branches and the (S, 2) int32 next-state table (the
+    plain versions' operands); the kernels' form of the same tables — the
+    (R, F) distinct weight rows, one (S,) int32 state -> row map for each
+    weight table (``rows[b0_row] == b0``, ...) and the (S, 2) int32 register
+    bits ``next_state >= S/2``."""
 
     b0: torch.Tensor
     b1: torch.Tensor
@@ -61,17 +67,44 @@ class BCJROperands:
     w0: torch.Tensor
     w1: torch.Tensor
     next_state: torch.Tensor
+    rows: torch.Tensor
+    b0_row: torch.Tensor
+    b1_row: torch.Tensor
+    c0_row: torch.Tensor
+    c1_row: torch.Tensor
+    w0_row: torch.Tensor
+    w1_row: torch.Tensor
+    reg_bit: torch.Tensor
+
+    @property
+    def n_rows(self) -> int:
+        return self.rows.shape[0]
+
+
+def distinct_rows(*tables: np.ndarray) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """The distinct rows of (S, F) tables, in order of first appearance, and
+    for each table the (S,) int32 index of each of its rows among them."""
+    index: dict = {}
+    maps = []
+    for w in tables:
+        maps.append(np.array([index.setdefault(row.tobytes(), len(index)) for row in w],
+                             dtype=np.int32))
+    F = tables[0].shape[1]
+    rows = np.frombuffer(b"".join(index), dtype=np.float32).reshape(len(index), F).copy()
+    return rows, maps
 
 
 @functools.lru_cache(maxsize=None)
 def operands(code, device: torch.device) -> BCJROperands:
     """The code's tables uploaded once per (code, device)."""
     def put(a):
-        return torch.from_numpy(a).to(device).contiguous()
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device).contiguous()
 
-    (b0, b1), (c0, c1), (w0, w1) = code.alpha_weights, code.beta_weights, code.llr_weights
-    return BCJROperands(put(b0), put(b1), put(c0), put(c1), put(w0), put(w1),
-                        put(code.next_state))
+    tables = (*code.alpha_weights, *code.beta_weights, *code.llr_weights)
+    rows, maps = distinct_rows(*(np.asarray(w, dtype=np.float32) for w in tables))
+    reg_bit = (np.asarray(code.next_state) >= code.n_states // 2).astype(np.int32)
+    return BCJROperands(*(put(w) for w in tables), put(code.next_state), put(rows),
+                        *(put(m) for m in maps), put(reg_bit))
 
 
 def _initial(S: int, B: int, device, state0: bool) -> torch.Tensor:
@@ -183,9 +216,10 @@ def bcjr_alpha_scan(code, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     op = operands(code, feat.device)
     alphas = torch.empty((T, S, B), dtype=torch.float32, device=feat.device)
     final_pm = torch.empty((S, B), dtype=torch.float32, device=feat.device)
-    lib, fn = _launcher("bcjr_alpha_scan_launch", 5, 4)
-    err = fn(op.b0.data_ptr(), op.b1.data_ptr(), feat.data_ptr(), alphas.data_ptr(),
-             final_pm.data_ptr(), B, T, F, S, torch.cuda.current_stream(feat.device).cuda_stream)
+    lib, fn = _launcher("bcjr_alpha_scan_launch", 6, 5)
+    err = fn(op.rows.data_ptr(), op.b0_row.data_ptr(), op.b1_row.data_ptr(), feat.data_ptr(),
+             alphas.data_ptr(), final_pm.data_ptr(), B, T, F, S, op.n_rows,
+             torch.cuda.current_stream(feat.device).cuda_stream)
     _build.raise_on_error(lib, "bcjr_error_string", ALPHA_NAME, err)
     launch_counts[ALPHA_NAME] += 1
     return alphas, final_pm
@@ -213,11 +247,11 @@ def bcjr_beta_llr_scan(code, alphas: torch.Tensor, feat: torch.Tensor,
     B, S = feat.shape[2], code.n_states
     op = operands(code, feat.device)
     llr = torch.empty((T, B), dtype=torch.float32, device=feat.device)
-    lib, fn = _launcher("bcjr_beta_llr_scan_launch", 8, 5)
-    err = fn(op.next_state.data_ptr(), op.c0.data_ptr(), op.c1.data_ptr(), op.w0.data_ptr(),
-             op.w1.data_ptr(), alphas.data_ptr(), feat.data_ptr(), llr.data_ptr(),
-             B, T, F, S, int(bool(terminated)),
-             torch.cuda.current_stream(feat.device).cuda_stream)
+    lib, fn = _launcher("bcjr_beta_llr_scan_launch", 9, 6)
+    err = fn(op.rows.data_ptr(), op.c0_row.data_ptr(), op.c1_row.data_ptr(),
+             op.w0_row.data_ptr(), op.w1_row.data_ptr(), op.reg_bit.data_ptr(),
+             alphas.data_ptr(), feat.data_ptr(), llr.data_ptr(), B, T, F, S, op.n_rows,
+             int(bool(terminated)), torch.cuda.current_stream(feat.device).cuda_stream)
     _build.raise_on_error(lib, "bcjr_error_string", BETA_NAME, err)
     launch_counts[BETA_NAME] += 1
     return llr

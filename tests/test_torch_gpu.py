@@ -266,28 +266,63 @@ def test_unpacked_scan_and_texpand_match_plain_on_card(card, K, polys, batch, T)
     assert not plain_counts
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("params", [
-    (3, 0b111, (0b101,)), (4, 0o13, (0o15,)), (5, 0o23, (0o35, 0o27)), (7, 0o133, (0o171,)),
-])
-def test_bcjr_scans_match_plain_on_card(card, params):
+#: An RSC code of every trellis size the BCJR kernels take (S = 2 .. 64),
+#: one-parity (R = 4) and two-parity (R = 8, F = 4) codes among them.
+BCJR_CODES = [
+    (2, 0b11, (0b10,)), (3, 0b111, (0b101,)), (4, 0o13, (0o15,)), (4, 0o13, (0o15, 0o17)),
+    (5, 0o23, (0o35, 0o27)), (6, 0o43, (0o75,)), (7, 0o133, (0o171,)),
+    (7, 0o133, (0o171, 0o165)),
+]
+
+
+def _bcjr_features(gen, code, T, B, kind, card):
+    """(T, F, B) features: soft, integer (exact ties everywhere) or soft with
+    +-1e30 and NaN entries in a few lanes."""
+    shape = (T, code.n_features, B)
+    if kind == "ties":
+        return torch.randint(-2, 3, shape, generator=gen, device=card).float()
+    feat = torch.randn(shape, generator=gen, device=card) * 2
+    if kind == "extremes":
+        pick = torch.rand(shape, generator=gen, device=card)
+        feat[pick < 0.02] = NEG_UNREACHABLE
+        feat[(pick >= 0.02) & (pick < 0.04)] = -NEG_UNREACHABLE
+        feat[:, :, ::7][pick[:, :, ::7] > 0.995] = float("nan")
+    return feat
+
+
+def _bcjr_matches_plain(code, feat):
+    """Both wrappers against the plain versions, NaN-aware; one launch per
+    call."""
     from repro_torch.kernels import bcjr
+
+    reset_counts()
+    alphas, final_pm = bcjr.bcjr_alpha_scan(code, feat)
+    torch.cuda.synchronize()
+    assert launch_counts["bcjr_alpha_scan"] == 1
+    alphas_p, final_p = bcjr.bcjr_alpha_scan_plain(code, feat)
+    _same_with_nan(alphas, alphas_p)
+    _same_with_nan(final_pm, final_p)
+    for n, terminated in enumerate((True, False), start=1):
+        llr = bcjr.bcjr_beta_llr_scan(code, alphas, feat, terminated)
+        torch.cuda.synchronize()
+        assert launch_counts["bcjr_beta_llr_scan"] == n
+        _same_with_nan(llr, bcjr.bcjr_beta_llr_scan_plain(code, alphas, feat, terminated))
+    assert not plain_counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("params", BCJR_CODES, ids=lambda p: f"K{p[0]}-{len(p[2])}par")
+def test_bcjr_scans_match_plain_on_card(card, params):
+    """The wrappers at every S, one- and two-parity, at B off the block and
+    group sizes (1, 33, 333, 1000) and on them (64), T = 1, T off the chunk
+    size and on it (96), on soft, tie-heavy and +-1e30 / NaN features."""
     from repro_torch.siso import RSCCode
 
     code = RSCCode(*params)
     gen = torch.Generator(device=card).manual_seed(params[0] + 400)
-    feat = torch.randn((90, code.n_features, 333), generator=gen, device=card) * 2
-    reset_counts()
-    alphas, final_pm = bcjr.bcjr_alpha_scan(code, feat)
-    alphas_p, final_p = bcjr.bcjr_alpha_scan_plain(code, feat)
-    torch.cuda.synchronize()
-    assert torch.equal(alphas, alphas_p) and torch.equal(final_pm, final_p)
-    for terminated in (True, False):
-        llr = bcjr.bcjr_beta_llr_scan(code, alphas, feat, terminated)
-        torch.cuda.synchronize()
-        assert torch.equal(llr, bcjr.bcjr_beta_llr_scan_plain(code, alphas, feat, terminated))
-    assert launch_counts["bcjr_alpha_scan"] == 1 and launch_counts["bcjr_beta_llr_scan"] == 2
-    assert not plain_counts
+    for B, T, kind in ((333, 90, "soft"), (1, 1, "soft"), (33, 45, "ties"),
+                       (1000, 70, "extremes"), (1, 37, "extremes"), (64, 96, "soft")):
+        _bcjr_matches_plain(code, _bcjr_features(gen, code, T, B, kind, card))
 
 
 @pytest.mark.gpu

@@ -198,6 +198,27 @@ def test_two_parity_scans_match_pallas_kernel_to_summation_order(terminated):
     _eq(llr < 0, ref < 0)
 
 
+@pytest.mark.parametrize("name", ["k3", "k4", "k5"])
+def test_bcjr_kernel_tables_rebuild_the_weight_tables(name):
+    """The kernels' operands: the distinct weight rows and one state -> row
+    map per (S, F) table rebuild the reference's alpha, beta and LLR weight
+    tables exactly; R is 4 with one parity and 8 with two; the register-bit
+    table is ``next_state >= S/2``."""
+    rc, pc = _pair(name)
+    op = bcjr.operands(pc, torch.device("cpu"))
+    assert op.rows.dtype == torch.float32 and op.n_rows == (4 if pc.n_parity == 1 else 8)
+    assert op.rows.shape == (op.n_rows, pc.n_features)
+    assert len({tuple(r) for r in op.rows.tolist()}) == op.n_rows
+    want = (*rc.alpha_weights, *rc.beta_weights, *rc.llr_weights)
+    for label, ref in zip(("b0", "b1", "c0", "c1", "w0", "w1"), want):
+        rows_of = getattr(op, f"{label}_row")
+        assert rows_of.dtype == torch.int32 and rows_of.shape == (pc.n_states,)
+        _eq(op.rows[rows_of.long()], ref)
+        _eq(getattr(op, label), ref)
+    assert op.reg_bit.dtype == torch.int32
+    _eq(op.reg_bit, (np.asarray(rc.next_state) >= pc.n_states // 2).astype(np.int32))
+
+
 def test_bcjr_scans_reject_what_the_kernel_cannot_take():
     _, pc = _pair("k3")
     with pytest.raises(ValueError, match="must be"):
