@@ -60,7 +60,10 @@ Phases (any failure raises and exits non-zero):
  10. timing  — CUDA-event times of each kernel and each plain version at the
                shape its path gives it (kernels: median of 5 rounds, every
                round printed), each held against its plain output exactly,
-               with each kernel's bound; end-to-end times of every path.
+               with each kernel's bound; for the launch-bound rows (#3, #7,
+               #8) also the device-only time (a CUDA graph of the same
+               launches, replayed), and #7 at both ``parallel`` re-scan
+               shapes; end-to-end times of every path.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -122,6 +125,45 @@ def _event_ms(fn, reps: int, rounds: int = 1, warmup: int = 2) -> list:
     return out
 
 
+def _graph_ms(fn, n: int, rounds: int = 5) -> list:
+    """Device-only time of ``fn()``: ``n`` calls captured into one CUDA
+    graph after a warm-up; for each of ``rounds`` replays, its CUDA-event
+    time over ``n``.  Back-to-back eager calls (``_event_ms``) stop at the
+    host's time to enqueue a call; a replay does not."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    out = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / n)
+    return out
+
+
+def _device_only(row, fn, n):
+    """Add the device-only time of ``fn`` (median of 5 graph replays of
+    ``n`` calls) to ``row`` beside its back-to-back ``ms``."""
+    r = _graph_ms(fn, n)
+    row.update(device_ms=statistics.median(r), device_rounds=r)
+    print(f"[timing] {row['name']}: device-only {row['device_ms']!r} ms (graph replays {r}), "
+          f"back-to-back {row['ms']!r} ms")
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -129,7 +171,7 @@ def phase_build():
     for lib in libs.values():
         print(f"[build] {' '.join(lib.command)}")
         for line in lib.compiler_output.splitlines():
-            if "ptxas info" in line:
+            if "ptxas info" in line or "spill" in line:
                 print(f"[build] {lib.name}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -647,6 +689,8 @@ def phase_timing_seeded(tiled, stream):
                      4 * (B * C * F + 2 * B * S + W * B * S + 2 * S * F + 2 * S),
                      B * C * (M * 2 * F + 7 * S)))
     rows[-1].update(max_abs_err=err, shape=f"{B} streams x {C} steps")
+    _device_only(rows[-1], lambda: viterbi_scan.viterbi_scan_packed_carry(code, pm0, feats, b0, b1,
+                                                                          rb), 50)
     bm = spec.branch_metrics(stream["rx"][:, :STREAM_CHUNK]).contiguous()
     r, pms, k, p = _timed(lambda: viterbi_scan.viterbi_scan_carry(code, pm0, bm),
                           lambda: viterbi_scan.viterbi_scan_carry_plain(code, pm0, bm), 50)
@@ -657,6 +701,7 @@ def phase_timing_seeded(tiled, stream):
                      4 * (B * C * M + 2 * B * S + C * B * S + 2 * S * M + 2 * S),
                      B * C * (M * 2 * M + 7 * S)))
     rows[-1].update(max_abs_err=err, shape=f"{B} streams x {C} steps")
+    _device_only(rows[-1], lambda: viterbi_scan.viterbi_scan_carry(code, pm0, bm), 50)
 
     # --- the tiled passes of the pinned NASA-frame decode (P=8, exact), on
     # the operands the tiled op itself hands its kernels
@@ -1154,6 +1199,7 @@ def phase_timing_siso(texpand_tables, siso):
     row = _row("texpand", TEXPAND_SRC, "src/repro/kernels/texpand.py:46", statistics.median(r),
                pms, 4 * (3 * B * S + B * M + 2 * S), 4 * B * S)
     row.update(max_abs_err=err, shape=f"{B} streams x 1 step, K=7")
+    _device_only(row, lambda: texpand.texpand(code, pm_mid, bm_t[40]), 200)
     rows.append(row)
     loop_rounds = _event_ms(lambda: _texpand_steps(code, bm_t), 1, rounds=5, warmup=1)
     loop_ms = statistics.median(loop_rounds)
@@ -1334,7 +1380,8 @@ def phase_parity_minplus(gen):
 
 def phase_timing_parallel(tiled, parallel):
     """Row 11 at the widest combine launch of the NASA-frame parallel decode,
-    and the parallel decode's end-to-end times."""
+    row 7 at both re-scan shapes (returned as its ``shapes``), and the
+    parallel decode's end-to-end times."""
     import torch
 
     from repro_torch.decode import DecodeContext, DecodeRequest, decode
@@ -1381,7 +1428,30 @@ def phase_timing_parallel(tiled, parallel):
     breakdown = {label: statistics.median(_event_ms(fn, 1, rounds=3, warmup=1))
                  for label, fn in steps.items()}
     print(f"[timing] parallel decode NASA frame hard, steps (ms, median of 3): {breakdown}")
-    del cap, mats, steps
+    # row 7 at both re-scan shapes, on the operands each decode gave it:
+    # back-to-back and device-only, against its plain version
+    spec_b = parallel["spec_b"]
+    cap_long = {}
+    ops.viterbi_decode_parallel_op(spec_b.code, spec_b.branch_metrics(parallel["rx_b"]),
+                                   LONG_CHUNK, True, capture=cap_long)
+    rescan = {}
+    for label, args in (("rescan_nasa", cap["rescan"]), ("rescan_long", cap_long["rescan"])):
+        rcode, _, chunks = args
+        Br, C, Mr = chunks.shape
+        Sr = rcode.n_states
+        r, pms, k, p = _timed(lambda a=args: viterbi_scan.viterbi_scan_carry(*a),
+                              lambda a=args: viterbi_scan.viterbi_scan_carry_plain(*a), 10)
+        err = _same(f"unpacked carry at the {label} shape", k, p)
+        del k, p
+        row7 = _row(f"viterbi_scan_carry ({label})", SCAN_SRC, "", statistics.median(r), pms,
+                    4 * (Br * C * Mr + 2 * Br * Sr + C * Br * Sr + 2 * Sr * Mr + 2 * Sr),
+                    Br * C * (Mr * 2 * Mr + 7 * Sr))
+        row7.update(rounds=r, max_abs_err=err, B=Br, T=C, S=Sr)
+        _device_only(row7, lambda a=args: viterbi_scan.viterbi_scan_carry(*a), 10)
+        rescan[label] = {k: row7[k] for k in ("ms", "rounds", "device_ms", "device_rounds",
+                                              "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                              "bytes", "operations", "B", "T", "S")}
+    del cap, cap_long, mats, steps
 
     e2e = {"nasa_hard_steps_ms": breakdown}
     for label, rq, chunk, n_bits in (
@@ -1400,7 +1470,7 @@ def phase_timing_parallel(tiled, parallel):
         print(f"[timing] parallel decode() {label} chunk={chunk}: rounds {rounds} median "
               f"{ms!r} ms, {n_bits / (ms / 1e3)!r} decoded bits/s, peak device memory {peak} "
               "bytes above the live tensors")
-    return [row], e2e
+    return [row], e2e, rescan
 
 
 def main(argv=None) -> int:
@@ -1448,12 +1518,14 @@ def main(argv=None) -> int:
         "traceback_packed_window": tiled["hard"]["launches_pinned"],
     }
     siso_rows, siso_e2e = phase_timing_siso(texpand_tables, siso)
-    parallel_rows, parallel_e2e = phase_timing_parallel(tiled, parallel)
+    parallel_rows, parallel_e2e, rescan = phase_timing_parallel(tiled, parallel)
     path_launches.update(viterbi_scan=fused_launches, texpand=texpand_launches,
                          bcjr_alpha_scan=siso_launches, bcjr_beta_llr_scan=siso_launches,
                          minplus_matmul=parallel_launches)
     for row in seeded_rows + siso_rows + parallel_rows:
         row["launches"] = path_launches[row["name"]].get(row["name"], 0)
+        if row["name"] == "viterbi_scan_carry":
+            row["shapes"] = rescan
     rows += seeded_rows + siso_rows + parallel_rows
     e2e = {"decode_short": e2e, "tiled_nasa_frame": tiled_e2e, "stream_64k": stream["e2e"],
            "fused_texpand_siso": siso_e2e, "parallel": parallel_e2e,
@@ -1473,8 +1545,9 @@ def main(argv=None) -> int:
     if [row["name"] for row in rows] != order or not all(row["launches"] > 0 for row in rows):
         _fail(f"kernel rows incomplete: {[(row['name'], row['launches']) for row in rows]}")
     kernels = [{k: row[k] for k in ("name", "route", "source", "replaces", "launches",
-                                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "shapes") if k in row} for row in rows]
+                                    "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "shapes") if k in row}
+               for row in rows]
     print(json.dumps({"end_to_end": e2e, "bound_inputs": [
         {k: r[k] for k in ("name", "bytes", "operations", "shape") if k in r} for r in rows]}))
     print(f"[done] wall time {time.perf_counter() - wall0!r} s")

@@ -32,14 +32,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.trellis import NEG_UNREACHABLE
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import launch_counts, on_card, plain_counts
+from repro_torch.kernels.common import distinct_rows, launch_counts, on_card, plain_counts
 
 ALPHA_NAME = "bcjr_alpha_scan"
 BETA_NAME = "bcjr_beta_llr_scan"
@@ -79,19 +79,6 @@ class BCJROperands:
     @property
     def n_rows(self) -> int:
         return self.rows.shape[0]
-
-
-def distinct_rows(*tables: np.ndarray) -> Tuple[np.ndarray, List[np.ndarray]]:
-    """The distinct rows of (S, F) tables, in order of first appearance, and
-    for each table the (S,) int32 index of each of its rows among them."""
-    index: dict = {}
-    maps = []
-    for w in tables:
-        maps.append(np.array([index.setdefault(row.tobytes(), len(index)) for row in w],
-                             dtype=np.int32))
-    F = tables[0].shape[1]
-    rows = np.frombuffer(b"".join(index), dtype=np.float32).reshape(len(index), F).copy()
-    return rows, maps
 
 
 @functools.lru_cache(maxsize=None)

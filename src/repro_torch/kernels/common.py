@@ -1,5 +1,5 @@
 """Shared kernel policy: survivor packing width, the kernel-or-plain rule,
-and the launch counters.
+the launch counters, and the distinct weight rows the scan kernels take.
 
 Kernel or plain version.  Every kernel wrapper decides by the device of the
 tensors it is given: a CUDA tensor launches the hand-written kernel (or the
@@ -17,8 +17,9 @@ plain version.  A run proves it went through the kernels by zeroing both
 from __future__ import annotations
 
 from collections import Counter
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 #: Survivor bits packed per word along the time axis (32-bit words).
@@ -59,3 +60,16 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run the plain PyTorch versions"
         )
     return dev
+
+
+def distinct_rows(*tables: np.ndarray) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """The distinct rows of (S, F) tables, in order of first appearance, and
+    for each table the (S,) int32 index of each of its rows among them."""
+    index: dict = {}
+    maps = []
+    for w in tables:
+        maps.append(np.array([index.setdefault(row.tobytes(), len(index)) for row in w],
+                             dtype=np.int32))
+    F = tables[0].shape[1]
+    rows = np.frombuffer(b"".join(index), dtype=np.float32).reshape(len(index), F).copy()
+    return rows, maps

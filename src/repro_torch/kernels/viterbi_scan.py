@@ -23,8 +23,10 @@ folded weights of kernels/metrics.py and F = n (2n punctured-hard) it is the
 raw received symbols.
 
 On a CUDA tensor a wrapper launches ``csrc/viterbi_scan.cu`` (see its header
-for the design); on a CPU tensor it runs ``_scan_plain``, which follows the
-Pallas body step by step on the same operands.
+for the two designs: the carried chunk scans run the chain kernel, on the
+distinct weight rows of :func:`row_operands`; the others the block kernel);
+on a CPU tensor it runs ``_scan_plain``, which follows the Pallas body step
+by step on the same operands.
 
 Layouts (the reference's user layout, no transposes): data (B, T, F), pm0
 and final_pm (B, S), lo and hi (B,) int32, packed (W, B, S) int32 words
@@ -34,16 +36,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.trellis import NEG_UNREACHABLE, ConvCode
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import PACK_BITS, launch_counts, on_card, plain_counts
+from repro_torch.kernels.common import (
+    PACK_BITS, distinct_rows, launch_counts, on_card, plain_counts)
 from repro_torch.kernels.survivors import pack_survivors
 
-#: Largest trellis the kernel takes (256 threads x 16 states each).
+#: Largest trellis the kernels take (block design: 256 threads x 16 states;
+#: chain design: 512 threads x 8 states).
 MAX_STATES = 4096
 
 NAME = "viterbi_scan_packed"
@@ -64,9 +70,10 @@ def table_weights(code: ConvCode, device="cpu") -> Tuple[torch.Tensor, torch.Ten
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_table_weights(code: ConvCode, device: torch.device):
-    """``table_weights`` uploaded once per (code, device): the stream chunk op
-    runs once per chunk and would otherwise copy them to the card each time."""
+def cached_table_weights(code: ConvCode, device: torch.device):
+    """``table_weights`` uploaded once per (code, device): the stream chunk ops
+    run once per chunk and would otherwise copy them to the card, and derive
+    their distinct rows (:func:`row_operands`), each time."""
     return table_weights(code, device)
 
 
@@ -137,7 +144,7 @@ def viterbi_scan_packed_window_plain(
 
 def viterbi_scan_plain(code: ConvCode, bm_tables: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`viterbi_scan`."""
-    b0, b1, rb = _cached_table_weights(code, bm_tables.device)
+    b0, b1, rb = cached_table_weights(code, bm_tables.device)
     return _scan_plain(code, None, bm_tables, b0, b1, rb, pack=False)
 
 
@@ -145,18 +152,53 @@ def viterbi_scan_carry_plain(
     code: ConvCode, pm0: torch.Tensor, bm_tables: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`viterbi_scan_carry`."""
-    b0, b1, rb = _cached_table_weights(code, bm_tables.device)
+    b0, b1, rb = cached_table_weights(code, bm_tables.device)
     return _scan_plain(code, pm0, bm_tables, b0, b1, rb, pack=False)
 
 
+#: (id, version) of each weight tensor -> (weak references, row operands)
+_ROWS: dict = {}
+
+
+def _version(t: torch.Tensor) -> int:
+    try:
+        return t._version
+    except RuntimeError:  # inference tensors keep no version counter
+        return -1
+
+
+def row_operands(b0: torch.Tensor, b1: torch.Tensor, rb: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain kernel's form of (S, F) weights ``b0``, ``b1`` and (S, 2)
+    bias ``rb``: the (R, F + 1) float32 distinct rows (weights, bias) of
+    ``(b0, rb[:, 0])`` and ``(b1, rb[:, 1])`` in order of first appearance,
+    and the (S, 2) int32 map with ``rows[maps[:, j], :F] == b_j`` and
+    ``rows[maps[:, j], F] == rb[:, j]`` bit for bit.  R = M for folded and
+    table weights, at most 2S for any.  On the weights' device; built once
+    per weight tensor (again when one is modified in place)."""
+    key = tuple((id(t), _version(t)) for t in (b0, b1, rb))
+    hit = _ROWS.get(key)
+    if hit is not None and all(ref() is t for ref, t in zip(hit[0], (b0, b1, rb))):
+        return hit[1]
+    bias = rb.detach().cpu().numpy()
+    rows, maps = distinct_rows(*(
+        np.concatenate([b.detach().cpu().numpy(), bias[:, j:j + 1]], axis=1)
+        for j, b in enumerate((b0, b1))))
+    out = (torch.from_numpy(rows).to(b0.device),
+           torch.from_numpy(np.stack(maps, axis=1)).to(b0.device))
+    _ROWS[key] = (tuple(weakref.ref(t) for t in (b0, b1, rb)), out)
+    weakref.finalize(b0, _ROWS.pop, key, None)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher(symbol: str, n_ptr: int):
+def _launcher(symbol: str, n_ptr: int, n_int: int):
     """The C entry point ``symbol`` of the built library, typed: ``n_ptr``
-    pointers (optional pm0, data, b0, b1, rb, optional lo and hi, final_pm,
-    survivors), then B, T, F, S and the stream."""
+    pointers, then ``n_int`` ints (B, T, F, S and, for the chain kernel, R)
+    and the stream."""
     lib = _build.load("viterbi_scan")
     fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -198,10 +240,15 @@ def _scan(name: str, code: ConvCode, pm0, data, b0, b1, rb, window: Window = Non
     final_pm = torch.empty((B, S), dtype=torch.float32, device=data.device)
     rows = -(-T // PACK_BITS) if pack else T
     survivors = torch.empty((rows, B, S), dtype=torch.int32, device=data.device)
-    ptrs = [t.data_ptr() for t in (pm0, data, b0, b1, rb, *(window or ())) if t is not None]
-    ptrs += [final_pm.data_ptr(), survivors.data_ptr()]
-    lib, fn = _launcher(f"{name}_launch", len(ptrs))
-    err = fn(*ptrs, B, T, F, S, torch.cuda.current_stream(data.device).cuda_stream)
+    if pm0 is not None and window is None:  # the carried chunk scans: the chain kernel
+        table, maps = row_operands(b0, b1, rb)
+        inputs, ints = (pm0, data, table, maps), (B, T, F, S, table.shape[0])
+    else:
+        inputs = tuple(t for t in (pm0, data, b0, b1, rb, *(window or ())) if t is not None)
+        ints = (B, T, F, S)
+    ptrs = [t.data_ptr() for t in inputs] + [final_pm.data_ptr(), survivors.data_ptr()]
+    lib, fn = _launcher(f"{name}_launch", len(ptrs), len(ints))
+    err = fn(*ptrs, *ints, torch.cuda.current_stream(data.device).cuda_stream)
     _build.raise_on_error(lib, "viterbi_scan_error_string", name, err)
     launch_counts[name] += 1
     return final_pm, survivors
@@ -266,7 +313,7 @@ def viterbi_scan_carry(
     Returns:
       final_pm: (B, S) float32; bps: (C, B, S) int32 backpointer parities.
     """
-    b0, b1, rb = _cached_table_weights(code, bm_tables.device)
+    b0, b1, rb = cached_table_weights(code, bm_tables.device)
     return _scan(UNPACKED_CARRY_NAME, code, pm0, bm_tables, b0, b1, rb, pack=False)
 
 
@@ -279,5 +326,5 @@ def viterbi_scan(code: ConvCode, bm_tables: torch.Tensor) -> Tuple[torch.Tensor,
     Returns:
       final_pm: (B, S) float32; bps: (T, B, S) int32 backpointer parities.
     """
-    b0, b1, rb = _cached_table_weights(code, bm_tables.device)
+    b0, b1, rb = cached_table_weights(code, bm_tables.device)
     return _scan(UNPACKED_NAME, code, None, bm_tables, b0, b1, rb, pack=False)

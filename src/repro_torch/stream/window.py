@@ -54,7 +54,7 @@ from repro_torch.kernels.common import PACK_BITS, resolve_device
 from repro_torch.kernels.metrics import fused_metric_plan
 from repro_torch.kernels.survivors import unpack_survivors
 from repro_torch.kernels.tiling import truncation_depth
-from repro_torch.kernels.viterbi_scan import table_weights
+from repro_torch.kernels.viterbi_scan import cached_table_weights
 
 PACKED_BACKEND = "fused_packed"
 
@@ -260,7 +260,7 @@ def stream_step(
     if packed:
         if C % PACK_BITS:
             raise ValueError(f"{PACKED_BACKEND} needs chunk % {PACK_BITS} == 0, got {C}")
-        w = table_weights(code, chunk_inputs.device) if weights is None else weights
+        w = cached_table_weights(code, chunk_inputs.device) if weights is None else weights
         new_pm, words = _ops.viterbi_forward_weighted_op(code, pm, chunk_inputs, w)
         ring = torch.cat([ring[C // PACK_BITS:], words], dim=0)
         best = torch.argmin(new_pm, dim=-1).to(torch.int32)

@@ -143,6 +143,97 @@ def test_carried_windowed_and_unpacked_scans_match_plain_on_card(card, K, polys,
     assert all(launch_counts[k.__name__] == 1 for k, _, _ in cases) and not plain_counts
 
 
+#: a rate-1/2 code of every trellis size in the chain kernel's launch table
+CHAIN_CODES = [(2, (0b11, 0b10)), (3, (0b111, 0b101)), (4, (0o15, 0o17)), (5, (0o23, 0o35)),
+               (6, (0o53, 0o75)), (7, (0o171, 0o133)), (8, (0o247, 0o371)),
+               (9, (0o561, 0o753)), (10, (0o1167, 0o1545)), (11, (0o3345, 0o3613)),
+               (12, (0o5723, 0o6265)), (13, (0o15621, 0o17363))]
+#: (B, T): every B of 1, 31, 33, 128, 1000 and every T of 1, 31, 32, 33, 64, 512
+CHAIN_SHAPES = [(1, 512), (31, 33), (33, 31), (128, 64), (1000, 32), (33, 1)]
+SPECIALS = (float("nan"), float("inf"), -float("inf"), NEG_UNREACHABLE, -NEG_UNREACHABLE)
+
+
+def _sprinkle(gen, x, card):
+    """``x`` with NaN, +-inf and +-1e30 at 3% of the entries of every fourth
+    lane (axis 0)."""
+    x = x.clone()
+    pick = torch.rand(x.shape, generator=gen, device=card)
+    pick[1::4] = 1.0
+    pick[2::4] = 1.0
+    pick[3::4] = 1.0
+    for i, v in enumerate(SPECIALS):
+        x[(pick >= 0.006 * i) & (pick < 0.006 * (i + 1))] = v
+    return x
+
+
+def _chain_seeds(gen, B, S, card):
+    """Carried metrics with 1e30 and its neighbours (one ulp below, and above,
+    which the first step clamps)."""
+    pm0 = _seed_metrics(gen, B, S, card)
+    big = torch.tensor(NEG_UNREACHABLE, device=card)
+    pick = torch.rand((B, S), generator=gen, device=card)
+    pm0[pick < 0.05] = torch.nextafter(big, torch.tensor(0.0, device=card))
+    pm0[pick > 0.95] = torch.nextafter(big, torch.tensor(float("inf"), device=card))
+    return pm0
+
+
+def _chain_operands(gen, code, kind, B, T, card):
+    """(data, (b0, b1, rb)) of one weight kind: the folded hard, soft and
+    punctured-hard plans, random weights with 2S distinct rows, and random
+    weights whose b1 rows are b0's permuted (S distinct rows)."""
+    S = code.n_states
+    if kind in ("hard", "punctured"):
+        plan = fused_metric_plan(code, "hard", PUNCTURE_2_3 if kind == "punctured" else None)
+        bits = torch.randint(0, 2, (B, T, code.n_out), generator=gen, device=card)
+        return plan.features(bits).contiguous(), plan.folded(card)
+    data = _sprinkle(gen, torch.randn((B, T, 3), generator=gen, device=card), card)
+    if kind == "soft":
+        return data[..., :2].contiguous(), fused_metric_plan(code, "soft").folded(card)
+    b0, rb0 = (torch.randn(shape, generator=gen, device=card) for shape in ((S, 3), (S, 1)))
+    if kind == "random":
+        b1, rb1 = (torch.randn(shape, generator=gen, device=card) for shape in ((S, 3), (S, 1)))
+    else:
+        perm = torch.randperm(S, generator=gen, device=card)
+        b1, rb1 = b0[perm].contiguous(), rb0[perm]
+    return data, (b0, b1, torch.cat([rb0, rb1], dim=1).contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,polys", CHAIN_CODES, ids=[f"S{2 ** (k - 1)}" for k, _ in CHAIN_CODES])
+def test_chain_scans_match_plain_on_card(card, K, polys):
+    """The carried chunk scans (the chain kernel) against their plain
+    versions at one S of its launch table: B and T on and off the warp,
+    tile and word sizes; folded hard, soft and punctured weights and random
+    ones with 2S and S distinct rows; features and tables holding NaN,
+    +-inf and +-1e30; ties (integer features); seeds at and beside 1e30.
+    Metrics NaN-aware, survivors exact, one launch per call."""
+    code = ConvCode(K, polys)
+    S = code.n_states
+    gen = torch.Generator(device=card).manual_seed(K + 500)
+    reset_counts()
+    calls = 0
+    for B, T in CHAIN_SHAPES:
+        pm0 = _chain_seeds(gen, B, S, card)
+        cases = []
+        for kind in ("hard", "soft", "punctured", "random", "shared"):
+            data, weights = _chain_operands(gen, code, kind, B, T, card)
+            cases.append((viterbi_scan.viterbi_scan_packed_carry,
+                          viterbi_scan.viterbi_scan_packed_carry_plain,
+                          (code, pm0, data, *weights)))
+        tables = _sprinkle(gen, torch.randint(0, 3, (B, T, code.n_symbols), generator=gen,
+                                              device=card).float(), card)
+        cases.append((viterbi_scan.viterbi_scan_carry, viterbi_scan.viterbi_scan_carry_plain,
+                      (code, pm0, tables)))
+        for kernel, plain, args in cases:
+            pm, surv = kernel(*args)
+            torch.cuda.synchronize()
+            calls += 1
+            assert sum(launch_counts.values()) == calls and not plain_counts
+            pm_p, surv_p = plain(*args)
+            assert torch.equal(surv, surv_p), (kernel.__name__, B, T)
+            _same_with_nan(pm, pm_p)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,polys,batch,T", [
     (3, (0b111, 0b101), 300, 100),

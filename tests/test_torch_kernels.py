@@ -288,3 +288,61 @@ def test_kernel_sources_and_build_key_are_stable():
     assert _build.build_dir().parent == _build.BUILD_ROOT
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+# --------------------------------------------------------------------------- #
+# the chain kernel's operands: distinct weight rows and the state -> row map   #
+# --------------------------------------------------------------------------- #
+
+ROW_CODES = {"k3": (3, (0b111, 0b101)), "k7": (7, (0o171, 0o133)),
+             "k11": (11, (0o3345, 0o3613))}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def _rebuilds(rows, maps, b0, b1, rb):
+    """rows[maps[:, j]] is (b_j, rb[:, j]) bit for bit."""
+    F = b0.shape[1]
+    assert rows.dtype == torch.float32 and maps.dtype == torch.int32
+    assert maps.shape == (b0.shape[0], 2) and rows.shape[1] == F + 1
+    for j, b in enumerate((b0, b1)):
+        picked = rows[maps[:, j].long()]
+        assert torch.equal(_bits(picked[:, :F]), _bits(b))
+        assert torch.equal(_bits(picked[:, F]), _bits(rb[:, j]))
+
+
+@pytest.mark.parametrize("name", ROW_CODES)
+@pytest.mark.parametrize("weights", ["hard", "soft", "punct", "table"])
+def test_row_operands_rebuild_the_weights(name, weights):
+    code = PCode(*ROW_CODES[name])
+    if weights == "table":
+        b0, b1, rb = viterbi_scan.table_weights(code)
+    else:
+        metric = "soft" if weights == "soft" else "hard"
+        b0, b1, rb = p_plan(code, metric, PUNCTURE_2_3 if weights == "punct" else None).folded()
+    rows, maps = viterbi_scan.row_operands(b0, b1, rb)
+    _rebuilds(rows, maps, b0, b1, rb)
+    assert rows.shape[0] == code.n_symbols  # R = M: one row per output symbol
+
+
+def test_row_operands_keep_arbitrary_weights_and_are_cached_per_tensor():
+    rng = np.random.default_rng(3)
+    S, F = 64, 3
+    b0, b1 = (torch.from_numpy(rng.standard_normal((S, F)).astype(np.float32)) for _ in "01")
+    rb = torch.from_numpy(rng.standard_normal((S, 2)).astype(np.float32))
+    b0[1] = -0.0  # a signed zero and a NaN are rows of their own
+    b0[2] = 0.0
+    b1[5, 1] = np.nan
+    first = viterbi_scan.row_operands(b0, b1, rb)
+    _rebuilds(*first, b0, b1, rb)
+    assert first[0].shape[0] == 2 * S
+    assert viterbi_scan.row_operands(b0, b1, rb) is first
+    b0[:, 0] = 0.0  # modified in place: built again
+    b1[7] = b0[7]
+    rb[7, 1] = rb[7, 0]  # state 7's two branches now share a row
+    rows, maps = viterbi_scan.row_operands(b0, b1, rb)
+    assert rows is not first[0]
+    _rebuilds(rows, maps, b0, b1, rb)
+    assert rows.shape[0] == 2 * S - 1 and maps[7, 0] == maps[7, 1]
