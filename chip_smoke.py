@@ -54,16 +54,19 @@ Phases (any failure raises and exits non-zero):
                exactly (words, selects, metrics, bits, entry states, alphas,
                LLRs, (min,+) products), at K=3, 7, 11 (13 for the short-block
                kernels) small shapes with T % 32 != 0, partial windows and
-               carried metrics holding 1e30, both named RSC codes, terminated
-               and open, and (min,+) products at both inits with 1e30, 2e30
-               and NaN entries, K = 1, strided batches and an empty batch;
+               carried metrics holding 1e30, the state-0 and windowed scans
+               at every S of their launch table (2 to 4096), the RSC codes
+               of every S, terminated and open, and (min,+) products at both
+               inits with 1e30, 2e30 and NaN entries, K = 1, strided batches
+               and an empty batch;
  10. timing  — CUDA-event times of each kernel and each plain version at the
                shape its path gives it (kernels: median of 5 rounds, every
                round printed), each held against its plain output exactly,
-               with each kernel's bound; for the launch-bound rows (#3, #7,
-               #8) also the device-only time (a CUDA graph of the same
-               launches, replayed), and #7 at both ``parallel`` re-scan
-               shapes; end-to-end times of every path.
+               with each kernel's bound; for the scans and #8 also the
+               device-only time (a CUDA graph of the same launches,
+               replayed), #4 at the ``parallel`` transfer matrices' shape
+               beside the pinned tiled passes, and #7 at both ``parallel``
+               re-scan shapes; end-to-end times of every path.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -373,6 +376,58 @@ def phase_parity_seeded(gen):
               "window traceback: exact")
 
 
+#: a rate-1/2 code of every trellis size in the chain kernel's launch tables
+#: (csrc/viterbi_scan.cu: VITERBI_CHOICES, VITERBI_WIDE_CHOICES)
+TABLE_CODES = ((2, (0b11, 0b10)), (3, (0b111, 0b101)), (4, (0o15, 0o17)), (5, (0o23, 0o35)),
+               (6, (0o53, 0o75)), (7, (0o171, 0o133)), (8, (0o247, 0o371)),
+               (9, (0o561, 0o753)), (10, (0o1167, 0o1545)), (11, (0o3345, 0o3613)),
+               (12, (0o5723, 0o6265)), (13, (0o15621, 0o17363)))
+
+
+def phase_parity_wide(gen):
+    """The state-0 and windowed packed scans (#1, #4) against their plain
+    versions at every S of the wide launch table: folded hard and soft
+    weights (soft features holding NaN, +-inf and +-1e30) and table weights,
+    per-lane windows with empty ones and edges beside word boundaries, seeds
+    holding 1e30; survivors exact, metrics NaN-aware, one launch a call."""
+    import torch
+
+    from repro_torch.core import ConvCode
+    from repro_torch.kernels import fused_metric_plan, viterbi_scan
+
+    for K, polys in TABLE_CODES:
+        code = ConvCode(K, polys)
+        S = code.n_states
+        B, T = (333, 70) if S <= 256 else (9, 45)
+        pm0 = _seed_metrics(gen, B, S)
+        lo = torch.randint(0, T // 2, (B,), generator=gen, device="cuda").int()
+        hi = torch.randint(T // 2, T + 3, (B,), generator=gen, device="cuda").int()
+        lo[:4] = torch.tensor([31, 0, 33, 20], device="cuda", dtype=torch.int32)[:B]
+        hi[:4] = torch.tensor([33, 32, 65, 20], device="cuda", dtype=torch.int32)[:B]
+        soft = torch.randn((B, T, code.n_out), generator=gen, device="cuda")
+        pick = torch.rand(soft.shape, generator=gen, device="cuda")
+        for i, v in enumerate((float("nan"), math.inf, -math.inf, 1e30, -1e30)):
+            soft[(pick >= 0.004 * i) & (pick < 0.004 * (i + 1))] = v
+        hard = torch.randint(0, 2, (B, T, code.n_out), generator=gen, device="cuda")
+        tables = torch.randint(0, 3, (B, T, code.n_symbols), generator=gen, device="cuda").float()
+        hplan = fused_metric_plan(code, "hard")
+        for label, data, w in (("soft", soft, fused_metric_plan(code, "soft").folded("cuda")),
+                               ("hard", hplan.features(hard).contiguous(), hplan.folded("cuda")),
+                               ("table", tables, viterbi_scan.table_weights(code, "cuda"))):
+            for name, args in (("viterbi_scan_packed", (code, data, *w)),
+                               ("viterbi_scan_packed_window", (code, pm0, data, *w, lo, hi))):
+                before = _counts()[0].get(name, 0)
+                pm, words = getattr(viterbi_scan, name)(*args)
+                torch.cuda.synchronize()
+                if _counts()[0].get(name, 0) - before != 1:
+                    _fail(f"{name} S={S} {label}: not one launch")
+                pm_p, words_p = getattr(viterbi_scan, f"{name}_plain")(*args)
+                _same(f"{name} S={S} {label} (words)", (words,), (words_p,))
+                _same_nan(f"{name} S={S} {label} (metrics)", pm, pm_p)
+        print(f"[parity] S={S} B={B} T={T}: viterbi_scan_packed, viterbi_scan_packed_window "
+              "(soft with NaN/inf/1e30, hard, table; windows beside word edges): exact")
+
+
 def _touched_words(code, bits: "torch.Tensor") -> int:
     """Distinct survivor words the traceback reads: at step t it reads word
     (t // 32, b, s_t), s_t the decoded path's state at step t."""
@@ -453,6 +508,7 @@ def phase_timing(hard_spec, rx, feats, weights):
         _row("traceback_packed", TB_SRC, "src/repro/kernels/survivors.py:211", tb_ms,
              tb_plain_ms, tb_bytes, tb_ops),
     ]
+    _device_only(rows[0], lambda: viterbi_scan.viterbi_scan_packed(code, feats, b0, b1, rb), 20)
     return rows, dict(decode_ms=decode_ms, bits_per_s=B * N_INFO / (decode_ms / 1e3),
                       peak_bytes=peak)
 
@@ -665,7 +721,8 @@ def phase_timing_seeded(tiled, stream):
     import torch
 
     from repro_torch.kernels import (
-        fused_metric_plan, minplus, ops, plan_tiles, survivors, viterbi_scan)
+        fused_metric_plan, launch_counts, minplus, ops, plan_tiles, reset_counts, survivors,
+        viterbi_scan)
 
     rows = []
     # --- the stream step: (B=128, C=64), the first chunk of the 64k stream
@@ -707,19 +764,35 @@ def phase_timing_seeded(tiled, stream):
     # the operands the tiled op itself hands its kernels
     hard = tiled["hard"]
     code = hard["spec"].code
-    launched = {}
+
+    class Launched(dict):
+        """A capture that also reads the window scan's launch count as each
+        pass's operands come in (the op hands them over after the launch)."""
+
+        def update(self, **kw):
+            for key in kw:
+                self[f"{key} count"] = launch_counts["viterbi_scan_packed_window"]
+            super().update(**kw)
+
+    reset_counts()
+    launched = Launched()
     bits, metric = ops.viterbi_decode_tiled_fused(
         fused_metric_plan(code, "hard"), hard["rx"], TILES, capture=launched)
     if not (torch.equal(bits, hard["pinned"].bits)
             and torch.equal(metric, hard["pinned"].path_metric)):
         _fail("the captured tiled op differs from the pinned decode() it times")
     pass1, pass2, tb = launched["pass1"], launched["pass2"], launched["traceback"]
+    pass_launches = (launched["pass1 count"], launched["pass2 count"] - launched["pass1 count"])
+    if sum(pass_launches) != hard["launches_pinned"].get("viterbi_scan_packed_window", 0):
+        _fail(f"the captured tiled op launched the window scan {pass_launches} times a pass, "
+              f"the pinned decode() {hard['launches_pinned']}")
     Bn = hard["rx"].shape[0]
     lanes2, V, F = pass2[2].shape  # lanes (b, p) x span x features
     valid = int((pass2[7] - pass2[6]).sum())  # valid (frame, step) pairs over all tiles
     W = -(-V // 32)
     passes = []
-    for label, args, lanes, reps in (("pass 1", pass1, lanes2 * S, 3), ("pass 2", pass2, lanes2, 20)):
+    for label, args, lanes, reps, n_launch in (("pass 1", pass1, lanes2 * S, 3, pass_launches[0]),
+                                               ("pass 2", pass2, lanes2, 20, pass_launches[1])):
         r, pms, k, p = _timed(lambda a=args: viterbi_scan.viterbi_scan_packed_window(*a),
                               lambda a=args: viterbi_scan.viterbi_scan_packed_window_plain(*a),
                               reps)
@@ -728,22 +801,27 @@ def phase_timing_seeded(tiled, stream):
               f"({lanes} lanes x {V} steps) {r}")
         nbytes = 4 * (lanes * V * F + 2 * lanes * S + 2 * lanes + W * lanes * S + 2 * S * F + 2 * S)
         n_ops = valid * (lanes // lanes2) * (M * 2 * F + 7 * S)
-        passes.append((statistics.median(r), pms, err, _row(
-            f"viterbi_scan_packed_window ({label})", SCAN_SRC, "", statistics.median(r), pms,
-            nbytes, n_ops)))
+        prow = _row(f"viterbi_scan_packed_window ({label})", SCAN_SRC, "", statistics.median(r),
+                    pms, nbytes, n_ops)
+        prow.update(launches=n_launch, max_abs_err=err)
+        _device_only(prow, lambda a=args: viterbi_scan.viterbi_scan_packed_window(*a), reps)
+        passes.append((statistics.median(r), pms, err, prow))
     # one row for the kernel: both launches of one tiled decode, each pass's
     # bound added (the passes run one after the other)
     row = dict(passes[0][3], name="viterbi_scan_packed_window",
                replaces="src/repro/kernels/viterbi_scan.py:276",
                ms=sum(x[0] for x in passes), plain_ms=sum(x[1] for x in passes),
                bound_ms=sum(x[3]["bound_ms"] for x in passes),
+               device_ms=sum(x[3]["device_ms"] for x in passes),
                bytes=sum(x[3]["bytes"] for x in passes),
                operations=sum(x[3]["operations"] for x in passes),
                max_abs_err=max(x[2] for x in passes),
                shape="pass 1 + pass 2: " + ", ".join(
                    f"{x[3]['bound_ms']!r} ms bound ({x[3]['bound_by']})" for x in passes))
-    print(f"[timing] viterbi_scan_packed_window (both passes): kernel {row['ms']!r} ms, plain "
-          f"{row['plain_ms']!r} ms, bound {row['bound_ms']!r} ms")
+    row["shapes"] = {"tiled_p8_pass1": passes[0][3], "tiled_p8_pass2": passes[1][3]}
+    print(f"[timing] viterbi_scan_packed_window (both passes): kernel {row['ms']!r} ms, "
+          f"device-only {row['device_ms']!r} ms, plain {row['plain_ms']!r} ms, bound "
+          f"{row['bound_ms']!r} ms")
     rows.append(row)
     lanes = lanes2 * S
     r, pms, k, p = _timed(lambda: survivors.traceback_packed_window(*tb),
@@ -1428,6 +1506,26 @@ def phase_timing_parallel(tiled, parallel):
     breakdown = {label: statistics.median(_event_ms(fn, 1, rounds=3, warmup=1))
                  for label, fn in steps.items()}
     print(f"[timing] parallel decode NASA frame hard, steps (ms, median of 3): {breakdown}")
+    # row 4 at the transfer matrices' shape: back to back and device-only,
+    # against its plain version; bound with the tiled passes' rule
+    pass1 = cap["pass1"]
+    wcode, _, wdata, *_, wlo, whi = pass1
+    lanes, Tw, Fw = wdata.shape
+    Sw, Mw = wcode.n_states, wcode.n_symbols
+    r, pms, k, p = _timed(lambda: viterbi_scan.viterbi_scan_packed_window(*pass1),
+                          lambda: viterbi_scan.viterbi_scan_packed_window_plain(*pass1), 3)
+    err = _same("windowed scan at the parallel shape", k, p)
+    del k, p
+    print(f"[timing] rounds (ms): viterbi_scan_packed_window parallel ({lanes} lanes x {Tw} "
+          f"steps) {r}")
+    Ww = -(-Tw // 32)
+    valid = int((whi - wlo).clamp(min=0).sum())
+    wrow = _row("viterbi_scan_packed_window (parallel)", SCAN_SRC, "", statistics.median(r), pms,
+                4 * (lanes * Tw * Fw + 2 * lanes * Sw + 2 * lanes + Ww * lanes * Sw + 2 * Sw * Fw
+                     + 2 * Sw), valid * (Mw * 2 * Fw + 7 * Sw))
+    wrow.update(rounds=r, max_abs_err=err, B=lanes, T=Tw, S=Sw)
+    _device_only(wrow, lambda: viterbi_scan.viterbi_scan_packed_window(*pass1), 3)
+    del pass1
     # row 7 at both re-scan shapes, on the operands each decode gave it:
     # back-to-back and device-only, against its plain version
     spec_b = parallel["spec_b"]
@@ -1470,7 +1568,7 @@ def phase_timing_parallel(tiled, parallel):
         print(f"[timing] parallel decode() {label} chunk={chunk}: rounds {rounds} median "
               f"{ms!r} ms, {n_bits / (ms / 1e3)!r} decoded bits/s, peak device memory {peak} "
               "bytes above the live tensors")
-    return [row], e2e, rescan
+    return [row], e2e, rescan, wrow
 
 
 def main(argv=None) -> int:
@@ -1503,6 +1601,7 @@ def main(argv=None) -> int:
     parallel_launches, parallel = phase_parallel(gen, tiled)
     feats, weights, errs = phase_parity(gen, inputs["hard"], hard_spec)
     phase_parity_seeded(gen)
+    phase_parity_wide(gen)
     phase_parity_siso(gen)
     phase_parity_minplus(gen)
     rows, e2e = phase_timing(hard_spec, inputs["hard"][2], feats, weights)
@@ -1518,7 +1617,7 @@ def main(argv=None) -> int:
         "traceback_packed_window": tiled["hard"]["launches_pinned"],
     }
     siso_rows, siso_e2e = phase_timing_siso(texpand_tables, siso)
-    parallel_rows, parallel_e2e, rescan = phase_timing_parallel(tiled, parallel)
+    parallel_rows, parallel_e2e, rescan, window_parallel = phase_timing_parallel(tiled, parallel)
     path_launches.update(viterbi_scan=fused_launches, texpand=texpand_launches,
                          bcjr_alpha_scan=siso_launches, bcjr_beta_llr_scan=siso_launches,
                          minplus_matmul=parallel_launches)
@@ -1526,6 +1625,14 @@ def main(argv=None) -> int:
         row["launches"] = path_launches[row["name"]].get(row["name"], 0)
         if row["name"] == "viterbi_scan_carry":
             row["shapes"] = rescan
+        if row["name"] == "viterbi_scan_packed_window":
+            # the pinned tiled passes are the row's own numbers; the parallel
+            # decode's transfer matrices are its second shape
+            window_parallel["launches"] = parallel_launches.get(row["name"], 0)
+            row["shapes"]["parallel_nasa"] = window_parallel
+            row["shapes"] = {label: {k: x[k] for k in (
+                "ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "bytes", "operations") if k in x} for label, x in row["shapes"].items()}
     rows += seeded_rows + siso_rows + parallel_rows
     e2e = {"decode_short": e2e, "tiled_nasa_frame": tiled_e2e, "stream_64k": stream["e2e"],
            "fused_texpand_siso": siso_e2e, "parallel": parallel_e2e,

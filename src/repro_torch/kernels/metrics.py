@@ -76,17 +76,17 @@ class FusedMetricPlan:
         """(..., T, n_out) raw symbols -> (..., T, M) bm tables."""
         return self.bm_from_features(self.features(received, t0))
 
-    def folded(self, device="cpu") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Kernel operands on ``device``: (b0 (S, F), b1 (S, F), rb (S, 2))
-        float32.  The branch one-hots are 0/1 row selectors, so ``OH_j @ W``
+    def folded_arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The kernel operands as host float32 arrays: b0 (S, F), b1 (S, F),
+        rb (S, 2).  The branch one-hots are 0/1 row selectors, so ``OH_j @ W``
         just re-indexes W per successor state — exact."""
         OH0, OH1 = self.code.branch_onehot_pair
-        b0 = OH0 @ self.weight
-        b1 = OH1 @ self.weight
         rb = np.stack([OH0 @ self.bias, OH1 @ self.bias], axis=1)
-        return tuple(
-            torch.tensor(a, dtype=torch.float32, device=device) for a in (b0, b1, rb)
-        )
+        return tuple(a.astype(np.float32) for a in (OH0 @ self.weight, OH1 @ self.weight, rb))
+
+    def folded(self, device="cpu") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """:meth:`folded_arrays` as new tensors on ``device``."""
+        return tuple(torch.tensor(a, device=device) for a in self.folded_arrays())
 
 
 def fused_metric_plan(

@@ -114,8 +114,15 @@ def viterbi_forward_packed_op(
     """Forward pass with bit-packed survivors from precomputed bm tables.
     bm_tables: (B, T, M) -> final_pm (B, S), packed (ceil(T/32), B, S)."""
     return viterbi_forward_weighted_op(
-        code, None, bm_tables, _vscan.table_weights(code, bm_tables.device)
+        code, None, bm_tables, _vscan.cached_table_weights(code, bm_tables.device)
     )
+
+
+def plan_weights(plan: FusedMetricPlan, device) -> Weights:
+    """A metric plan's folded weights on ``device``, uploaded once per
+    (values, device) with their row operands (viterbi_scan.device_weights):
+    a second decode of the same spec builds and copies nothing."""
+    return _vscan.device_weights(*plan.folded_arrays(), device)
 
 
 def viterbi_forward_fused_op(
@@ -125,7 +132,7 @@ def viterbi_forward_fused_op(
     received: (B, T, n_out) raw channel symbols (hard bits or soft values).
     Returns final_pm (B, S), packed (ceil(T/32), B, S)."""
     feats = plan.features(received, t0)
-    return viterbi_forward_weighted_op(plan.code, None, feats, plan.folded(received.device))
+    return viterbi_forward_weighted_op(plan.code, None, feats, plan_weights(plan, received.device))
 
 
 def viterbi_traceback_op(
@@ -331,7 +338,7 @@ def viterbi_decode_tiled_op(
     bm_tables: (B, T, M) -> (bits (B, T), metric (B,)).
     """
     return _tiled_weighted_decode(
-        code, bm_tables, _vscan.table_weights(code, bm_tables.device), n_tiles, overlap,
+        code, bm_tables, _vscan.cached_table_weights(code, bm_tables.device), n_tiles, overlap,
         terminated,
     )
 
@@ -350,7 +357,8 @@ def viterbi_decode_tiled_fused(
     collects each kernel launch's operands (see _tiled_weighted_decode)."""
     feats = plan.features(received, 0)
     return _tiled_weighted_decode(
-        plan.code, feats, plan.folded(received.device), n_tiles, overlap, terminated, capture
+        plan.code, feats, plan_weights(plan, received.device), n_tiles, overlap, terminated,
+        capture
     )
 
 
@@ -456,7 +464,7 @@ def viterbi_decode_parallel_op(
         bm = torch.nn.functional.pad(bm, (0, 0, 0, pad))
     nc = (T + pad) // chunk
     chunks = bm.reshape(B * nc, chunk, M).contiguous()  # lanes (b, c)
-    b0, b1, rb = _vscan.table_weights(code, dev)
+    b0, b1, rb = _vscan.cached_table_weights(code, dev)
 
     # 1. lanes (b, c, i); outside [0, hi) the metrics pass through untouched,
     # which is the reference's masked last-chunk matrix

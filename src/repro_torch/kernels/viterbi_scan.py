@@ -1,4 +1,4 @@
-"""Forward ACS scans: one CUDA kernel template and its plain PyTorch version.
+"""Forward ACS scans: the CUDA kernels and their plain PyTorch version.
 
 Five variants of one scan, each a TPU kernel of the reference
 (``_make_scan_kernel(carry, pack, windowed)``) and each its own name in
@@ -23,10 +23,15 @@ folded weights of kernels/metrics.py and F = n (2n punctured-hard) it is the
 raw received symbols.
 
 On a CUDA tensor a wrapper launches ``csrc/viterbi_scan.cu`` (see its header
-for the two designs: the carried chunk scans run the chain kernel, on the
-distinct weight rows of :func:`row_operands`; the others the block kernel);
-on a CPU tensor it runs ``_scan_plain``, which follows the Pallas body step
-by step on the same operands.
+for the two designs: ``viterbi_scan`` runs the block kernel on the weights;
+the other four the chain kernel, on the distinct weight rows of
+:func:`row_operands`); on a CPU tensor it runs ``_scan_plain``, which follows
+the Pallas body step by step on the same operands.
+
+Weights that a decode builds from host arrays (a metric plan's folded
+weights, the bm-table one-hots) come from :func:`device_weights`: uploaded
+once per (values, device), with their row operands derived on the host as
+they are uploaded, so no decode copies weights back from the card.
 
 Layouts (the reference's user layout, no transposes): data (B, T, F), pm0
 and final_pm (B, S), lo and hi (B,) int32, packed (W, B, S) int32 words
@@ -37,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -49,7 +55,7 @@ from repro_torch.kernels.common import (
 from repro_torch.kernels.survivors import pack_survivors
 
 #: Largest trellis the kernels take (block design: 256 threads x 16 states;
-#: chain design: 512 threads x 8 states).
+#: chain design: up to 1024 threads a stream, at most 8 states a thread).
 MAX_STATES = 4096
 
 NAME = "viterbi_scan_packed"
@@ -61,20 +67,22 @@ UNPACKED_NAME = "viterbi_scan"
 Window = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
+def _table_arrays(code: ConvCode):
+    OH0, OH1 = code.branch_onehot_pair
+    return OH0, OH1, np.zeros((code.n_states, 2), dtype=np.float32)
+
+
 def table_weights(code: ConvCode, device="cpu") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Weights that make the scan consume precomputed bm tables: the branch
     one-hots select bm[c] per transition, bias contributes 0."""
-    OH0, OH1 = code.branch_onehot_pair
-    rb = torch.zeros((code.n_states, 2), dtype=torch.float32, device=device)
-    return torch.tensor(OH0, device=device), torch.tensor(OH1, device=device), rb
+    return tuple(torch.tensor(a, device=device) for a in _table_arrays(code))
 
 
-@functools.lru_cache(maxsize=None)
-def cached_table_weights(code: ConvCode, device: torch.device):
-    """``table_weights`` uploaded once per (code, device): the stream chunk ops
-    run once per chunk and would otherwise copy them to the card, and derive
-    their distinct rows (:func:`row_operands`), each time."""
-    return table_weights(code, device)
+def cached_table_weights(code: ConvCode, device):
+    """``table_weights`` on ``device`` through :func:`device_weights`: the same
+    tensors every call, their row operands derived on the host (the stream
+    chunk ops call it once a chunk)."""
+    return device_weights(*_table_arrays(code), device)
 
 
 def _scan_plain(
@@ -158,6 +166,12 @@ def viterbi_scan_carry_plain(
 
 #: (id, version) of each weight tensor -> (weak references, row operands)
 _ROWS: dict = {}
+#: (device, shape, bytes of b0, b1, rb) -> the weight tensors of device_weights
+_WEIGHTS: dict = {}
+#: row-operand builds: "host" from host arrays as device_weights uploads them,
+#: "copy" from weight tensors read back by row_operands (a device->host copy
+#: when they lie on the card)
+row_builds: Counter = Counter()
 
 
 def _version(t: torch.Tensor) -> int:
@@ -165,6 +179,24 @@ def _version(t: torch.Tensor) -> int:
         return t._version
     except RuntimeError:  # inference tensors keep no version counter
         return -1
+
+
+def _key(weights) -> tuple:
+    return tuple((id(t), _version(t)) for t in weights)
+
+
+def _remember(weights, b0: np.ndarray, b1: np.ndarray, rb: np.ndarray):
+    """Derive the row operands of host arrays ``b0, b1, rb``, put them on the
+    device of ``weights`` (the same values as tensors) and keep them for
+    :func:`row_operands`."""
+    rows, maps = distinct_rows(*(np.concatenate([b, rb[:, j:j + 1]], axis=1)
+                                 for j, b in enumerate((b0, b1))))
+    dev = weights[0].device
+    out = (torch.from_numpy(rows).to(dev), torch.from_numpy(np.stack(maps, axis=1)).to(dev))
+    key = _key(weights)
+    _ROWS[key] = (tuple(weakref.ref(t) for t in weights), out)
+    weakref.finalize(weights[0], _ROWS.pop, key, None)
+    return out
 
 
 def row_operands(b0: torch.Tensor, b1: torch.Tensor, rb: torch.Tensor
@@ -175,20 +207,34 @@ def row_operands(b0: torch.Tensor, b1: torch.Tensor, rb: torch.Tensor
     and the (S, 2) int32 map with ``rows[maps[:, j], :F] == b_j`` and
     ``rows[maps[:, j], F] == rb[:, j]`` bit for bit.  R = M for folded and
     table weights, at most 2S for any.  On the weights' device; built once
-    per weight tensor (again when one is modified in place)."""
-    key = tuple((id(t), _version(t)) for t in (b0, b1, rb))
-    hit = _ROWS.get(key)
+    per weight tensor (again when one is modified in place) by copying the
+    weights to the host, except for the tensors of :func:`device_weights`,
+    whose rows were derived from its host arrays."""
+    hit = _ROWS.get(_key((b0, b1, rb)))
     if hit is not None and all(ref() is t for ref, t in zip(hit[0], (b0, b1, rb))):
         return hit[1]
-    bias = rb.detach().cpu().numpy()
-    rows, maps = distinct_rows(*(
-        np.concatenate([b.detach().cpu().numpy(), bias[:, j:j + 1]], axis=1)
-        for j, b in enumerate((b0, b1))))
-    out = (torch.from_numpy(rows).to(b0.device),
-           torch.from_numpy(np.stack(maps, axis=1)).to(b0.device))
-    _ROWS[key] = (tuple(weakref.ref(t) for t in (b0, b1, rb)), out)
-    weakref.finalize(b0, _ROWS.pop, key, None)
-    return out
+    row_builds["copy"] += 1
+    return _remember((b0, b1, rb), *(t.detach().cpu().numpy() for t in (b0, b1, rb)))
+
+
+def device_weights(b0: np.ndarray, b1: np.ndarray, rb: np.ndarray, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Host weights ``b0``, ``b1`` (S, F) and bias ``rb`` (S, 2) as float32
+    tensors on ``device``, uploaded once per (values, device): every call with
+    equal values returns the same tensors, whose row operands
+    (:func:`row_operands`) were derived from the host arrays on the first, so
+    they never come back from the device.  The tensors are shared: do not
+    modify them in place."""
+    arrays = tuple(np.ascontiguousarray(a, dtype=np.float32) for a in (b0, b1, rb))
+    dev = torch.device(device)
+    key = (dev, arrays[0].shape) + tuple(a.tobytes() for a in arrays)
+    hit = _WEIGHTS.get(key)
+    if hit is None:
+        hit = tuple(torch.tensor(a, device=dev) for a in arrays)
+        _remember(hit, *arrays)
+        row_builds["host"] += 1
+        _WEIGHTS[key] = hit
+    return hit
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,12 +286,12 @@ def _scan(name: str, code: ConvCode, pm0, data, b0, b1, rb, window: Window = Non
     final_pm = torch.empty((B, S), dtype=torch.float32, device=data.device)
     rows = -(-T // PACK_BITS) if pack else T
     survivors = torch.empty((rows, B, S), dtype=torch.int32, device=data.device)
-    if pm0 is not None and window is None:  # the carried chunk scans: the chain kernel
+    if name == UNPACKED_NAME:  # the block kernel, on the weights
+        inputs, ints = (data, b0, b1, rb), (B, T, F, S)
+    else:  # the chain kernel, on the distinct weight rows
         table, maps = row_operands(b0, b1, rb)
-        inputs, ints = (pm0, data, table, maps), (B, T, F, S, table.shape[0])
-    else:
-        inputs = tuple(t for t in (pm0, data, b0, b1, rb, *(window or ())) if t is not None)
-        ints = (B, T, F, S)
+        inputs = tuple(t for t in (pm0, data, table, maps, *(window or ())) if t is not None)
+        ints = (B, T, F, S, table.shape[0])
     ptrs = [t.data_ptr() for t in inputs] + [final_pm.data_ptr(), survivors.data_ptr()]
     lib, fn = _launcher(f"{name}_launch", len(ptrs), len(ints))
     err = fn(*ptrs, *ints, torch.cuda.current_stream(data.device).cuda_stream)

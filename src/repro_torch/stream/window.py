@@ -96,7 +96,7 @@ def resolve_stream_backend(spec, chunk: int, depth: int, backend: str, inputs: s
         depth = packed_depth(depth)
         plan = fused_metric_plan(spec.code, spec.metric, spec.puncture_array)
         if inputs == "received":
-            weights = plan.folded(resolve_device(device))
+            weights = _ops.plan_weights(plan, resolve_device(device))
     return packed, depth, plan, weights
 
 

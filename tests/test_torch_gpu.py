@@ -234,6 +234,83 @@ def test_chain_scans_match_plain_on_card(card, K, polys):
             _same_with_nan(pm, pm_p)
 
 
+#: (B, T) of the state-0 and windowed scans: every B of 1, 31, 33, 1000 and
+#: every T of 1, 31, 32, 33, 129
+WIDE_SHAPES = [(1, 129), (31, 33), (33, 31), (1000, 32), (33, 1), (1000, 129)]
+
+
+def _lane_windows(gen, B, T, shift, card):
+    """(lo, hi) (B,) int32: lane b takes pattern b + shift of full, empty (at
+    0 and mid-block), lo > 0, hi < T, edges on and beside the word boundaries
+    32 and 64, and past the end; further lanes random pairs of those edges."""
+    m = T // 2
+    patterns = [(0, T), (m, m), (min(5, T), T), (0, max(T - 3, 0)), (31, 33), (32, 64),
+                (33, 65), (0, 32), (63, 97), (1, T + 2), (0, 0), (64, 129)]
+    edges = torch.tensor([0, 1, 31, 32, 33, 63, 64, 65, 96, 97, T - 1, T, T + 2], device=card)
+    pairs = edges[torch.randint(0, len(edges), (B, 2), generator=gen, device=card)]
+    lo, hi = pairs.min(dim=1).values, pairs.max(dim=1).values
+    for b in range(min(B, len(patterns))):
+        lo[b], hi[b] = patterns[(b + shift) % len(patterns)]
+    return lo.clamp(0, T + 3).int().contiguous(), hi.clamp(0, T + 3).int().contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,polys", CHAIN_CODES, ids=[f"S{2 ** (k - 1)}" for k, _ in CHAIN_CODES])
+def test_wide_scans_match_plain_on_card(card, K, polys):
+    """The state-0 and windowed packed scans (#1, #4: the chain kernel's wide
+    entries) against their plain versions at one S of the wide launch table:
+    B and T on and off the warp, tile and word sizes; folded hard, soft and
+    punctured weights and random ones with 2S and S distinct rows; features
+    holding NaN, +-inf and +-1e30; ties (integer features); per-lane windows
+    empty, full, lo > 0, hi < T, on and beside word boundaries and past the
+    end; seeds at and beside 1e30.  Metrics NaN-aware, survivors exact, one
+    launch per call."""
+    code = ConvCode(K, polys)
+    S = code.n_states
+    gen = torch.Generator(device=card).manual_seed(K + 700)
+    reset_counts()
+    calls = 0
+    for B, T in WIDE_SHAPES:
+        pm0 = _chain_seeds(gen, B, S, card)
+        for shift, kind in enumerate(("hard", "soft", "punctured", "random", "shared")):
+            data, weights = _chain_operands(gen, code, kind, B, T, card)
+            lo, hi = _lane_windows(gen, B, T, shift, card)
+            for kernel, plain, args in (
+                (viterbi_scan.viterbi_scan_packed, viterbi_scan.viterbi_scan_packed_plain,
+                 (code, data, *weights)),
+                (viterbi_scan.viterbi_scan_packed_window,
+                 viterbi_scan.viterbi_scan_packed_window_plain,
+                 (code, pm0, data, *weights, lo, hi)),
+            ):
+                pm, surv = kernel(*args)
+                torch.cuda.synchronize()
+                calls += 1
+                assert sum(launch_counts.values()) == calls and not plain_counts
+                pm_p, surv_p = plain(*args)
+                assert torch.equal(surv, surv_p), (kernel.__name__, kind, B, T)
+                _same_with_nan(pm, pm_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,ctx", [
+    ("fused_packed", {}), ("tiled", {"tiles": 8}), ("parallel", {"chunk": 64})])
+def test_second_decode_on_card_builds_no_row_operands(card, backend, ctx):
+    """A second decode of the same spec on the card uploads no weights and
+    builds no row operands; no decode copies weights back to the host."""
+    spec = CodecSpec(code=CODE_K7_NASA, metric="soft", puncture=PUNCTURE_2_3)
+    gen = torch.Generator().manual_seed(19)
+    rx = spec.channel(gen, spec.encode(torch.randint(0, 2, (4, 300), generator=gen)),
+                      snr_db=2.0).to(card)
+    builds = []
+    for _ in range(2):
+        before = dict(viterbi_scan.row_builds)
+        decode(DecodeRequest(spec, received=rx), backend=backend, ctx=DecodeContext(**ctx))
+        torch.cuda.synchronize()
+        builds.append({k: viterbi_scan.row_builds[k] - before.get(k, 0) for k in ("host", "copy")})
+    assert builds[0]["host"] <= 1 and builds[0]["copy"] == 0
+    assert builds[1] == {"host": 0, "copy": 0}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,polys,batch,T", [
     (3, (0b111, 0b101), 300, 100),

@@ -346,3 +346,82 @@ def test_row_operands_keep_arbitrary_weights_and_are_cached_per_tensor():
     assert rows is not first[0]
     _rebuilds(rows, maps, b0, b1, rb)
     assert rows.shape[0] == 2 * S - 1 and maps[7, 0] == maps[7, 1]
+
+
+# --------------------------------------------------------------------------- #
+# the weights a decode hands the scans: uploaded once, rows from the host      #
+# --------------------------------------------------------------------------- #
+
+from repro_torch.core import (  # noqa: E402
+    CODE_K3_PAPER, CODE_K3_STD, CODE_K5_GSM, CODE_K7_NASA, PUNCTURE_3_4, PUNCTURE_5_6)
+
+NAMED_CODES = {"k3_std": CODE_K3_STD, "k3_paper": CODE_K3_PAPER, "k5_gsm": CODE_K5_GSM,
+               "k7_nasa": CODE_K7_NASA}
+PUNCTURES = {"none": None, "2/3": PUNCTURE_2_3, "3/4": PUNCTURE_3_4, "5/6": PUNCTURE_5_6}
+DECODE_WEIGHTS = [(m, p) for m in ("hard", "soft") for p in PUNCTURES] + [("table", "none")]
+
+
+@pytest.mark.parametrize("name", NAMED_CODES)
+@pytest.mark.parametrize("metric,puncture", DECODE_WEIGHTS,
+                         ids=[f"{m}-{p}" for m, p in DECODE_WEIGHTS])
+def test_decode_row_operands_equal_those_of_the_weights(name, metric, puncture):
+    """The weights and row operands the decode path takes (uploaded once,
+    rows derived from the host arrays) equal the plan's own tensors and
+    ``row_operands`` of them, bit for bit."""
+    code = NAMED_CODES[name]
+    if metric == "table":
+        fresh = viterbi_scan.table_weights(code)
+        cached = viterbi_scan.cached_table_weights(code, torch.device("cpu"))
+    else:
+        plan = p_plan(code, metric, PUNCTURES[puncture])
+        fresh = plan.folded()
+        cached = ops.plan_weights(plan, "cpu")
+    for a, b in zip(cached, fresh):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    copies = viterbi_scan.row_builds["copy"]
+    rows, maps = viterbi_scan.row_operands(*cached)
+    assert viterbi_scan.row_builds["copy"] == copies  # derived as they were uploaded
+    want_rows, want_maps = viterbi_scan.row_operands(*fresh)
+    assert torch.equal(_bits(rows), _bits(want_rows)) and torch.equal(maps, want_maps)
+    _rebuilds(rows, maps, *fresh)
+
+
+@pytest.mark.parametrize("backend,ctx", [
+    ("fused_packed", {}), ("tiled", {"tiles": 2}), ("parallel", {"chunk": 16})])
+def test_second_decode_builds_no_weights_or_row_operands(backend, ctx):
+    """A second decode of the same spec on the same device uploads no weights
+    and builds no row operands; no decode copies weights back to derive them."""
+    from repro_torch.decode import CodecSpec, DecodeContext, DecodeRequest, decode
+
+    spec = CodecSpec(code=CODE_K5_GSM, metric="soft", puncture=PUNCTURE_3_4)
+    rng = np.random.default_rng(17)
+    rx = torch.from_numpy(rng.standard_normal((3, 40, 2)).astype(np.float32))
+    builds = []
+    for _ in range(2):
+        before = dict(viterbi_scan.row_builds)
+        decode(DecodeRequest(spec, received=rx), backend=backend,
+               ctx=DecodeContext(device="cpu", **ctx))
+        builds.append({k: viterbi_scan.row_builds[k] - before.get(k, 0) for k in ("host", "copy")})
+    assert builds[0]["host"] <= 1 and builds[0]["copy"] == 0
+    assert builds[1] == {"host": 0, "copy": 0}
+    plan = p_plan(CODE_K5_GSM, "soft", PUNCTURE_3_4)
+    first = ops.plan_weights(plan, "cpu")
+    assert all(a is b for a, b in zip(first, ops.plan_weights(plan, torch.device("cpu"))))
+
+
+def test_received_session_takes_the_decode_weights():
+    """A packed session fed raw symbols holds the weights of ``plan_weights``
+    (uploaded once, rows from the host arrays): a second session of the same
+    spec uploads nothing and no session copies weights back."""
+    from repro_torch.decode import CodecSpec
+    from repro_torch.stream import StreamSession
+
+    spec = CodecSpec(code=CODE_K5_GSM, metric="soft", puncture=PUNCTURE_3_4)
+    before = dict(viterbi_scan.row_builds)
+    sessions = [StreamSession(spec, batch=2, chunk=32, backend="fused_packed", inputs="received",
+                              device="cpu") for _ in range(2)]
+    built = {k: viterbi_scan.row_builds[k] - before.get(k, 0) for k in ("host", "copy")}
+    assert built["host"] <= 1 and built["copy"] == 0
+    want = ops.plan_weights(p_plan(CODE_K5_GSM, "soft", PUNCTURE_3_4), "cpu")
+    for session in sessions:
+        assert all(a is b for a, b in zip(session._weights, want))

@@ -218,6 +218,40 @@ def test_plain_window_scan_matches_pallas_kernel(name, weights, T):
     _eq(pm[5], pm0[5])
 
 
+#: (lo, hi) per lane with edges on a word boundary and one step either side
+#: of it (31, 32, 33; 63, 64, 65), one empty window among them
+def _word_edge_windows(T):
+    lo = np.asarray([31, 32, 33, 0, 63, 64, 65, 1], np.int32)
+    hi = np.asarray([33, 64, 65, 32, 65, T, T, 1], np.int32)
+    return lo, hi
+
+
+@pytest.mark.parametrize("name", ["k3", "k7"])
+@pytest.mark.parametrize("weights", ["table", "hard-plain", "soft-punct"])
+@pytest.mark.parametrize("T", [65, 97])
+def test_plain_window_scan_word_edges_match_pallas_kernel(name, weights, T):
+    """Window edges on and beside word boundaries, seeds at and beside 1e30
+    (one ulp below it, and above it, which a valid step clamps)."""
+    rc, pc = _pair(name)
+    data, rw, pw = _operands(name, weights, T, seed=T + 4)
+    pm0 = _pm0(name, seed=T + 5)
+    rng = np.random.default_rng(T + 6)
+    pick = rng.random(pm0.shape)
+    big = np.float32(NEG_UNREACHABLE)
+    pm0[pick < 0.1] = np.nextafter(big, np.float32(0))
+    pm0[pick > 0.9] = np.nextafter(big, np.float32(np.inf))
+    lo, hi = _word_edge_windows(T)
+    ref_pm, ref_words = R_scan.viterbi_scan_packed_window(
+        rc, jnp.asarray(pm0.T), jnp.asarray(data.transpose(1, 2, 0)), *rw,
+        jnp.asarray(lo[None]), jnp.asarray(hi[None]), B, None)
+    pm, packed = viterbi_scan.viterbi_scan_packed_window(
+        pc, torch.from_numpy(pm0), torch.from_numpy(data), *pw,
+        torch.from_numpy(lo), torch.from_numpy(hi))
+    _eq(pm, np.asarray(ref_pm).T)
+    _eq(convert.packed_to_reference(packed), ref_words)
+    _eq(pm[7], pm0[7])  # the empty window passed its seeds through, unclamped
+
+
 def test_carry_and_window_plain_versions_reduce_to_the_state0_scan():
     _, pc = _pair("k3")
     data, _, pw = _operands("k3", "hard-plain", 50, seed=4)

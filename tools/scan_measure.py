@@ -3,49 +3,71 @@
 and of ``texpand`` at the shapes their paths give them, on one NVIDIA card.
 
     python3 tools/scan_measure.py device split paths [--src DIR] [--out FILE.jsonl]
-    python3 tools/scan_measure.py sweep [--out FILE.jsonl]
+    python3 tools/scan_measure.py sweep wide [--out FILE.jsonl]
 
 ``device``  device-only time of #3 (the packed session's chunk), #7 (the
             ``streaming`` chunk and both ``parallel`` re-scans), #8 (one
-            texpand step) and #1 (the main path): a CUDA graph of N captured
-            wrapper calls, replayed, its CUDA-event time over N.  Beside it
-            the back-to-back time of N eager calls (CUDA events around them),
-            whose floor is the wrapper's host time, and that host time (the
-            host clock over the N calls, before the synchronize).  Each row
-            carries a digest of its outputs, so the rows of two checkouts can
-            be held equal.
-``split``   device-only times of #3 and #7 at the stream chunk's shape on
-            builds with part of a step cut out (their outputs are wrong):
-            the features' load, the branch-metric dots, the survivor stores
-            and, for the block kernel, the step's barrier.  A source that
-            takes ``VITERBI_CUT`` (the chain kernel) is cut through it; the
-            block kernel's body, which runs #3 and #7 up to PR 15, is cut by
-            exact text substitutions on a copy of the source.
-``paths``   the paths that launch #3 and #7, end to end as ``chip_smoke.py``
-            drives them: the packed 64k session (128 streams x 65536 info
-            bits, K=7 hard, chunk 64) and the ``streaming`` decode of the same
-            symbols (host clock around each, after a synchronize), and the
-            ``parallel`` decodes of the NASA frame (1024 x 1024 info bits,
-            chunk 64) and the K=3 long stream (65536 info bits, chunk 512)
-            (CUDA events, median of 5 after a warm-up).  Host-bound paths
-            vary between runs: run two checkouts in turns in one call.
-``sweep``   every launch choice of the chain kernel (G threads a lane, L
-            lanes a block, Tc steps a tile) at every S of its table, each a
-            build of the source with its own ``VITERBI_CHOICES`` (a
-            translation unit that defines it and includes ``viterbi_scan.cu``).
-            Shapes: the session's (128 lanes x 64 steps, folded hard weights,
-            F=2, packed) and the ``streaming`` chunk's (bm tables, F=M,
-            unpacked) at every S; both ``parallel`` re-scans (17408 x 64 at
-            S=64, 129 x 512 at S=4); for the record, #1's shape (8192 x 1006,
-            state-0 init, packed) at S=64.  Each choice's outputs are held
-            exactly against the package's build (#1's shape: against #1),
-            and that against the plain version.  It prints, for each S, the
-            choice with the least sum over the session, streaming and
-            re-scan shapes of its time over that shape's best, each shape's
-            best, and the time of the choice the source builds.
+            texpand step), #1 (the main path), #4 (both passes of the pinned
+            P=8 tiled NASA frame, the ``parallel`` NASA frame's transfer
+            matrices, pass 1 of a planned one-frame tiled decode, B·P·S = 512
+            lanes, and the K=3 long stream's ``parallel`` transfer matrices)
+            and #6 (the ``fused`` decode's scan): a CUDA graph of N captured wrapper calls,
+            replayed, its CUDA-event time over N (N a power of two set by the
+            kernel's device time, so that the graph's own launch cost weighs
+            the same on every checkout).  Beside it the back-to-back
+            time of N eager calls (CUDA events around them), whose floor is
+            the wrapper's host time, and that host time (the host clock over
+            the N calls, before the synchronize).  Each row carries a digest
+            of its outputs, so the rows of two checkouts can be held equal.
+``split``   device-only times of #3 and #7 at the stream chunk's shape and
+            of #1 at the main path's, on builds with part of a step cut out
+            (their outputs are wrong): the features' load, the branch-metric
+            dots, the survivor stores and, for the block kernel, the step's
+            barrier.  A kernel of the chain design is cut through
+            ``VITERBI_CUT``; the block kernel's body, which ran #1, #3, #4
+            and #7 in earlier checkouts, by exact text substitutions on a
+            copy of the source.
+``paths``   the paths that launch #1, #3, #4 and #7, end to end as
+            ``chip_smoke.py`` drives them: the ``fused_packed`` decode (8192 x
+            1000 info bits, K=7 hard), the NASA frame (1024 x 1024 info bits)
+            as planned, with 8 tiles pinned and through ``parallel`` (chunk
+            64), the K=3 long stream through ``parallel`` (65536 info bits,
+            chunk 512), the ``fused`` decode and the texpand-driven decode of
+            ``chip_smoke.py`` on the ``fused_packed`` symbols (CUDA events,
+            median of 5 after a warm-up); the packed
+            64k session (128 streams x 65536 info bits, K=7 hard, chunk 64) and
+            the ``streaming`` decode of the same symbols (host clock around
+            each, after a synchronize).  Host-bound paths vary between runs:
+            run two checkouts in turns in one call.
+``sweep``   every launch choice of the chain kernel's carried entries (#3,
+            #7: G threads a lane, L lanes a block, Tc steps a tile) at every S
+            of VITERBI_CHOICES, each a build of the source with its own table
+            (a translation unit that defines it and includes
+            ``viterbi_scan.cu``).  Shapes: the session's (128 lanes x 64 steps,
+            folded hard weights, F=2, packed) and the ``streaming`` chunk's
+            (bm tables, F=M, unpacked) at every S; both ``parallel`` re-scans
+            (17408 x 64 at S=64, 129 x 512 at S=4).
+``wide``    the same for the state-0 and windowed entries (#1, #4) and
+            VITERBI_WIDE_CHOICES.  Shapes at S=64: #1 at 8192 x 1006 (folded
+            hard, F=2), and #4 at the four shapes of ``device``; at every
+            other S, #1 at 524288/S lanes x 1006 steps and #4 at 4 x 524288/S
+            lanes x 129 steps (folded hard, carried seeds, windows of 128 or
+            129 steps).
+            Both sweeps hold each choice's outputs exactly against the
+            package's build, and that against the plain version, and print
+            for each S the choice with the least sum over the shapes of its
+            time over that shape's best (``sweep``) or of its time
+            (``wide``), each shape's best, and the time of the choice the
+            source builds.
+
+``sass``    the SASS of the built scan library (cuobjdump): for every chain
+            and block kernel a digest of its instructions (constant-bank
+            offsets masked), so two checkouts' kernels can be held equal, and
+            for the S=64 chain kernels the step loop's instructions a
+            state-step (its body over half its shuffles) and their mix.
 
 ``--src DIR`` measures the ``repro_torch`` under DIR (default: this
-checkout's ``src``), for ``device``, ``split`` and ``paths``; run them on two checkouts
+checkout's ``src``), for ``device``, ``split``, ``paths`` and ``sass``; run them on two checkouts
 in one call to compare them.  Device-only times are the median of 5
 replays, back-to-back times of 5 rounds, after a warm-up call.  Builds go
 to ``<DIR>/repro_torch/_build/measure/``.
@@ -55,8 +77,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -78,6 +102,10 @@ STREAM_B, STREAM_T = 128, 64
 #: chunks), the K=3 long stream at chunk 512 (129 chunks)
 RESCAN = {"rescan_nasa": (64, 17408, 64), "rescan_long": (4, 129, 512)}
 MAIN_B, MAIN_T = 8192, 1006
+#: the NASA frame: 1024 frames x 1030 steps (1024 info bits, K=7)
+NASA_B, NASA_T = 1024, 1030
+#: lanes x states of #1's shape, the wide sweep's budget at S != 64
+WIDE_LANE_STATES = MAIN_B * 64
 CUTS = {"features": 1, "dots": 2, "stores": 4, "all": 7}
 #: the block kernel's step, cut on a copy: bit -> (text, replacement)
 BLOCK_CUTS = {
@@ -152,17 +180,16 @@ def _eager_ms(fn, n: int, rounds: int = 5):
 
 
 def _reps(fn) -> int:
-    """Calls a timing takes: enough for ~2 ms of device time, 5 to 200."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return max(5, min(200, int(2.0 / max(e0.elapsed_time(e1), 1e-3))))
+    """Calls a timing takes: the largest power of two from 4 to 256 whose
+    calls take at most ~4 ms of device time, from a graph of 4 calls.  A
+    graph's own launch cost is spread over its calls, so the count must not
+    follow the host's noise: equal kernels get equal counts on every
+    checkout."""
+    ms = _graph_ms(fn, 4, rounds=3)[0]
+    n = 4
+    while n < 256 and 2 * n * ms <= 4.0:
+        n *= 2
+    return n
 
 
 def _digest(outs) -> list:
@@ -226,10 +253,66 @@ def _device_cases(gen):
     return cases
 
 
+def _path_only_cases(gen) -> dict:
+    """#6 at the ``fused`` decode's shape (8192 x 1006 bm tables, K=7) and #4
+    at the K=3 long stream's ``parallel`` transfer matrices (129 chunks of
+    512 steps x 4 unit entries), the rows ``device`` adds to the others."""
+    import torch
+
+    from repro_torch.core import ConvCode
+    from repro_torch.kernels import fused_metric_plan, ops, viterbi_scan
+
+    k7, k3 = ConvCode(*CODES[64]), ConvCode(*CODES[4])
+    bm = _tables(gen, k7, MAIN_B, MAIN_T)
+    cases = {"fused": ("viterbi_scan", lambda: viterbi_scan.viterbi_scan(k7, bm))}
+    rx = torch.randint(0, 2, (1, 65538, 2), generator=gen, device="cuda", dtype=torch.int32)
+    cap = {}
+    ops.viterbi_decode_parallel_op(k3, fused_metric_plan(k3, "hard").bm_tables(rx), 512, True,
+                                   capture=cap)
+    cases["parallel_long_pass1"] = (
+        "viterbi_scan_packed_window",
+        lambda a=cap["pass1"]: viterbi_scan.viterbi_scan_packed_window(*a))
+    return cases
+
+
+def _window_cases(gen) -> dict:
+    """{label: arguments of viterbi_scan_packed_window} as the paths give
+    them, captured from the ops on one NASA frame of random bits: both passes
+    of the pinned P=8 tiled decode, the ``parallel`` decode's transfer
+    matrices (chunk 64, bm tables) and pass 1 of the planned tiled decode of
+    its first frame alone (P = default_tiles(1, T, 64), B·P·S = 512 lanes)."""
+    import torch
+
+    from repro_torch.core import ConvCode
+    from repro_torch.kernels import fused_metric_plan, ops, tiling
+
+    k7 = ConvCode(*CODES[64])
+    plan = fused_metric_plan(k7, "hard")
+    rx = torch.randint(0, 2, (NASA_B, NASA_T, 2), generator=gen, device="cuda", dtype=torch.int32)
+    cases = {}
+    cap = {}
+    ops.viterbi_decode_tiled_fused(plan, rx, 8, capture=cap)
+    cases["pinned_pass1"], cases["pinned_pass2"] = cap["pass1"], cap["pass2"]
+    cap = {}
+    ops.viterbi_decode_tiled_fused(plan, rx[:1], tiling.default_tiles(1, NASA_T, 64), capture=cap)
+    cases["planned_small_pass1"] = cap["pass1"]
+    cap = {}
+    ops.viterbi_decode_parallel_op(k7, plan.bm_tables(rx), 64, True, capture=cap)
+    cases["parallel_pass1"] = cap["pass1"]
+    return cases
+
+
 def device(gen, fh, src):
     import torch
 
-    for label, (name, fn) in _device_cases(gen).items():
+    from repro_torch.kernels import viterbi_scan
+
+    cases = _device_cases(gen)
+    for label, args in _window_cases(gen).items():
+        cases[label] = ("viterbi_scan_packed_window",
+                        lambda a=args: viterbi_scan.viterbi_scan_packed_window(*a))
+    cases.update(_path_only_cases(gen))
+    for label, (name, fn) in cases.items():
         outs = fn()
         torch.cuda.synchronize()
         n = _reps(fn)
@@ -286,13 +369,17 @@ def split(gen, fh, src):
     from repro_torch.kernels import _build
 
     source = (_build.CSRC / "viterbi_scan.cu").read_text()
-    if "VITERBI_CUT" in source:
-        design = "chain"
-        units = {"as_is": source, **{k: f"#define VITERBI_CUT {v}\n#include \"{_build.CSRC}"
-                                        f"/viterbi_scan.cu\"\n" for k, v in CUTS.items()}}
-    else:
-        design = "block"
-        units = {"as_is": source}
+    # the design that runs each shape's kernel in this source
+    designs = {"session": "chain" if "VITERBI_CUT" in source else "block",
+               "main": "chain" if "VITERBI_WIDE_CHOICES" in source else "block"}
+    designs["streaming"] = designs["session"]
+    units = {}
+    if "chain" in designs.values():
+        units["chain/as_is"] = source
+        units.update({f"chain/{k}": f"#define VITERBI_CUT {v}\n#include \"{_build.CSRC}"
+                                    f"/viterbi_scan.cu\"\n" for k, v in CUTS.items()})
+    if "block" in designs.values():
+        units["block/as_is"] = source
         for name, bits in BLOCK_VARIANTS.items():
             text = source
             for bit, subs in BLOCK_CUTS.items():
@@ -300,21 +387,27 @@ def split(gen, fh, src):
                     if text.count(old) != 1:
                         raise SystemExit(f"split: the block kernel's text changed ({old[:40]!r})")
                     text = text.replace(old, new)
-            units[name] = text
-    libs = _nvcc_all(units, _build.BUILD_ROOT / "measure", _build)
+            units[f"block/{name}"] = text
+    libs = _nvcc_all({k.replace("/", "_"): v for k, v in units.items()},
+                     _build.BUILD_ROOT / "measure", _build)
     cases = _device_cases(gen)
-    for label in ("session", "streaming"):
+    for label in ("session", "streaming", "main"):
         name, fn = cases[label]
+        steps = MAIN_T if label == "main" else STREAM_T
+        design = designs[label]
         n = _reps(fn)
-        for variant, lib in libs.items():
-            with _library(lib):
+        for unit in units:
+            if not unit.startswith(design + "/"):
+                continue
+            variant = unit.split("/")[1]
+            with _library(libs[unit.replace("/", "_")]):
                 ms, rounds = _graph_ms(fn, n)
             row = dict(mode="split", src=str(src), design=design, shape=label, kernel=name,
                        variant=variant, device_ms=ms, rounds=rounds,
-                       us_per_step=ms * 1e3 / STREAM_T)
+                       us_per_step=ms * 1e3 / steps)
             fh.write(json.dumps(row) + "\n")
             print(f"[split] {src} {design} {label} {name} {variant}: {ms!r} ms = "
-                  f"{ms * 1e3 / STREAM_T!r} us a step")
+                  f"{ms * 1e3 / steps!r} us a step")
 
 
 def paths(gen, fh, src):
@@ -335,6 +428,9 @@ def paths(gen, fh, src):
     long = spec3.channel(gen, spec3.encode(torch.randint(0, 2, (1, 65536), generator=gen,
                                                          device="cuda", dtype=torch.int32)),
                          flip_prob=0.01)
+    short = spec.channel(gen, spec.encode(torch.randint(0, 2, (MAIN_B, 1000), generator=gen,
+                                                        device="cuda", dtype=torch.int32)),
+                         flip_prob=0.03)
     torch.cuda.synchronize()
 
     def host_s(fn):
@@ -351,6 +447,17 @@ def paths(gen, fh, src):
         "streaming_decode": lambda: host_s(lambda: decode(
             DecodeRequest(spec, received=rx), ctx=DecodeContext(streaming=True))) * 1e3,
     }
+    for label, ctx, n in (("fused_packed", None, 5), ("nasa_planned", DecodeContext(), 3),
+                          ("nasa_pinned_p8", DecodeContext(tiles=8), 3)):
+        r = DecodeRequest(spec, received=short if label == "fused_packed" else nasa)
+        runs[label] = lambda r=r, c=ctx, n=n: _eager_ms(lambda: decode(r, ctx=c), n)[0]
+    # the unpacked route (#6 and the plain traceback) and the paper's step
+    # driven once a step (#8, 1006 launches), on the fused_packed decode's
+    # symbols, as chip_smoke.py times them
+    fused = DecodeRequest(spec, received=short)
+    bm_t = spec.branch_metrics(short).transpose(0, 1).contiguous()
+    runs["fused"] = lambda: _eager_ms(lambda: decode(fused, backend="fused"), 1)[0]
+    runs["texpand_driven"] = lambda: _eager_ms(lambda: _texpand_decode(spec.code, bm_t), 1)[0]
     for label, r, chunk in (("parallel_nasa", DecodeRequest(spec, received=nasa), 64),
                             ("parallel_long", DecodeRequest(spec3, received=long), 512)):
         runs[label] = lambda r=r, c=chunk: _eager_ms(
@@ -361,6 +468,25 @@ def paths(gen, fh, src):
         ms = fn()
         fh.write(json.dumps(dict(mode="paths", src=str(src), path=label, ms=ms)) + "\n")
         print(f"[paths] {src} {label}: {ms!r} ms")
+
+
+def _texpand_decode(code, bm_t):
+    """chip_smoke.py's texpand-driven decode: one ``texpand`` launch a step of
+    (T, B, M) tables from state 0, then the plain traceback: bits."""
+    import torch
+
+    from repro_torch.core.viterbi import _traceback
+    from repro_torch.kernels import ops
+
+    T, B, _ = bm_t.shape
+    pm = torch.full((B, code.n_states), 1e30, dtype=torch.float32, device=bm_t.device)
+    pm[:, 0] = 0.0
+    bps = []
+    for t in range(T):
+        pm, bp = ops.texpand_op(code, pm, bm_t[t])
+        bps.append(bp)
+    final_state = torch.zeros((B,), dtype=torch.int32, device=bm_t.device)
+    return _traceback(code, torch.stack(bps), final_state)[0]
 
 
 def _candidates(S):
@@ -401,16 +527,9 @@ def _sweep_shapes(gen, S):
     for label, (Sr, B, T) in RESCAN.items():
         if Sr == S:
             shapes.append((label, False, True, (_seeds(gen, B, S), _tables(gen, code, B, T), *tw)))
-    if S == 64:
-        init = torch.full((MAIN_B, S), 1e30, device="cuda")
-        init[:, 0] = 0.0
-        shapes.append(("main", True, False, (init, *_hard(gen, code, MAIN_B, MAIN_T)[:1], *w)))
     out = []
     for label, packed, pick, args in shapes:
-        if label == "main":
-            want = vs.viterbi_scan_packed(code, *args[1:])
-            plain = vs.viterbi_scan_packed_plain(code, *args[1:])
-        elif packed:
+        if packed:
             want = vs.viterbi_scan_packed_carry(code, *args)
             plain = vs.viterbi_scan_packed_carry_plain(code, *args)
         else:
@@ -443,11 +562,9 @@ def sweep(gen, fh):
             table, maps = vs.row_operands(b0, b1, rb)
             final = torch.empty_like(want[0])
             surv = torch.empty_like(want[1])
-            built = vs.viterbi_scan_packed if label == "main" else None
             own = _graph_ms(
-                (lambda: built(code, data, b0, b1, rb)) if built else
-                (lambda: (vs.viterbi_scan_packed_carry(code, pm0, data, b0, b1, rb) if packed
-                          else vs.viterbi_scan_carry(code, pm0, data))), 5)[0]
+                lambda: (vs.viterbi_scan_packed_carry(code, pm0, data, b0, b1, rb) if packed
+                         else vs.viterbi_scan_carry(code, pm0, data)), 5)[0]
             symbol = ("viterbi_scan_packed_carry_launch" if packed
                       else "viterbi_scan_carry_launch")
             for i, cfg in enumerate(cands[S]):
@@ -472,33 +589,202 @@ def sweep(gen, fh):
                            pick_shape=pick)
                 rows.append(row)
                 fh.write(json.dumps(row) + "\n")
-        best = {}
-        for r in rows:
-            best[r["shape"]] = min(best.get(r["shape"], r["ms"]), r["ms"])
-        score = {}
-        for r in rows:
-            if r["pick_shape"]:
-                score.setdefault((r["group"], r["lanes"], r["tile"]), []).append(
-                    r["ms"] / best[r["shape"]])
-        n_pick = len({r["shape"] for r in rows if r["pick_shape"]})
-        pick = min((k for k, v in score.items() if len(v) == n_pick), key=lambda k: sum(score[k]))
-        mine = {r["shape"]: r["ms"] for r in rows
-                if (r["group"], r["lanes"], r["tile"]) == pick}
-        argbest = {s: next((r["group"], r["lanes"], r["tile"]) for r in rows
-                           if r["shape"] == s and r["ms"] == b) for s, b in best.items()}
-        own = {r["shape"]: r["built_ms"] for r in rows}
-        print(f"[pick] S={S}: G={pick[0]} L={pick[1]} Tc={pick[2]} score "
-              f"{sum(score[pick])!r} | " + " ".join(
-                  f"{s} {mine.get(s)!r} ms (best {best[s]!r} at {argbest[s]}, package's "
-                  f"build {own[s]!r})" for s in best))
-        fh.write(json.dumps(dict(mode="pick", S=S, group=pick[0], lanes=pick[1], tile=pick[2],
-                                 ms=mine, best=best, best_choice=argbest, built_ms=own)) + "\n")
+        _pick(fh, S, rows)
         del shapes, rows
+
+
+def _kernel_key(name: str):
+    """A mangled scan kernel's name, the same on every checkout, or None."""
+    m = re.search(r"chain_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EEEv", name)
+    if m:
+        S, G, L, P = m.groups()
+        return f"chain S={S} G={G} L={L} {'packed' if P == '1' else 'unpacked'} carried"
+    m = re.search(r"wide_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EEEv", name)
+    if m:
+        S, G, L, W = m.groups()
+        return f"chain S={S} G={G} L={L} packed {'window' if W == '1' else 'state0'}"
+    m = re.search(r"scan_kernelILi(\d+)E((?:Lb\dE){3})?EEv", name)
+    if m:
+        flags = m.group(2) or "Lb0ELb0ELb0E"
+        return f"block SPT={m.group(1)}" + ("" if flags == "Lb0ELb0ELb0E" else f" {flags}")
+    return None
+
+
+def sass(fh, src):
+    from repro_torch.kernels import _build
+
+    so = _build.build_all()["viterbi_scan"].path
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        key = _kernel_key(name)
+        if key is None:
+            continue
+        ins = [(int(a, 16), t) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body)]
+        norm = "\n".join(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][*]", t) for _, t in ins)
+        row = dict(mode="sass", src=str(src), kernel=key, instructions=len(ins),
+                   digest=hashlib.sha256(norm.encode()).hexdigest()[:16])
+        if key.startswith("chain S=64 "):
+            loops = []
+            for addr, t in ins:
+                m = re.search(r"BRA (0x[0-9a-f]+)", t)
+                if m and int(m.group(1), 16) < addr:
+                    loop = [x for a, x in ins if int(m.group(1), 16) <= a <= addr]
+                    n_shfl = sum("SHFL" in x for x in loop)
+                    if n_shfl:
+                        loops.append((len(loop) / (n_shfl / 2), len(loop), n_shfl, loop))
+            if loops:
+                per, n, n_shfl, loop = min(loops)
+                ops = {}
+                for x in loop:
+                    op = re.sub(r"^@!?U?P\w+\s+", "", x).split()[0].split(".")[0]
+                    ops[op] = ops.get(op, 0) + 1
+                row["step_loop"] = dict(instructions=n, shuffles=n_shfl, per_state_step=per,
+                                        ops=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+        fh.write(json.dumps(row) + "\n")
+        loop = row.get("step_loop")
+        print(f"[sass] {src} {key}: {len(ins)} instructions, digest {row['digest']}"
+              + (f"; step loop {loop['instructions']} instructions, {loop['shuffles']} shuffles, "
+                 f"{loop['per_state_step']!r} a state-step, {loop['ops']}" if loop else ""))
+
+
+def _pick(fh, S, rows, relative=True):
+    """Print and record, for S, the choice with the least sum over the shapes
+    of its time over that shape's best (``relative``) or of its time, each
+    shape's best and the time of the package's own build."""
+    best = {}
+    for r in rows:
+        best[r["shape"]] = min(best.get(r["shape"], r["ms"]), r["ms"])
+    score = {}
+    for r in rows:
+        if r["pick_shape"]:
+            score.setdefault((r["group"], r["lanes"], r["tile"]), []).append(
+                r["ms"] / best[r["shape"]] if relative else r["ms"])
+    n_pick = len({r["shape"] for r in rows if r["pick_shape"]})
+    pick = min((k for k, v in score.items() if len(v) == n_pick), key=lambda k: sum(score[k]))
+    mine = {r["shape"]: r["ms"] for r in rows if (r["group"], r["lanes"], r["tile"]) == pick}
+    argbest = {s: next((r["group"], r["lanes"], r["tile"]) for r in rows
+                       if r["shape"] == s and r["ms"] == b) for s, b in best.items()}
+    own = {r["shape"]: r["built_ms"] for r in rows}
+    print(f"[pick] S={S}: G={pick[0]} L={pick[1]} Tc={pick[2]} score "
+          f"{sum(score[pick])!r} | " + " ".join(
+              f"{s} {mine.get(s)!r} ms (best {best[s]!r} at {argbest[s]}, package's "
+              f"build {own[s]!r})" for s in best))
+    fh.write(json.dumps(dict(mode="pick", S=S, group=pick[0], lanes=pick[1], tile=pick[2],
+                             ms=mine, best=best, best_choice=argbest, built_ms=own)) + "\n")
+
+
+def _wide_candidates(S):
+    """(G, L, Tc) the wide entries take at S: up to 8 states a thread; a group
+    of a warp or less in blocks of 32, 64, 128 or 256 threads, a larger one 1
+    or 2 lanes a block (at most 1024 threads); 32 or 64 steps a tile."""
+    out = []
+    for G in (2 ** i for i in range(11)):
+        if G > S or S // G > 8:
+            continue
+        lanes = ([tb // G for tb in (32, 64, 128, 256) if tb >= G] if G <= 32
+                 else [L for L in (1, 2) if G * L <= 1024])
+        out += [(G, L, Tc) for L in lanes for Tc in (32, 64)]
+    return out
+
+
+def _wide_shapes(gen, S):
+    """[(label, args)] at S, each the arguments after ``code`` of
+    viterbi_scan_packed (4 of them) or viterbi_scan_packed_window (7)."""
+    import torch
+
+    from repro_torch.core import ConvCode
+
+    code = ConvCode(*CODES[S])
+    B = MAIN_B if S == 64 else WIDE_LANE_STATES // S
+    feats, w = _hard(gen, code, B, MAIN_T)
+    shapes = [("main", (feats, *w))]
+    if S == 64:
+        shapes += [(label, args[1:]) for label, args in _window_cases(gen).items()]
+    else:
+        Bw = 4 * WIDE_LANE_STATES // S
+        fw, ww = _hard(gen, code, Bw, 129)
+        lo = torch.zeros((Bw,), dtype=torch.int32, device="cuda")
+        hi = torch.where(torch.arange(Bw, device="cuda") % 8 == 7, 129, 128).int()
+        shapes.append(("window", (_seeds(gen, Bw, S), fw, *ww, lo, hi)))
+    return code, shapes
+
+
+def sweep_wide(gen, fh):
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import viterbi_scan as vs
+
+    cands = {S: _wide_candidates(S) for S in STATES}
+    n_var = max(map(len, cands.values()))
+    src = _build.CSRC / "viterbi_scan.cu"
+
+    def table(pick):
+        return ("VITERBI_WIDE_CHOICES {" + ", ".join("{%d, %d, %d}" % pick(S) for S in STATES)
+                + "}")
+    libs = _nvcc_all({f"wide{i}": "#define VITERBI_WIDE_ONLY\n#define "
+                      + table(lambda S: cands[S][i % len(cands[S])])
+                      + f"\n#include \"{src}\"\n" for i in range(n_var)},
+                     _build.BUILD_ROOT / "measure", _build)
+    for S in STATES:
+        code, shapes = _wide_shapes(gen, S)
+        rows = []
+        for label, args in shapes:
+            window = len(args) == 7
+            name = "viterbi_scan_packed_window" if window else "viterbi_scan_packed"
+            fn = getattr(vs, name)
+            want = fn(code, *args)
+            plain = getattr(vs, name + "_plain")(code, *args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(want, plain)):
+                raise SystemExit(f"S={S} {label}: the package's kernel differs from plain")
+            del plain
+            own = _graph_ms(lambda: fn(code, *args), 5)[0]
+            pm0, (data, b0, b1, rb), win = ((args[0], args[1:5], args[5:]) if window
+                                            else (None, args, ()))
+            B, T, F = data.shape
+            table_t, maps = vs.row_operands(b0, b1, rb)
+            final = torch.empty_like(want[0])
+            surv = torch.empty_like(want[1])
+            ptrs = [t.data_ptr() for t in (pm0, data, table_t, maps, *win, final, surv)
+                    if t is not None]
+            for i, cfg in enumerate(cands[S]):
+                launch_fn = getattr(libs[f"wide{i}"], name + "_launch")
+                launch_fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5
+                                      + [ctypes.c_void_p])
+                launch_fn.restype = ctypes.c_int
+
+                def launch(f=launch_fn, B=B, T=T, F=F):  # on the current (capture) stream
+                    return f(*ptrs, B, T, F, S, table_t.shape[0],
+                             torch.cuda.current_stream().cuda_stream)
+                err = launch()
+                torch.cuda.synchronize()
+                if err:
+                    print(f"[skip] S={S} {label} {cfg}: error {err}")
+                    continue
+                if not (torch.equal(final, want[0]) and torch.equal(surv, want[1])):
+                    raise SystemExit(f"S={S} {label} {cfg}: differs from the package's build")
+                ms = _graph_ms(launch, _reps(launch))[0]
+                row = dict(mode="wide", S=S, shape=label, B=B, T=T, group=cfg[0], lanes=cfg[1],
+                           tile=cfg[2], ms=ms, us_per_step=ms * 1e3 / T, built_ms=own,
+                           pick_shape=True)
+                rows.append(row)
+                fh.write(json.dumps(row) + "\n")
+            del want, final, surv
+        # by time, not time over the best: a planned one-frame pass of 0.01 ms
+        # must not outweigh the main path and the S-fold passes
+        _pick(fh, S, rows, relative=False)
+        del shapes, rows
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("modes", nargs="+", choices=("device", "split", "paths", "sweep"))
+    ap.add_argument("modes", nargs="+",
+                    choices=("device", "split", "paths", "sweep", "wide", "sass"))
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory that holds the repro_torch to measure (all but sweep)")
     ap.add_argument("--out", default=None, help="append every row here as JSON lines")
@@ -512,8 +798,8 @@ def main(argv=None) -> int:
     # a graph that captured nothing (a launch on another stream) times nothing
     warnings.filterwarnings("error", message="The CUDA Graph is empty")
     src = Path(args.src).resolve()
-    if "sweep" in args.modes and src != (ROOT / "src").resolve():
-        print("scan_measure: sweep measures this checkout's source only", file=sys.stderr)
+    if {"sweep", "wide"} & set(args.modes) and src != (ROOT / "src").resolve():
+        print("scan_measure: the sweeps measure this checkout's source only", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
@@ -533,8 +819,12 @@ def main(argv=None) -> int:
                 split(gen, fh, src)
             elif mode == "paths":
                 paths(gen, fh, src)
-            else:
+            elif mode == "sweep":
                 sweep(gen, fh)
+            elif mode == "sass":
+                sass(fh, src)
+            else:
+                sweep_wide(gen, fh)
     return 0
 
 
