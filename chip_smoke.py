@@ -47,15 +47,18 @@ Phases (any failure raises and exits non-zero):
                within rtol 1e-5; (b) the repo's long-stream example
                (examples/long_context.py: K=3, one stream of 65536 info bits,
                BSC p=0.01, chunk 512: 129 chunks), bits and metric equal to
-               the planned decode.  Counters prove the windowed scan, the
+               the planned decode (``tiled``, P=128, its launches counted
+               on their own).  Counters prove the windowed scan, the
                (min,+) product, the carried unpacked scan and the packed
                traceback ran and no plain version did;
   9. parity  — each kernel against its plain PyTorch version on the card,
                exactly (words, selects, metrics, bits, entry states, alphas,
                LLRs, (min,+) products), at K=3, 7, 11 (13 for the short-block
                kernels) small shapes with T % 32 != 0, partial windows and
-               carried metrics holding 1e30, the state-0 and windowed scans
-               at every S of their launch table (2 to 4096), the RSC codes
+               carried metrics holding 1e30, the state-0, windowed and
+               unpacked scans at every S of their launch tables (2 to 4096),
+               the windowed walk at every S of its table (2 to 128) and at
+               256 and 512, the RSC codes
                of every S, terminated and open, and (min,+) products at both
                inits with 1e30, 2e30 and NaN entries, K = 1, strided batches
                and an empty batch;
@@ -65,8 +68,9 @@ Phases (any failure raises and exits non-zero):
                with each kernel's bound; for the scans and #8 also the
                device-only time (a CUDA graph of the same launches,
                replayed), #4 at the ``parallel`` transfer matrices' shape
-               beside the pinned tiled passes, and #7 at both ``parallel``
-               re-scan shapes; end-to-end times of every path.
+               beside the pinned tiled passes, #5 at the long stream's
+               planned ``tiled`` walk beside the pinned one, and #7 at both
+               ``parallel`` re-scan shapes; end-to-end times of every path.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -128,11 +132,19 @@ def _event_ms(fn, reps: int, rounds: int = 1, warmup: int = 2) -> list:
     return out
 
 
-def _graph_ms(fn, n: int, rounds: int = 5) -> list:
+#: untimed replays of a graph before its timed ones last at least this long:
+#: for tens of ms after large fresh allocations (a phase's plain versions, a
+#: graph's own pool) a store-bound kernel such as #6 runs slower, and the
+#: graph would time that instead of the kernel
+SETTLE_MS = 200.0
+
+
+def _graph_ms(fn, n: int, rounds: int = 5) -> tuple:
     """Device-only time of ``fn()``: ``n`` calls captured into one CUDA
-    graph after a warm-up; for each of ``rounds`` replays, its CUDA-event
-    time over ``n``.  Back-to-back eager calls (``_event_ms``) stop at the
-    host's time to enqueue a call; a replay does not."""
+    graph after a warm-up, replayed untimed for ``SETTLE_MS``, then for each
+    of ``rounds`` replays its CUDA-event time over ``n``.  Back-to-back
+    eager calls (``_event_ms``) stop at the host's time to enqueue a call; a
+    replay does not.  Returns (timed rounds, settling replays)."""
     import torch
 
     fn()
@@ -146,25 +158,31 @@ def _graph_ms(fn, n: int, rounds: int = 5) -> list:
     with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
-    out = []
-    for _ in range(rounds):
+
+    def replay():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
         end.record()
         torch.cuda.synchronize()
-        out.append(start.elapsed_time(end) / n)
-    return out
+        return start.elapsed_time(end) / n
+
+    settle, t0 = [], time.perf_counter()
+    while (time.perf_counter() - t0) * 1e3 < SETTLE_MS:
+        settle.append(replay())
+    return [replay() for _ in range(rounds)], settle
 
 
 def _device_only(row, fn, n):
     """Add the device-only time of ``fn`` (median of 5 graph replays of
-    ``n`` calls) to ``row`` beside its back-to-back ``ms``."""
-    r = _graph_ms(fn, n)
+    ``n`` calls, after the settling replays) to ``row`` beside its
+    back-to-back ``ms``."""
+    r, settle = _graph_ms(fn, n)
     row.update(device_ms=statistics.median(r), device_rounds=r)
-    print(f"[timing] {row['name']}: device-only {row['device_ms']!r} ms (graph replays {r}), "
-          f"back-to-back {row['ms']!r} ms")
+    print(f"[timing] {row['name']}: device-only {row['device_ms']!r} ms (graph replays {r}; "
+          f"settling replays before them {settle[:12]}{' ...' if len(settle) > 12 else ''}, "
+          f"{len(settle)} in all), back-to-back {row['ms']!r} ms")
 
 
 def phase_build():
@@ -385,15 +403,19 @@ TABLE_CODES = ((2, (0b11, 0b10)), (3, (0b111, 0b101)), (4, (0o15, 0o17)), (5, (0
 
 
 def phase_parity_wide(gen):
-    """The state-0 and windowed packed scans (#1, #4) against their plain
-    versions at every S of the wide launch table: folded hard and soft
-    weights (soft features holding NaN, +-inf and +-1e30) and table weights,
-    per-lane windows with empty ones and edges beside word boundaries, seeds
-    holding 1e30; survivors exact, metrics NaN-aware, one launch a call."""
+    """The wide kernel's entries (#1, #4 packed, #6 unpacked) against their
+    plain versions at every S of the wide launch tables: folded hard and
+    soft weights (soft features holding NaN, +-inf and +-1e30) and table
+    weights, per-lane windows with empty ones and edges beside word
+    boundaries, seeds holding 1e30; survivors exact, metrics NaN-aware, one
+    launch a call.  And the windowed walk (#5) at every S of its table and
+    two past it (staged to 128, direct beyond): random words, windows beside
+    word edges and empty ones, final states out of the row, one launch a
+    call.  No call runs a plain version."""
     import torch
 
     from repro_torch.core import ConvCode
-    from repro_torch.kernels import fused_metric_plan, viterbi_scan
+    from repro_torch.kernels import fused_metric_plan, survivors, viterbi_scan
 
     for K, polys in TABLE_CODES:
         code = ConvCode(K, polys)
@@ -416,16 +438,35 @@ def phase_parity_wide(gen):
                                ("table", tables, viterbi_scan.table_weights(code, "cuda"))):
             for name, args in (("viterbi_scan_packed", (code, data, *w)),
                                ("viterbi_scan_packed_window", (code, pm0, data, *w, lo, hi))):
-                before = _counts()[0].get(name, 0)
-                pm, words = getattr(viterbi_scan, name)(*args)
-                torch.cuda.synchronize()
-                if _counts()[0].get(name, 0) - before != 1:
-                    _fail(f"{name} S={S} {label}: not one launch")
+                pm, words = _one_launch(f"{name} S={S} {label}", name,
+                                        lambda: getattr(viterbi_scan, name)(*args))
                 pm_p, words_p = getattr(viterbi_scan, f"{name}_plain")(*args)
                 _same(f"{name} S={S} {label} (words)", (words,), (words_p,))
                 _same_nan(f"{name} S={S} {label} (metrics)", pm, pm_p)
+        soft_tables = torch.randn(tables.shape, generator=gen, device="cuda")
+        soft_tables[pick[..., :1].expand_as(soft_tables) < 0.01] = float("nan")
+        for label, bm in (("hard", tables), ("soft", soft_tables)):
+            pm, bps = _one_launch(f"viterbi_scan S={S} {label}", "viterbi_scan",
+                                  lambda: viterbi_scan.viterbi_scan(code, bm))
+            pm_p, bps_p = viterbi_scan.viterbi_scan_plain(code, bm)
+            _same(f"viterbi_scan S={S} {label} (selects)", (bps,), (bps_p,))
+            _same_nan(f"viterbi_scan S={S} {label} (metrics)", pm, pm_p)
+        if S <= 512:
+            W = -(-T // 32)
+            words = torch.randint(-2 ** 31, 2 ** 31 - 1, (W, B, S), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            fs = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+            whi = hi.clamp(max=32 * W)
+            walk = _one_launch(f"traceback_packed_window S={S}", "traceback_packed_window",
+                               lambda: survivors.traceback_packed_window(code, words, fs, lo,
+                                                                         whi))
+            _same(f"traceback_packed_window S={S}", walk,
+                  survivors.traceback_packed_window_plain(code, words, fs, lo, whi))
         print(f"[parity] S={S} B={B} T={T}: viterbi_scan_packed, viterbi_scan_packed_window "
-              "(soft with NaN/inf/1e30, hard, table; windows beside word edges): exact")
+              "(soft with NaN/inf/1e30, hard, table; windows beside word edges), viterbi_scan "
+              "(hard and soft tables)" + (", traceback_packed_window" if S <= 512 else "")
+              + ": exact")
 
 
 def _touched_words(code, bits: "torch.Tensor") -> int:
@@ -530,6 +571,20 @@ def _counts():
     from repro_torch.kernels import launch_counts, plain_counts
 
     return dict(launch_counts), dict(plain_counts)
+
+
+def _one_launch(label, name, fn):
+    """``fn()``'s output; fails unless it launched kernel ``name`` once and
+    ran no plain version."""
+    import torch
+
+    launches, plains = _counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after, plains_after = _counts()
+    if after.get(name, 0) - launches.get(name, 0) != 1 or plains_after != plains:
+        _fail(f"{label}: not one launch of {name} and no plain call")
+    return out
 
 
 def _ber(decoded, sent) -> float:
@@ -833,6 +888,7 @@ def phase_timing_seeded(tiled, stream):
                statistics.median(r), pms, 4 * (touched + lanes * 32 * W + 4 * lanes),
                6 * valid * S)
     row.update(max_abs_err=err, shape=f"{lanes} lanes x {32 * W} steps")
+    _device_only(row, lambda: survivors.traceback_packed_window(*tb), 5)
     rows.append(row)
 
     # --- the pinned decode's torch work between its kernels, one part each
@@ -1266,6 +1322,7 @@ def phase_timing_siso(texpand_tables, siso):
                statistics.median(r), pms, 4 * (B * T * M + T * B * S + B * S + 2 * S * M + 2 * S),
                B * T * (M * 2 * M + 7 * S))
     row.update(max_abs_err=err, shape=f"{B} streams x {T} steps, K=7")
+    _device_only(row, lambda: viterbi_scan.viterbi_scan(code, bm), 4)
     rows.append(row)
     scan_ms = row["ms"]
     # --- row 8: one texpand step at the same shape, and all T of them
@@ -1387,7 +1444,16 @@ def phase_parallel(gen, tiled):
               f"(planned {out[name]['planned_ber']!r})")
 
     res = results["long"]
+    reset_counts()
     planned = decode(DecodeRequest(spec_b, received=rx_b))
+    torch.cuda.synchronize()
+    long_launches, long_plain = _counts()
+    P = planned.plan.ctx.tiles
+    if (planned.plan.backend != "tiled" or P < 2
+            or long_launches.get("traceback_packed_window", 0) != 1 or any(long_plain.values())):
+        _fail(f"long stream planned: {planned.plan.backend} P={P}, launches {long_launches}, "
+              f"plain calls {long_plain}")
+    print(f"[parallel] long stream planned: tiled P={P} launches {long_launches}")
     T = spec_b.n_steps(LONG_INFO)
     if res.bits.shape != (1, T) or not (torch.equal(res.bits, planned.bits)
                                         and torch.equal(res.path_metric, planned.path_metric)):
@@ -1397,10 +1463,46 @@ def phase_parallel(gen, tiled):
     if ber > 0.01:
         _fail(f"parallel long stream: BER {ber} far above what K=3 at p=0.01 gives")
     out["long"] = dict(ber=ber, planned_ber=planned_ber)
+    out["long_planned"] = dict(tiles=P, launches=long_launches, bits=planned.bits,
+                               metric=planned.path_metric)
     print(f"[parallel] long stream K=3 B=1 T={T} chunk={LONG_CHUNK} (nc={-(-T // LONG_CHUNK)}): "
           f"bits and metric equal the planned ({planned.plan.backend}, P="
           f"{planned.plan.ctx.tiles}) decode's, BER={ber!r} (planned {planned_ber!r})")
     return launches, dict(out, spec_b=spec_b, rx_b=rx_b)
+
+
+def phase_timing_walk_long(parallel):
+    """Row 5 at the long stream's planned shape: the walk of the planned
+    ``tiled`` decode (P tiles x S exit states = 512 lanes over its words), on
+    the operands the tiled op hands the kernel, against its plain version."""
+    import torch
+
+    from repro_torch.kernels import fused_metric_plan, ops, survivors
+
+    spec_b, planned = parallel["spec_b"], parallel["long_planned"]
+    cap = {}
+    bits, metric = ops.viterbi_decode_tiled_fused(
+        fused_metric_plan(spec_b.code, spec_b.metric), parallel["rx_b"], planned["tiles"],
+        terminated=spec_b.terminated, capture=cap)
+    if not (torch.equal(bits, planned["bits"]) and torch.equal(metric, planned["metric"])):
+        _fail("the captured long-stream tiled op differs from the planned decode() it times")
+    tb = cap["traceback"]
+    code, packed = tb[0], tb[1]
+    W, lanes, S = packed.shape
+    r, pms, k, p = _timed(lambda: survivors.traceback_packed_window(*tb),
+                          lambda: survivors.traceback_packed_window_plain(*tb), 20)
+    err = _same("windowed traceback, long stream planned", k, p)
+    print(f"[timing] rounds (ms): traceback_packed_window long stream ({lanes} lanes x "
+          f"{32 * W} steps) {r}")
+    valid = int((tb[4] - tb[3]).clamp(min=0).sum())
+    row = _row("traceback_packed_window (long stream planned)", TB_SRC, "",
+               statistics.median(r), pms,
+               4 * (_window_touched_words(code, *tb[1:]) + lanes * 32 * W + 4 * lanes),
+               6 * valid)
+    row.update(max_abs_err=err, launches=planned["launches"].get("traceback_packed_window", 0),
+               shape=f"{lanes} lanes x {32 * W} steps")
+    _device_only(row, lambda: survivors.traceback_packed_window(*tb), 20)
+    return row
 
 
 def _same_nan(label, got, want) -> float:
@@ -1618,6 +1720,7 @@ def main(argv=None) -> int:
     }
     siso_rows, siso_e2e = phase_timing_siso(texpand_tables, siso)
     parallel_rows, parallel_e2e, rescan, window_parallel = phase_timing_parallel(tiled, parallel)
+    walk_long = phase_timing_walk_long(parallel)
     path_launches.update(viterbi_scan=fused_launches, texpand=texpand_launches,
                          bcjr_alpha_scan=siso_launches, bcjr_beta_llr_scan=siso_launches,
                          minplus_matmul=parallel_launches)
@@ -1625,6 +1728,13 @@ def main(argv=None) -> int:
         row["launches"] = path_launches[row["name"]].get(row["name"], 0)
         if row["name"] == "viterbi_scan_carry":
             row["shapes"] = rescan
+        if row["name"] == "traceback_packed_window":
+            # the pinned NASA walk is the row's own numbers; the long stream's
+            # planned walk its second shape, with its own bound
+            row["shapes"] = {label: {k: x[k] for k in (
+                "ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "bytes", "operations", "shape") if k in x} for label, x in (
+                ("tiled_p8", row), ("long_stream_planned", walk_long))}
         if row["name"] == "viterbi_scan_packed_window":
             # the pinned tiled passes are the row's own numbers; the parallel
             # decode's transfer matrices are its second shape

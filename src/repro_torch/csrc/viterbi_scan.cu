@@ -1,5 +1,5 @@
-// Forward add-compare-select (ACS) scans for Hopper (sm_90a): three kernels
-// in two designs, five entry points.
+// Forward add-compare-select (ACS) scans for Hopper (sm_90a): two kernels of
+// one design, five entry points.
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/viterbi_scan.py built
 // from the one parameterised body `_make_scan_kernel(carry, pack, windowed)`:
@@ -16,7 +16,7 @@
 //                                      the `streaming` backend's chunk scan and
 //                                      `parallel`'s re-scan, bm tables in [chain]
 //   viterbi_scan_launch                `viterbi_scan`               (carry=False, pack=False)
-//                                      the `fused` backend's scan, bm tables in [block]
+//                                      the `fused` backend's scan, bm tables in [wide]
 //
 // What they compute, for every stream (lane) b and trellis step t:
 //   cand_j[s'] = (pm[2v + j] + sum_f b_j[s', f] * x[b, t, f]) + rb[s', j]
@@ -42,7 +42,7 @@
 // vector of its lane, so a lane's steps run strictly in order: with few
 // lanes (a stream chunk: 128) the time is T times one step's latency.
 //
-// Every design keeps:
+// The design keeps:
 //   * The TPU grid's sequential time axis as a `for t` loop inside the
 //     block (Hopper blocks run in no order); path metrics never leave the SM.
 //   * Predecessors read directly at 2v and 2v+1 — the (S, S) one-hot
@@ -56,18 +56,9 @@
 //     rounds back to 1e30 for the carried unit-entry seeds as it does in the
 //     reference.  Built without --use_fast_math.
 //
-// The block design (`scan_kernel`), left for #6 alone: one block holds a few
-// lanes, each thread SPT successor states of one (256 threads), metrics
-// double-buffered in shared memory, one block-wide barrier a step; each thread
-// evaluates its states' dot products itself, S*(4F+5) = 832 operations a
-// lane-step at K=7, and the next step's features are loaded under the step's
-// barrier.  #1 and #4 run on the chain design's wide kernel, 7.6-8.9x
-// faster at their path shapes (`tools/scan_measure.py device`, an NVIDIA H100
-// 80GB HBM3 at 700 W), so the block kernel has no carried, windowed or packed
-// instance.
-//
-// The chain design, two kernels for the other four: `chain_kernel` for the
-// carried entries #3 and #7, `wide_kernel` for #1 and #4.  Both keep:
+// The chain design, two kernels for the five entries: `chain_kernel` for
+// the carried entries #3 and #7, `wide_kernel` for #1, #4 and #6.  Both
+// keep:
 //   * Few threads a lane, no block barrier in the step.  A group of G
 //     threads (a launch table below) runs one lane; each thread holds SPT =
 //     S/G <= 8 states in registers.  Up to a warp (G <= 32) thread r holds
@@ -82,10 +73,10 @@
 //     (weights, bias) of b0 and b1 with rb and an (S, 2) state -> row map
 //     (kernels/viterbi_scan.py:row_operands; R = M for every folded or
 //     table weight, at most 2S for any).  Each (lane, step) gets its R dots
-//     once, where the block design computes 2S; a thread keeps its states'
-//     row indices and biases in registers and reads two dots a state.  A dot
-//     is the same row times the same features in the same order (f = 0 ..
-//     F-1 from 0), so the bits are the block design's.
+//     once, not 2S; a thread keeps its states' row indices and biases in
+//     registers and reads two dots a state.  A dot is the same row times the
+//     same features in the same order (f = 0 .. F-1 from 0) as the plain
+//     version's, so the bits are its bits.
 //   * Features and dots off the chain.  Per tile of Tc steps the group
 //     copies tile c+2's features into shared memory with cp.async while the
 //     tile's steps run, and after them computes tile c+1's R*Tc dots in one
@@ -105,8 +96,9 @@
 // came: whether the wide step would serve the carried shapes too is
 // measured before the two kernels become one.
 //
-// `wide_kernel` (#1 from state 0, #4 windowed; VITERBI_WIDE_CHOICES, packed
-// only) runs 512 to 1.1M lanes and is bound by the card's issue rate, so it
+// `wide_kernel` (#1 from state 0, #4 windowed; VITERBI_WIDE_CHOICES, packed;
+// #6 from state 0, unpacked, below) runs 512 to 1.1M lanes and, packed, is
+// bound by the card's issue rate, so it
 // cuts the instructions of a state-step from the carried kernel's 21 to 13
 // (SASS of the S=64 kernels' step loops, `tools/scan_measure.py sass`: 4
 // adds, 2 shuffles, 2 shared reads, compare, select, clamp, a predicated OR,
@@ -136,6 +128,18 @@
 // lanes) is one lane's chain of 129 steps.  The windowed kernel's unchecked
 // step still spends one address add a state-step (15 instructions).
 //
+// Unpacked (#6; PACK = false, a template flag, so the packed instances
+// compile as they did) the wide kernel runs the state-0 step with the
+// predicate selecting the metric and setting the state's select (selp 1/0),
+// and each step's SPT selects of a thread go out as one vector store (16
+// bytes at S = 64, G = 16: a lane's 256 bytes a step one contiguous run).  It
+// takes the packed entries' launch table.  Its bound is the 2.1 GB of selects
+// at the `fused` shape (0.67 ms at 3.35 TB/s); the step's issue (#1's 0.33 ms
+// at that shape) runs under them.  Streaming stores (st.global.cs: the
+// selects are read back only after the scan, far past L2) measured no faster
+// on the H100 (0.9030 against 0.9063 ms at the `fused` shape,
+// `tools/scan_measure.py split`), so the stores are plain.
+//
 // Launch choices (G threads a lane, L lanes a block, Tc steps a tile), one
 // template per S, entry and PACK; each row the pick of a sweep on this
 // source (an NVIDIA H100 80GB HBM3 at 700 W):
@@ -163,6 +167,13 @@
 //   64/127, 128 72/127, 256 115/117, 512 64/96, 1024 116/112, 2048 113/112,
 //   4096 113/112; spills (36-48 bytes stored and loaded) only in the state-0
 //   kernels at S = 16, 64 and 512.
+//   #6 runs on the wide table: of the same candidates at #6's shape (8192 x
+//   1006 bm tables, F = M = 4, S = 64; 524288/S x 1006 at every other S) the
+//   table's rows were within 13% of the fastest at every S (S = 64: 0.8757
+//   against 0.8638 ms, `tools/scan_measure.py wide`, which prints them beside
+//   its picks).  ptxas registers unpacked: S=2 96, 4 80, 8 64, 16 48, 32 72,
+//   64 85, 128 72, 256 96, 512 96, 1024 118, 2048 120, 4096 120; spills
+//   (8-52 bytes stored, 8-76 loaded) at S = 4-32, 128 and 256.
 // The groups of more than one warp use up to 16 named barriers.
 #include <cstdint>
 #include <type_traits>
@@ -171,131 +182,20 @@
 namespace {
 
 constexpr float kUnreachable = 1e30f;
-constexpr int kThreads = 256;
 constexpr int kMaxSharedBytes = 232448;  // 227 KB opt-in per block on sm_90
-
-struct ScanArgs {
-  const float* data;     // (B, T, F)
-  const float* b0;       // (S, F)
-  const float* b1;       // (S, F)
-  const float* rb;       // (S, 2)
-  float* final_pm;       // (B, S)
-  int32_t* survivors;    // (T, B, S) selects
-  int B, T, F, S;
-};
-
-// The block design, #6 only: from state 0, one int32 select per (T, B, S).
-template <int SPT>
-__global__ void __launch_bounds__(kThreads) scan_kernel(const ScanArgs a) {
-  const int B = a.B, T = a.T, F = a.F, S = a.S;
-  const float* __restrict__ b0 = a.b0;
-  const float* __restrict__ b1 = a.b1;
-  const float* __restrict__ rb = a.rb;
-  int32_t* __restrict__ out = a.survivors;
-  const int tps = S / SPT;        // threads per lane
-  const int G = kThreads / tps;   // lanes per block
-  extern __shared__ float smem[];
-  const int g = threadIdx.x / tps;
-  const int lane = threadIdx.x % tps;
-  const int b = blockIdx.x * G + g;
-  const bool live = b < B;
-  const int vmask = (S >> 1) - 1;  // 0 when S == 2
-
-  float* pm_cur = smem + g * S;               // [2][G][S]
-  float* pm_nxt = smem + (G + g) * S;
-  float* x_base = smem + 2 * G * S + g * F;   // [2][G][F]
-  const float* __restrict__ row = a.data + static_cast<size_t>(live ? b : 0) * T * F;
-
-#pragma unroll
-  for (int k = 0; k < SPT; ++k) {
-    const int s = lane + k * tps;
-    pm_cur[s] = (s == 0) ? 0.0f : kUnreachable;
-  }
-  for (int f = lane; f < F; f += tps) x_base[f] = live ? row[f] : 0.0f;
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    const float* x = x_base + (t & 1) * G * F;
-    if (t + 1 < T) {
-      float* x_next = x_base + ((t + 1) & 1) * G * F;
-      for (int f = lane; f < F; f += tps)
-        x_next[f] = live ? row[static_cast<size_t>(t + 1) * F + f] : 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < SPT; ++k) {
-      const int s = lane + k * tps;
-      const int v = s & vmask;
-      float m0 = 0.0f, m1 = 0.0f;
-      for (int f = 0; f < F; ++f) {
-        const float xf = x[f];
-        m0 = __fadd_rn(m0, __fmul_rn(__ldg(b0 + s * F + f), xf));
-        m1 = __fadd_rn(m1, __fmul_rn(__ldg(b1 + s * F + f), xf));
-      }
-      const float c0 = __fadd_rn(__fadd_rn(pm_cur[2 * v], m0), __ldg(rb + 2 * s));
-      const float c1 = __fadd_rn(__fadd_rn(pm_cur[2 * v + 1], m1), __ldg(rb + 2 * s + 1));
-      const bool take1 = c1 < c0;
-      float nm = take1 ? c1 : c0;
-      nm = (nm > kUnreachable) ? kUnreachable : nm;  // NaN passes, as jnp.minimum
-      pm_nxt[s] = nm;
-      if (live) out[(static_cast<size_t>(t) * B + b) * S + s] = static_cast<int32_t>(take1);
-    }
-    __syncthreads();
-    float* tmp = pm_cur;
-    pm_cur = pm_nxt;
-    pm_nxt = tmp;
-  }
-
-  if (live) {
-#pragma unroll
-    for (int k = 0; k < SPT; ++k) {
-      const int s = lane + k * tps;
-      a.final_pm[static_cast<size_t>(b) * S + s] = pm_cur[s];
-    }
-  }
-}
-
-template <int SPT>
-int launch(const ScanArgs& a, cudaStream_t stream) {
-  const int G = kThreads / (a.S / SPT);
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(G) * a.S + 2 * G * a.F);
-  if (smem > static_cast<size_t>(kMaxSharedBytes)) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scan_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int blocks = (a.B + G - 1) / G;
-  scan_kernel<SPT><<<blocks, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// S must be a power of two in [2, 4096]; one thread owns S/256 states past 256.
-int dispatch(const ScanArgs& a, void* stream) {
-  const int S = a.S;
-  if (a.B < 1 || a.T < 1 || a.F < 1 || S < 2 || S > 16 * kThreads || (S & (S - 1)))
-    return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (S > kThreads ? S / kThreads : 1) {
-    case 1: return launch<1>(a, st);
-    case 2: return launch<2>(a, st);
-    case 4: return launch<4>(a, st);
-    case 8: return launch<8>(a, st);
-    case 16: return launch<16>(a, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 }  // namespace
 
 // ------------------------------------------------------------------------- //
-// The chain design: #1, #3, #4 and #7                                        //
+// The chain design: #1, #3, #4, #6 and #7                                    //
 // ------------------------------------------------------------------------- //
 
 // Launch choices, one row per S = 2, 4, ..., 4096: {G threads a lane, L lanes
 // a block, Tc steps a tile}.  VITERBI_CHOICES serves the carried chunk scans
 // (#3, #7: a stream chunk's 128 lanes, bound by one lane's chain),
-// VITERBI_WIDE_CHOICES the state-0 and windowed scans (#1, #4: thousands to
-// a million lanes, bound by the card's issue).  A measurement build
+// VITERBI_WIDE_CHOICES the state-0 and windowed scans (#1, #4 and #6:
+// thousands to a million lanes, bound by the card's issue or, #6, by its
+// selects' stores).  A measurement build
 // (tools/scan_measure.py) defines its own tables before it includes this file.
 #ifndef VITERBI_CHOICES
 #define VITERBI_CHOICES                                                         \
@@ -635,14 +535,17 @@ __global__ void __launch_bounds__(G * L) chain_kernel(const ChainArgs a) {
   }
 }
 
-// The wide kernel (#1 from state 0, #4 WINDOW), packed: the carried kernel's
-// lanes, groups, tiles and exchange, with a tile's dots kept row by row (row j
-// at j * TcS, TcS = Tc + 1: a spare slot for the last step's read-ahead), so a
-// step's reads take no address arithmetic, and one predicate that selects the
-// metric and sets the survivor bit.  WINDOW: on a step outside the lane's
-// [lo, hi) pm and the bit stay.
-template <int S, int G, int L, bool WINDOW>
+// The wide kernel (#1 from state 0, #4 WINDOW, packed; #6 from state 0,
+// !PACK): the carried kernel's lanes, groups, tiles and exchange, with a
+// tile's dots kept row by row (row j at j * TcS, TcS = Tc + 1: a spare slot
+// for the last step's read-ahead), so a step's reads take no address
+// arithmetic, and one predicate that selects the metric and sets the
+// survivor bit (PACK) or the select (!PACK).  WINDOW: on a step outside the
+// lane's [lo, hi) pm and the bit stay.  !PACK: each step's selects go out as
+// each thread's SPT ints in one vector store (a lane's S ints are one run).
+template <int S, int G, int L, bool WINDOW, bool PACK>
 __global__ void __launch_bounds__(G * L) wide_kernel(const WideArgs w) {
+  static_assert(PACK || !WINDOW, "the unpacked wide entry starts from state 0");
   const ChainArgs& a = w.c;
   constexpr int SPT = S / G;
   constexpr bool kWarp = G <= 32;  // exchange by shuffles, else through shared memory
@@ -776,6 +679,17 @@ __global__ void __launch_bounds__(G * L) wide_kernel(const WideArgs w) {
         for (int i = 0; i < SPT; ++i) {
           const float c0 = __fadd_rn(__fadd_rn(x[2 * i], d0[i]), rb0[i]);
           const float c1 = __fadd_rn(__fadd_rn(x[2 * i + 1], d1[i]), rb1[i]);
+          if constexpr (!kChecked && !PACK) {
+            // take1 = c1 < c0 (ties and NaN go to j = 0) as a predicate that
+            // selects the metric and the select
+            float nm;
+            asm("{\n\t.reg .pred p;\n\tsetp.lt.f32 p, %2, %3;\n\tselp.f32 %0, %2, %3, p;\n\t"
+                "selp.u32 %1, 1, 0, p;\n\t}"
+                : "=f"(nm), "=r"(sel[i])
+                : "f"(c1), "f"(c0));
+            pm[i] = (nm > kUnreachable) ? kUnreachable : nm;  // NaN passes
+            continue;
+          }
           if constexpr (!kChecked) {
             // take1 = c1 < c0 (ties and NaN go to j = 0) as a predicate that
             // selects the metric and sets the survivor bit
@@ -798,6 +712,17 @@ __global__ void __launch_bounds__(G * L) wide_kernel(const WideArgs w) {
           float* pn = pm_s + ((t + 1) & 1) * S;
 #pragma unroll
           for (int i = 0; i < SPT; ++i) pn[state(i)] = pm[i];
+        }
+        if constexpr (!PACK && !(kCut & 4)) {
+          if (live) {
+            int32_t* dst = out + (static_cast<size_t>(t) * B + b) * S;
+            if constexpr (kWarp) {
+              store_run<SPT>(dst + r * SPT, sel);
+            } else {
+#pragma unroll
+              for (int i = 0; i < SPT; ++i) dst[state(i)] = static_cast<int32_t>(sel[i]);
+            }
+          }
         }
 #pragma unroll
         for (int i = 0; i < SPT; ++i) d0[i] = e0[i], d1[i] = e1[i];
@@ -835,7 +760,7 @@ __global__ void __launch_bounds__(G * L) wide_kernel(const WideArgs w) {
         steps(k, t0, run, std::false_type{});
       }
       const int t = t0 + run - 1;
-      if ((t & 31) == 31 || t == T - 1) {  // a word is complete
+      if (PACK && ((t & 31) == 31 || t == T - 1)) {  // a word is complete
         if (!(kCut & 4) && live) {
           int32_t* dst = out + (static_cast<size_t>(t >> 5) * B + b) * S;
           if constexpr (kWarp) {
@@ -879,7 +804,7 @@ int start(void (*kernel)(Args), const Args& args, int blocks, int threads, size_
 // Tc is halved while a block's shared memory would not fit.
 template <int S, bool PACK, int ENTRY>
 int chain_launch(ChainArgs a, const void* lo, const void* hi, cudaStream_t stream) {
-  static_assert(PACK || ENTRY == kCarried, "the wide entries are packed");
+  static_assert(PACK || ENTRY != kWindow, "the windowed entry is packed");
   constexpr Choice c = choice(S, ENTRY);
   static_assert(valid(c, S), "a launch choice outside what the chain kernels take");
   auto plan = [&](int Tc) {
@@ -898,7 +823,7 @@ int chain_launch(ChainArgs a, const void* lo, const void* hi, cudaStream_t strea
     return start(chain_kernel<S, c.G, c.L, PACK>, a, blocks, c.G * c.L, smem, stream);
   } else {
     const WideArgs w{a, static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi)};
-    return start(wide_kernel<S, c.G, c.L, ENTRY == kWindow>, w, blocks, c.G * c.L, smem,
+    return start(wide_kernel<S, c.G, c.L, ENTRY == kWindow, PACK>, w, blocks, c.G * c.L, smem,
                  stream);
   }
 }
@@ -956,19 +881,15 @@ extern "C" int viterbi_scan_packed_window_launch(const void* pm0, const void* da
                                        F, S, R, stream);
 }
 
-#ifndef VITERBI_WIDE_ONLY
-// `viterbi_scan`: state-0 init, one int32 select per (T, B, S); the block
-// design, on the weights themselves.
-extern "C" int viterbi_scan_launch(const void* data, const void* b0, const void* b1,
-                                   const void* rb, void* final_pm, void* bps, int B,
-                                   int T, int F, int S, void* stream) {
-  return dispatch(ScanArgs{static_cast<const float*>(data), static_cast<const float*>(b0),
-                           static_cast<const float*>(b1),   static_cast<const float*>(rb),
-                           static_cast<float*>(final_pm),   static_cast<int32_t*>(bps),
-                           B, T, F, S},
-                  stream);
+// `viterbi_scan`: state-0 init, one int32 select per (T, B, S).
+extern "C" int viterbi_scan_launch(const void* data, const void* rows, const void* maps,
+                                   void* final_pm, void* bps, int B, int T, int F, int S, int R,
+                                   void* stream) {
+  return chain_dispatch<false, kState0>(nullptr, data, rows, maps, nullptr, nullptr, final_pm,
+                                        bps, B, T, F, S, R, stream);
 }
 
+#ifndef VITERBI_WIDE_ONLY
 // `viterbi_scan_packed_carry`: seeded from pm0 (B, S), packed (W, B, S) words.
 extern "C" int viterbi_scan_packed_carry_launch(const void* pm0, const void* data,
                                                 const void* rows, const void* maps,

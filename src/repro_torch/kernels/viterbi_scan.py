@@ -23,8 +23,7 @@ folded weights of kernels/metrics.py and F = n (2n punctured-hard) it is the
 raw received symbols.
 
 On a CUDA tensor a wrapper launches ``csrc/viterbi_scan.cu`` (see its header
-for the two designs: ``viterbi_scan`` runs the block kernel on the weights;
-the other four the chain kernel, on the distinct weight rows of
+for the design: every entry runs on the distinct weight rows of
 :func:`row_operands`); on a CPU tensor it runs ``_scan_plain``, which follows
 the Pallas body step by step on the same operands.
 
@@ -54,8 +53,8 @@ from repro_torch.kernels.common import (
     PACK_BITS, distinct_rows, launch_counts, on_card, plain_counts)
 from repro_torch.kernels.survivors import pack_survivors
 
-#: Largest trellis the kernels take (block design: 256 threads x 16 states;
-#: chain design: up to 1024 threads a stream, at most 8 states a thread).
+#: Largest trellis the kernels take (up to 1024 threads a stream, at most 8
+#: states a thread).
 MAX_STATES = 4096
 
 NAME = "viterbi_scan_packed"
@@ -240,8 +239,7 @@ def device_weights(b0: np.ndarray, b1: np.ndarray, rb: np.ndarray, device
 @functools.lru_cache(maxsize=None)
 def _launcher(symbol: str, n_ptr: int, n_int: int):
     """The C entry point ``symbol`` of the built library, typed: ``n_ptr``
-    pointers, then ``n_int`` ints (B, T, F, S and, for the chain kernel, R)
-    and the stream."""
+    pointers, then ``n_int`` ints (B, T, F, S, R) and the stream."""
     lib = _build.load("viterbi_scan")
     fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
@@ -286,12 +284,9 @@ def _scan(name: str, code: ConvCode, pm0, data, b0, b1, rb, window: Window = Non
     final_pm = torch.empty((B, S), dtype=torch.float32, device=data.device)
     rows = -(-T // PACK_BITS) if pack else T
     survivors = torch.empty((rows, B, S), dtype=torch.int32, device=data.device)
-    if name == UNPACKED_NAME:  # the block kernel, on the weights
-        inputs, ints = (data, b0, b1, rb), (B, T, F, S)
-    else:  # the chain kernel, on the distinct weight rows
-        table, maps = row_operands(b0, b1, rb)
-        inputs = tuple(t for t in (pm0, data, table, maps, *(window or ())) if t is not None)
-        ints = (B, T, F, S, table.shape[0])
+    table, maps = row_operands(b0, b1, rb)  # the distinct weight rows
+    inputs = tuple(t for t in (pm0, data, table, maps, *(window or ())) if t is not None)
+    ints = (B, T, F, S, table.shape[0])
     ptrs = [t.data_ptr() for t in inputs] + [final_pm.data_ptr(), survivors.data_ptr()]
     lib, fn = _launcher(f"{name}_launch", len(ptrs), len(ints))
     err = fn(*ptrs, *ints, torch.cuda.current_stream(data.device).cuda_stream)

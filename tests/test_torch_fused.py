@@ -77,6 +77,35 @@ def test_plain_unpacked_scan_matches_pallas_kernel(name, kind, T):
     _eq(pm, viterbi_scan.viterbi_scan_plain(pc, torch.from_numpy(bm))[0])
 
 
+@pytest.mark.parametrize("name", ["k3", "k7"])
+@pytest.mark.parametrize("kind", ["int", "soft"])
+def test_unpacked_scan_row_operands_match_pallas_kernel(name, kind):
+    """The card's route of ``viterbi_scan``: the kernel takes the distinct
+    rows and row map of the table weights (``row_operands``, derived on the
+    host by ``device_weights``, no weight copied back) in place of the
+    weights.  The weights rebuilt from them are the table weights bit for
+    bit, and the scan on them equals the Pallas kernel's, hard (integer
+    tables: ties everywhere) and soft."""
+    rc, pc = _pair(name)
+    T = 45
+    bm = _tables(pc, T, kind, seed=70 + len(name))
+    copies = viterbi_scan.row_builds["copy"]
+    b0, b1, rb = viterbi_scan.cached_table_weights(pc, "cpu")
+    rows, maps = viterbi_scan.row_operands(b0, b1, rb)
+    assert viterbi_scan.row_builds["copy"] == copies
+    F = b0.shape[1]
+    assert rows.shape == (pc.n_symbols, F + 1) and maps.shape == (pc.n_states, 2)
+    w0, w1 = rows[maps[:, 0].long()], rows[maps[:, 1].long()]
+    rebuilt = (w0[:, :F].contiguous(), w1[:, :F].contiguous(),
+               torch.stack([w0[:, F], w1[:, F]], dim=1))
+    for got, want in zip(rebuilt, (b0, b1, rb)):
+        assert torch.equal(got, want)
+    pm, bps = viterbi_scan._scan_plain(pc, None, torch.from_numpy(bm), *rebuilt, pack=False)
+    ref_pm, ref_bps = R_scan.viterbi_scan(rc, jnp.asarray(bm.transpose(1, 2, 0)), B, True)
+    _eq(pm, np.asarray(ref_pm).T)
+    _eq(bps, np.asarray(ref_bps).transpose(0, 2, 1))
+
+
 @pytest.mark.parametrize("batch", [1, 13])
 def test_forward_op_matches_reference_forward_op(batch):
     rc, pc = _pair("k7")

@@ -293,7 +293,7 @@ def test_wide_scans_match_plain_on_card(card, K, polys):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend,ctx", [
-    ("fused_packed", {}), ("tiled", {"tiles": 8}), ("parallel", {"chunk": 64})])
+    ("fused_packed", {}), ("tiled", {"tiles": 8}), ("parallel", {"chunk": 64}), ("fused", {})])
 def test_second_decode_on_card_builds_no_row_operands(card, backend, ctx):
     """A second decode of the same spec on the card uploads no weights and
     builds no row operands; no decode copies weights back to the host."""
@@ -334,6 +334,94 @@ def test_windowed_traceback_matches_plain_on_card(card, K, polys, batch, T):
     assert bits.shape == (batch, 32 * W)
     assert torch.equal(bits, bits_p) and torch.equal(entry, entry_p)
     assert launch_counts["traceback_packed_window"] == 1 and not plain_counts
+
+
+#: a rate-1/2 code of every S of the windowed walk's launch table (staged,
+#: csrc/survivors.cu: kStages, S <= 128) and of the direct walk
+#: past it (S = 256, 512)
+WALK_CODES = CHAIN_CODES[:9]
+#: lanes (B) of the windowed walk: one, on and off a warp, about a thousand
+WALK_LANES = (1, 31, 33, 1000)
+
+
+def _walk_windows(gen, B, W, card):
+    """(lo, hi) (B,) int32 over 32W steps: full, empty (lo == hi, at 0, on a
+    word edge and at the end), lo > hi, lo < 0, hi past the end, edges on
+    and one step either side of every word boundary, then random pairs of
+    those edges."""
+    n = 32 * W
+    patterns = [(0, n), (0, 0), (32, 32), (n, n), (5, 3), (-3, 7), (1, n + 5), (31, 33),
+                (32, 64), (33, 63), (0, 31), (n - 1, n), (n - 33, n - 31)]
+    edges = sorted({e for w in range(W + 1) for e in (32 * w - 1, 32 * w, 32 * w + 1)}
+                   | {-2, n + 3})
+    table = torch.tensor(edges, device=card)
+    pairs = table[torch.randint(0, len(edges), (B, 2), generator=gen, device=card)]
+    lo, hi = pairs.min(dim=1).values, pairs.max(dim=1).values
+    for b in range(min(B, len(patterns))):
+        lo[b], hi[b] = patterns[b]
+    return lo.int().contiguous(), hi.int().contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,polys", WALK_CODES, ids=[f"S{2 ** (k - 1)}" for k, _ in WALK_CODES])
+def test_staged_windowed_traceback_matches_plain_on_card(card, K, polys):
+    """The windowed walk (#5) against its plain version at one S of its
+    launch table (S <= 128: the staged walk) or just past it (256, 512: the
+    direct walk): lanes 1, 31, 33 and 1000, W = 1..8 words; windows full,
+    empty, lo == hi, lo > hi, lo < 0, hi past the end, on and beside word
+    boundaries; final states of every value, out-of-row ones among them
+    (masked by & (S-1)).  Bits and entry states exact, one launch a call."""
+    code = ConvCode(K, polys)
+    S = code.n_states
+    gen = torch.Generator(device=card).manual_seed(K + 900)
+    reset_counts()
+    calls = 0
+    for B in WALK_LANES:
+        for W in range(1, 9):
+            words = torch.randint(-2 ** 31, 2 ** 31 - 1, (W, B, S), generator=gen, device=card,
+                                  dtype=torch.int32)
+            fs = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=gen, device=card,
+                               dtype=torch.int32)
+            n = min(B, S)
+            fs[:n] = torch.arange(n, device=card, dtype=torch.int32)
+            lo, hi = _walk_windows(gen, B, W, card)
+            bits, entry = survivors.traceback_packed_window(code, words, fs, lo, hi)
+            torch.cuda.synchronize()
+            calls += 1
+            assert launch_counts["traceback_packed_window"] == calls and not plain_counts
+            bits_p, entry_p = survivors.traceback_packed_window_plain(code, words, fs, lo, hi)
+            assert torch.equal(bits, bits_p), (S, B, W)
+            assert torch.equal(entry, entry_p), (S, B, W)
+
+
+#: (B, T) of the unpacked scan: the wide scans' shapes and a 1006-step block
+UNPACKED_SHAPES = WIDE_SHAPES + [(3, 1006)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,polys", CHAIN_CODES, ids=[f"S{2 ** (k - 1)}" for k, _ in CHAIN_CODES])
+def test_unpacked_scan_matches_plain_on_card(card, K, polys):
+    """The unpacked state-0 scan (#6, the wide kernel's unpacked entry)
+    against its plain version at one S of its launch table: B = 1..1000,
+    T = 1..129 and 1006; hard (integer: ties everywhere) and soft tables, the
+    soft ones holding NaN, +-inf and +-1e30.  Selects exact, metrics
+    NaN-aware, one launch a call."""
+    code = ConvCode(K, polys)
+    M = code.n_symbols
+    gen = torch.Generator(device=card).manual_seed(K + 1100)
+    reset_counts()
+    calls = 0
+    for B, T in UNPACKED_SHAPES:
+        for tables in (torch.randint(0, 3, (B, T, M), generator=gen, device=card).float(),
+                       _sprinkle(gen, torch.randn((B, T, M), generator=gen, device=card), card)):
+            pm, bps = viterbi_scan.viterbi_scan(code, tables)
+            torch.cuda.synchronize()
+            calls += 1
+            assert launch_counts["viterbi_scan"] == calls and not plain_counts
+            pm_p, bps_p = viterbi_scan.viterbi_scan_plain(code, tables)
+            assert torch.equal(bps, bps_p), (B, T)
+            _same_with_nan(pm, pm_p)
+            del bps, bps_p
 
 
 @pytest.mark.gpu

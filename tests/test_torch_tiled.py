@@ -292,6 +292,33 @@ def test_plain_window_traceback_matches_pallas_kernel(name, T):
     _eq(entry, np.asarray(ref_entry)[0])
 
 
+@pytest.mark.parametrize("name", ["k3", "k7"])
+@pytest.mark.parametrize("T", [64, 97])
+def test_plain_window_traceback_word_edges_match_pallas_kernel(name, T):
+    """Windows on and one step either side of word boundaries, and empty ones
+    (lo == hi at 0 and on a word edge, lo > hi): bits and entry states equal
+    the Pallas kernel's; an empty window emits zeros and enters where it
+    started."""
+    rc, pc = _pair(name)
+    rng = np.random.default_rng(500 + T)
+    W, S = -(-T // 32), pc.n_states
+    words = rng.integers(0, 2 ** 32, size=(W, S, B), dtype=np.uint64).astype(np.uint32)
+    fs = rng.integers(0, S, size=(B,)).astype(np.int32)
+    lo = np.asarray([31, 32, 33, 63, 0, 32, 64, 40], np.int32)
+    hi = np.asarray([33, 64, 65, 65, 0, 32, 32 * W, 33], np.int32)
+    ref_bits, ref_entry = R_surv.traceback_packed_window(
+        rc, jnp.asarray(words), jnp.asarray(fs[None]), jnp.asarray(lo[None]),
+        jnp.asarray(hi[None]), B, None)
+    bits, entry = survivors.traceback_packed_window(
+        pc, convert.packed_from_reference(words), torch.from_numpy(fs), torch.from_numpy(lo),
+        torch.from_numpy(hi))
+    _eq(bits, np.asarray(ref_bits).T)
+    _eq(entry, np.asarray(ref_entry)[0])
+    empty = [4, 5, 7]
+    assert not bits[empty].any()
+    _eq(entry[empty], fs[empty])
+
+
 def test_windowed_wrappers_validate_and_count():
     _, pc = _pair("k3")
     b0, b1, rb = p_plan(pc, "hard").folded()

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Measurements of the ACS scan kernels (``src/repro_torch/csrc/viterbi_scan.cu``)
-and of ``texpand`` at the shapes their paths give them, on one NVIDIA card.
+"""Measurements of the ACS scan kernels (``src/repro_torch/csrc/viterbi_scan.cu``),
+the survivor walks (``csrc/survivors.cu``) and ``texpand`` at the shapes their
+paths give them, on one NVIDIA card.
 
-    python3 tools/scan_measure.py device split paths [--src DIR] [--out FILE.jsonl]
+    python3 tools/scan_measure.py device split paths sass [--src DIR] [--out FILE.jsonl]
     python3 tools/scan_measure.py sweep wide [--out FILE.jsonl]
 
 ``device``  device-only time of #3 (the packed session's chunk), #7 (the
@@ -11,7 +12,10 @@ and of ``texpand`` at the shapes their paths give them, on one NVIDIA card.
             P=8 tiled NASA frame, the ``parallel`` NASA frame's transfer
             matrices, pass 1 of a planned one-frame tiled decode, B·P·S = 512
             lanes, and the K=3 long stream's ``parallel`` transfer matrices)
-            and #6 (the ``fused`` decode's scan): a CUDA graph of N captured wrapper calls,
+            #6 (the ``fused`` decode's scan), #2 (the main path's walk) and
+            #5 (the pinned P=8 NASA frame's walk, 524288 lanes, and the K=3
+            long stream's planned ``tiled`` walk, P=128, 512 lanes): a CUDA
+            graph of N captured wrapper calls,
             replayed, its CUDA-event time over N (N a power of two set by the
             kernel's device time, so that the graph's own launch cost weighs
             the same on every checkout).  Beside it the back-to-back
@@ -19,20 +23,24 @@ and of ``texpand`` at the shapes their paths give them, on one NVIDIA card.
             the wrapper's host time, and that host time (the host clock over
             the N calls, before the synchronize).  Each row carries a digest
             of its outputs, so the rows of two checkouts can be held equal.
-``split``   device-only times of #3 and #7 at the stream chunk's shape and
-            of #1 at the main path's, on builds with part of a step cut out
-            (their outputs are wrong): the features' load, the branch-metric
-            dots, the survivor stores and, for the block kernel, the step's
-            barrier.  A kernel of the chain design is cut through
-            ``VITERBI_CUT``; the block kernel's body, which ran #1, #3, #4
-            and #7 in earlier checkouts, by exact text substitutions on a
-            copy of the source.
-``paths``   the paths that launch #1, #3, #4 and #7, end to end as
-            ``chip_smoke.py`` drives them: the ``fused_packed`` decode (8192 x
-            1000 info bits, K=7 hard), the NASA frame (1024 x 1024 info bits)
-            as planned, with 8 tiles pinned and through ``parallel`` (chunk
-            64), the K=3 long stream through ``parallel`` (65536 info bits,
-            chunk 512), the ``fused`` decode and the texpand-driven decode of
+``split``   device-only times of #3 and #7 at the stream chunk's shape, of #1
+            at the main path's and of #6 at the ``fused`` decode's, on builds
+            with part of a step cut out (their outputs are wrong): the
+            features' load, the branch-metric dots, the survivor stores and,
+            for the block kernel, the step's barrier.  A kernel of
+            the chain design is cut through ``VITERBI_CUT``; the block
+            kernel's body, which ran #1, #3, #4, #6 and #7 in earlier
+            checkouts, by exact text substitutions on a copy of the source.
+            #5 at both of its ``device`` shapes with its slab copies (loads)
+            cut, its stores cut, or both: the staged walk through
+            ``TRACEBACK_CUT``, the direct walk of earlier checkouts by text
+            substitutions.
+``paths``   the paths that launch #1-#7, end to end as ``chip_smoke.py``
+            drives them: the ``fused_packed`` decode (8192 x 1000 info bits,
+            K=7 hard), the NASA frame (1024 x 1024 info bits) as planned,
+            with 8 tiles pinned and through ``parallel`` (chunk 64), the K=3
+            long stream (65536 info bits) as planned (``tiled``, P=128) and
+            through ``parallel`` (chunk 512), the ``fused`` decode and the texpand-driven decode of
             ``chip_smoke.py`` on the ``fused_packed`` symbols (CUDA events,
             median of 5 after a warm-up); the packed
             64k session (128 streams x 65536 info bits, K=7 hard, chunk 64) and
@@ -47,12 +55,13 @@ and of ``texpand`` at the shapes their paths give them, on one NVIDIA card.
             folded hard weights, F=2, packed) and the ``streaming`` chunk's
             (bm tables, F=M, unpacked) at every S; both ``parallel`` re-scans
             (17408 x 64 at S=64, 129 x 512 at S=4).
-``wide``    the same for the state-0 and windowed entries (#1, #4) and
+``wide``    the same for the state-0 and windowed entries (#1, #4, #6) and
             VITERBI_WIDE_CHOICES.  Shapes at S=64: #1 at 8192 x 1006 (folded
-            hard, F=2), and #4 at the four shapes of ``device``; at every
-            other S, #1 at 524288/S lanes x 1006 steps and #4 at 4 x 524288/S
-            lanes x 129 steps (folded hard, carried seeds, windows of 128 or
-            129 steps).
+            hard, F=2), #4 at the four shapes of ``device``, #6 at 8192 x
+            1006 (bm tables, F=M=4); at every other S, #1 and #6 at
+            524288/S lanes x 1006 steps and #4 at 4 x 524288/S lanes x 129
+            steps (folded hard, carried seeds, windows of 128 or 129 steps).
+            The pick is by #1 and #4; #6's times are printed beside it.
             Both sweeps hold each choice's outputs exactly against the
             package's build, and that against the plain version, and print
             for each S the choice with the least sum over the shapes of its
@@ -60,11 +69,12 @@ and of ``texpand`` at the shapes their paths give them, on one NVIDIA card.
             (``wide``), each shape's best, and the time of the choice the
             source builds.
 
-``sass``    the SASS of the built scan library (cuobjdump): for every chain
-            and block kernel a digest of its instructions (constant-bank
-            offsets masked), so two checkouts' kernels can be held equal, and
-            for the S=64 chain kernels the step loop's instructions a
-            state-step (its body over half its shuffles) and their mix.
+``sass``    the SASS of the built scan and survivors libraries (cuobjdump):
+            for every chain, wide (packed and unpacked), block and walk
+            kernel a digest of its instructions (constant-bank offsets
+            masked), so two checkouts' kernels can be held equal, and for the
+            S=64 chain kernels the step loop's instructions a state-step (its
+            body over half its shuffles) and their mix.
 
 ``--src DIR`` measures the ``repro_torch`` under DIR (default: this
 checkout's ``src``), for ``device``, ``split``, ``paths`` and ``sass``; run them on two checkouts
@@ -104,10 +114,23 @@ RESCAN = {"rescan_nasa": (64, 17408, 64), "rescan_long": (4, 129, 512)}
 MAIN_B, MAIN_T = 8192, 1006
 #: the NASA frame: 1024 frames x 1030 steps (1024 info bits, K=7)
 NASA_B, NASA_T = 1024, 1030
+#: the K=3 long stream: 65536 info bits, one stream
+LONG_INFO = 65536
 #: lanes x states of #1's shape, the wide sweep's budget at S != 64
 WIDE_LANE_STATES = MAIN_B * 64
 CUTS = {"features": 1, "dots": 2, "stores": 4, "all": 7}
-#: the block kernel's step, cut on a copy: bit -> (text, replacement)
+#: the staged walk's cuts (TRACEBACK_CUT)
+WALK_CUTS = {"loads": 1, "stores": 2, "all": 3}
+#: the direct windowed walk's step, cut on a copy: bit -> [(text, replacement)]
+DIRECT_WALK_CUTS = {
+    1: [("\n      const uint32_t word = static_cast<uint32_t>(\n"
+         "          __ldg(packed + (static_cast<size_t>(t >> 5) * B + b) * S + s));\n",
+         "\n      const uint32_t word = static_cast<uint32_t>(s) * 0x9E3779B9u + t;\n")],
+    2: [("\n      out[t] = s >> (K - 2);\n", "\n"), ("\n      out[t] = 0;\n", "\n")],
+}
+#: the block kernel's step, cut on a copy: bit -> (text, replacement); a
+#: bit's texts that a checkout lacks are skipped (#6's block kernel stored
+#: only selects), but every bit must change the text
 BLOCK_CUTS = {
     1: [("x_next[f] = live ? row[static_cast<size_t>(t + 1) * F + f] : 0.0f;",
          "x_next[f] = 0.0f;")],
@@ -118,6 +141,8 @@ BLOCK_CUTS = {
          "            out[(static_cast<size_t>(t >> 5) * B + b) * S + s] = "
          "static_cast<int32_t>(word[k]);\n", ""),
         ("        if (live) out[(static_cast<size_t>(t) * B + b) * S + s] = "
+         "static_cast<int32_t>(take1);\n", ""),
+        ("      if (live) out[(static_cast<size_t>(t) * B + b) * S + s] = "
          "static_cast<int32_t>(take1);\n", "")],
     8: [("    __syncthreads();\n    float* tmp = pm_cur;", "    float* tmp = pm_cur;")],
 }
@@ -193,9 +218,12 @@ def _reps(fn) -> int:
 
 
 def _digest(outs) -> list:
-    """Shape and int64 sum of the 32-bit words of every output."""
+    """Shape and int64 sum of the 32-bit words of every output (a tensor or
+    a tuple of them)."""
     import torch
 
+    if isinstance(outs, torch.Tensor):
+        outs = (outs,)
     return [[list(t.shape), int(t.contiguous().view(torch.int32).to(torch.int64).sum())]
             for t in outs]
 
@@ -302,6 +330,41 @@ def _window_cases(gen) -> dict:
     return cases
 
 
+def _walk_cases(gen) -> dict:
+    """#2 at the main path's shape (the walk of #1's words from the
+    terminated frontier) and #5 at the two tiled walks the paths give it, on
+    channel symbols: the NASA frame's with 8 tiles pinned (1024 frames, p =
+    0.03: 524288 lanes x 160 steps, S=64) and the K=3 long stream's as
+    planned (65536 info bits, p = 0.01, P = default_tiles: 512 lanes x 544
+    steps, S=4), each captured from the tiled op the decode runs."""
+    import torch
+
+    from repro_torch.core import CODE_K3_STD, CODE_K7_NASA
+    from repro_torch.decode import CodecSpec
+    from repro_torch.kernels import fused_metric_plan, ops, survivors, tiling, viterbi_scan
+
+    k7 = CODE_K7_NASA
+    cases = {}
+    mfeats, mw = _hard(gen, k7, MAIN_B, MAIN_T)
+    pm, packed = viterbi_scan.viterbi_scan_packed(k7, mfeats, *mw)
+    fs = ops._frontier(pm, True)[0]
+    cases["main_walk"] = ("traceback_packed",
+                          lambda: survivors.traceback_packed(k7, packed, fs, MAIN_T))
+    for label, code, B, n_info, flip, tiles in (
+            ("pinned_walk", k7, NASA_B, 1024, 0.03, 8),
+            ("long_planned_walk", CODE_K3_STD, 1, LONG_INFO, 0.01, None)):
+        spec = CodecSpec(code=code, metric="hard")
+        rx = spec.channel(gen, spec.encode(torch.randint(0, 2, (B, n_info), generator=gen,
+                                                         device="cuda", dtype=torch.int32)),
+                          flip_prob=flip)
+        P = tiles or tiling.default_tiles(B, rx.shape[1], code.n_states)
+        cap = {}
+        ops.viterbi_decode_tiled_fused(fused_metric_plan(code, "hard"), rx, P, capture=cap)
+        cases[label] = ("traceback_packed_window",
+                        lambda a=cap["traceback"]: survivors.traceback_packed_window(*a))
+    return cases
+
+
 def device(gen, fh, src):
     import torch
 
@@ -312,6 +375,7 @@ def device(gen, fh, src):
         cases[label] = ("viterbi_scan_packed_window",
                         lambda a=args: viterbi_scan.viterbi_scan_packed_window(*a))
     cases.update(_path_only_cases(gen))
+    cases.update(_walk_cases(gen))
     for label, (name, fn) in cases.items():
         outs = fn()
         torch.cuda.synchronize()
@@ -327,7 +391,7 @@ def device(gen, fh, src):
         del outs
 
 
-def _nvcc_all(units: dict, out_dir: Path, build) -> dict:
+def _nvcc_all(units: dict, out_dir: Path, build, stem: str = "viterbi_scan") -> dict:
     """{name: ctypes library} of each {name: source text}, at most one nvcc
     a core at a time."""
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -336,9 +400,9 @@ def _nvcc_all(units: dict, out_dir: Path, build) -> dict:
     while todo or running:
         while todo and len(running) < (os.cpu_count() or 4):
             name, text = todo.pop(0)
-            unit = out_dir / f"viterbi_scan_{name}.cu"
+            unit = out_dir / f"{stem}_{name}.cu"
             unit.write_text(text)
-            so = out_dir / f"libviterbi_scan_{name}.so"
+            so = out_dir / f"lib{stem}_{name}.so"
             running.append((name, so, subprocess.Popen(
                 [build._nvcc(), *flags, "-o", str(so), str(unit)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -352,17 +416,35 @@ def _nvcc_all(units: dict, out_dir: Path, build) -> dict:
 
 @contextlib.contextmanager
 def _library(lib):
-    """The package's viterbi_scan wrappers launch from ``lib`` inside."""
-    from repro_torch.kernels import _build, viterbi_scan
+    """The package's viterbi_scan and survivors wrappers launch from ``lib``
+    inside."""
+    from repro_torch.kernels import _build, survivors, viterbi_scan
 
     load = _build.load
     _build.load = lambda name: lib
     viterbi_scan._launcher.cache_clear()
+    survivors._launcher.cache_clear()
     try:
         yield
     finally:
         _build.load = load
         viterbi_scan._launcher.cache_clear()
+        survivors._launcher.cache_clear()
+
+
+def _substitute(text: str, subs, what: str) -> str:
+    """``text`` with each (old, new) of ``subs`` replaced where ``old``
+    occurs (at most once); fails when none occurs."""
+    hits = 0
+    for old, new in subs:
+        n = text.count(old)
+        if n > 1:
+            raise SystemExit(f"split: {what}: {old[:40]!r} occurs {n} times")
+        hits += n
+        text = text.replace(old, new)
+    if not hits:
+        raise SystemExit(f"split: {what}: the kernel's text changed ({subs[0][0][:40]!r})")
+    return text
 
 
 def split(gen, fh, src):
@@ -371,7 +453,8 @@ def split(gen, fh, src):
     source = (_build.CSRC / "viterbi_scan.cu").read_text()
     # the design that runs each shape's kernel in this source
     designs = {"session": "chain" if "VITERBI_CUT" in source else "block",
-               "main": "chain" if "VITERBI_WIDE_CHOICES" in source else "block"}
+               "main": "chain" if "VITERBI_WIDE_CHOICES" in source else "block",
+               "fused": "block" if "struct ScanArgs" in source else "chain"}
     designs["streaming"] = designs["session"]
     units = {}
     if "chain" in designs.values():
@@ -383,31 +466,48 @@ def split(gen, fh, src):
         for name, bits in BLOCK_VARIANTS.items():
             text = source
             for bit, subs in BLOCK_CUTS.items():
-                for old, new in subs if bits & bit else ():
-                    if text.count(old) != 1:
-                        raise SystemExit(f"split: the block kernel's text changed ({old[:40]!r})")
-                    text = text.replace(old, new)
+                if bits & bit:
+                    text = _substitute(text, subs, f"block cut {bit}")
             units[f"block/{name}"] = text
+    walk_source = (_build.CSRC / "survivors.cu").read_text()
+    walk = "staged" if "TRACEBACK_CUT" in walk_source else "direct"
+    walk_units = {f"{walk}/as_is": walk_source}
+    for name, bits in WALK_CUTS.items():
+        if walk == "staged":
+            walk_units[f"{walk}/{name}"] = (f"#define TRACEBACK_CUT {bits}\n#include "
+                                            f"\"{_build.CSRC}/survivors.cu\"\n")
+        else:
+            text = walk_source
+            for bit, subs in DIRECT_WALK_CUTS.items():
+                if bits & bit:
+                    text = _substitute(text, subs, f"walk cut {bit}")
+            walk_units[f"{walk}/{name}"] = text
     libs = _nvcc_all({k.replace("/", "_"): v for k, v in units.items()},
                      _build.BUILD_ROOT / "measure", _build)
+    libs.update(_nvcc_all({k.replace("/", "_"): v for k, v in walk_units.items()},
+                          _build.BUILD_ROOT / "measure", _build, stem="survivors"))
     cases = _device_cases(gen)
-    for label in ("session", "streaming", "main"):
+    cases["fused"] = _path_only_cases(gen)["fused"]
+    cases.update(_walk_cases(gen))
+    shapes = [(label, designs[label], units, MAIN_T if label in ("main", "fused") else STREAM_T)
+              for label in ("session", "streaming", "main", "fused")]
+    shapes += [(label, walk, walk_units, None) for label in ("pinned_walk", "long_planned_walk")]
+    for label, design, variants, steps in shapes:
         name, fn = cases[label]
-        steps = MAIN_T if label == "main" else STREAM_T
-        design = designs[label]
         n = _reps(fn)
-        for unit in units:
+        for unit in variants:
             if not unit.startswith(design + "/"):
                 continue
             variant = unit.split("/")[1]
             with _library(libs[unit.replace("/", "_")]):
                 ms, rounds = _graph_ms(fn, n)
             row = dict(mode="split", src=str(src), design=design, shape=label, kernel=name,
-                       variant=variant, device_ms=ms, rounds=rounds,
-                       us_per_step=ms * 1e3 / steps)
+                       variant=variant, device_ms=ms, rounds=rounds)
+            if steps:
+                row["us_per_step"] = ms * 1e3 / steps
             fh.write(json.dumps(row) + "\n")
-            print(f"[split] {src} {design} {label} {name} {variant}: {ms!r} ms = "
-                  f"{ms * 1e3 / steps!r} us a step")
+            print(f"[split] {src} {design} {label} {name} {variant}: {ms!r} ms"
+                  + (f" = {ms * 1e3 / steps!r} us a step" if steps else ""))
 
 
 def paths(gen, fh, src):
@@ -458,6 +558,9 @@ def paths(gen, fh, src):
     bm_t = spec.branch_metrics(short).transpose(0, 1).contiguous()
     runs["fused"] = lambda: _eager_ms(lambda: decode(fused, backend="fused"), 1)[0]
     runs["texpand_driven"] = lambda: _eager_ms(lambda: _texpand_decode(spec.code, bm_t), 1)[0]
+    # the long stream as planned: tiled, P = default_tiles (the walk's 512 lanes)
+    runs["long_planned"] = lambda: _eager_ms(
+        lambda: decode(DecodeRequest(spec3, received=long)), 1)[0]
     for label, r, chunk in (("parallel_nasa", DecodeRequest(spec, received=nasa), 64),
                             ("parallel_long", DecodeRequest(spec3, received=long), 512)):
         runs[label] = lambda r=r, c=chunk: _eager_ms(
@@ -594,15 +697,25 @@ def sweep(gen, fh):
 
 
 def _kernel_key(name: str):
-    """A mangled scan kernel's name, the same on every checkout, or None."""
+    """A mangled scan or walk kernel's name, the same on every checkout, or
+    None."""
     m = re.search(r"chain_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EEEv", name)
     if m:
         S, G, L, P = m.groups()
         return f"chain S={S} G={G} L={L} {'packed' if P == '1' else 'unpacked'} carried"
-    m = re.search(r"wide_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EEEv", name)
+    m = re.search(r"wide_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E(?:Lb(\d)E)?EEv", name)
     if m:
-        S, G, L, W = m.groups()
+        S, G, L, W, P = m.groups()
+        if P == "0":
+            return f"chain S={S} G={G} L={L} unpacked state0"
         return f"chain S={S} G={G} L={L} packed {'window' if W == '1' else 'state0'}"
+    m = re.search(r"window_walk_kernelILi(\d+)ELi(\d+)EEEv", name)
+    if m:
+        return f"walk window staged S={m.group(1)} D={m.group(2)}"
+    for kernel, key in (("traceback_window_kernel", "walk window direct"),
+                        ("traceback_packed_kernel", "walk packed")):
+        if kernel in name:
+            return key
     m = re.search(r"scan_kernelILi(\d+)E((?:Lb\dE){3})?EEv", name)
     if m:
         flags = m.group(2) or "Lb0ELb0ELb0E"
@@ -613,10 +726,10 @@ def _kernel_key(name: str):
 def sass(fh, src):
     from repro_torch.kernels import _build
 
-    so = _build.build_all()["viterbi_scan"].path
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
-                          check=True).stdout
+    text = "".join(subprocess.run([str(tool), "-sass", str(_build.build_all()[lib].path)],
+                                  capture_output=True, text=True, check=True).stdout
+                   for lib in ("viterbi_scan", "survivors"))
     parts = re.split(r"\n\s*Function : (\S+)\n", text)
     for name, body in zip(parts[1::2], parts[2::2]):
         key = _kernel_key(name)
@@ -690,9 +803,14 @@ def _wide_candidates(S):
     return out
 
 
+#: the wide entry of each length of arguments after ``code``
+WIDE_ENTRIES = {4: "viterbi_scan_packed", 7: "viterbi_scan_packed_window", 1: "viterbi_scan"}
+
+
 def _wide_shapes(gen, S):
     """[(label, args)] at S, each the arguments after ``code`` of
-    viterbi_scan_packed (4 of them) or viterbi_scan_packed_window (7)."""
+    viterbi_scan_packed (4 of them), viterbi_scan_packed_window (7) or
+    viterbi_scan (1)."""
     import torch
 
     from repro_torch.core import ConvCode
@@ -709,6 +827,7 @@ def _wide_shapes(gen, S):
         lo = torch.zeros((Bw,), dtype=torch.int32, device="cuda")
         hi = torch.where(torch.arange(Bw, device="cuda") % 8 == 7, 129, 128).int()
         shapes.append(("window", (_seeds(gen, Bw, S), fw, *ww, lo, hi)))
+    shapes.append(("fused", (_tables(gen, code, B, MAIN_T),)))
     return code, shapes
 
 
@@ -733,8 +852,8 @@ def sweep_wide(gen, fh):
         code, shapes = _wide_shapes(gen, S)
         rows = []
         for label, args in shapes:
+            name = WIDE_ENTRIES[len(args)]
             window = len(args) == 7
-            name = "viterbi_scan_packed_window" if window else "viterbi_scan_packed"
             fn = getattr(vs, name)
             want = fn(code, *args)
             plain = getattr(vs, name + "_plain")(code, *args)
@@ -743,8 +862,12 @@ def sweep_wide(gen, fh):
                 raise SystemExit(f"S={S} {label}: the package's kernel differs from plain")
             del plain
             own = _graph_ms(lambda: fn(code, *args), 5)[0]
-            pm0, (data, b0, b1, rb), win = ((args[0], args[1:5], args[5:]) if window
-                                            else (None, args, ()))
+            if name == "viterbi_scan":
+                pm0, (data, (b0, b1, rb)), win = None, (args[0],
+                                                        vs.cached_table_weights(code, "cuda")), ()
+            else:
+                pm0, (data, b0, b1, rb), win = ((args[0], args[1:5], args[5:]) if window
+                                                else (None, args, ()))
             B, T, F = data.shape
             table_t, maps = vs.row_operands(b0, b1, rb)
             final = torch.empty_like(want[0])
@@ -770,7 +893,7 @@ def sweep_wide(gen, fh):
                 ms = _graph_ms(launch, _reps(launch))[0]
                 row = dict(mode="wide", S=S, shape=label, B=B, T=T, group=cfg[0], lanes=cfg[1],
                            tile=cfg[2], ms=ms, us_per_step=ms * 1e3 / T, built_ms=own,
-                           pick_shape=True)
+                           pick_shape=name != "viterbi_scan")
                 rows.append(row)
                 fh.write(json.dumps(row) + "\n")
             del want, final, surv
