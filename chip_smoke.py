@@ -58,10 +58,14 @@ Phases (any failure raises and exits non-zero):
                carried metrics holding 1e30, the state-0, windowed and
                unpacked scans at every S of their launch tables (2 to 4096),
                the windowed walk at every S of its table (2 to 128) and at
-               256 and 512, the RSC codes
+               256 and 512, the full walk at every S (staged to 128, direct
+               past it; odd, 2 mod 4 and 0 mod 4 row lengths; words off
+               16-byte alignment), the RSC codes
                of every S, terminated and open, and (min,+) products at both
                inits with 1e30, 2e30 and NaN entries, K = 1, strided batches
-               and an empty batch;
+               and an empty batch, the square kernel at every S from 2 to 128
+               (contiguous, strided, stride-0 and misaligned batches, each
+               printed with the kernel that takes it);
  10. timing  — CUDA-event times of each kernel and each plain version at the
                shape its path gives it (kernels: median of 5 rounds, every
                round printed), each held against its plain output exactly,
@@ -69,8 +73,12 @@ Phases (any failure raises and exits non-zero):
                device-only time (a CUDA graph of the same launches,
                replayed), #4 at the ``parallel`` transfer matrices' shape
                beside the pinned tiled passes, #5 at the long stream's
-               planned ``tiled`` walk beside the pinned one, and #7 at both
-               ``parallel`` re-scan shapes; end-to-end times of every path.
+               planned ``tiled`` walk beside the pinned one, #7 at both
+               ``parallel`` re-scan shapes, #2 at its four path shapes (the
+               short blocks, the planned and the ``parallel`` NASA decodes'
+               walks, a session push's ring) and #11 at each of the seven
+               combines of the ``parallel`` NASA decode, all on the operands
+               their decodes hand them; end-to-end times of every path.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -80,6 +88,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -109,6 +118,31 @@ TB_SRC = "src/repro_torch/csrc/survivors.cu"
 
 def _fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+@contextlib.contextmanager
+def _recording(module, name: str):
+    """Inside, ``module.name`` appends (arguments, result, counts) of every
+    call to the list it yields, ``counts`` being the kernel launches and
+    plain-version calls that call made (two Counters); the call itself goes
+    on as before."""
+    from collections import Counter
+
+    from repro_torch.kernels import launch_counts, plain_counts
+
+    calls = []
+    orig = getattr(module, name)
+
+    def record(*args):
+        launched, plain = Counter(launch_counts), Counter(plain_counts)
+        out = orig(*args)
+        calls.append((args, out, (launch_counts - launched, plain_counts - plain)))
+        return out
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
 
 
 def _event_ms(fn, reps: int, rounds: int = 1, warmup: int = 2) -> list:
@@ -411,7 +445,8 @@ def phase_parity_wide(gen):
     launch a call.  And the windowed walk (#5) at every S of its table and
     two past it (staged to 128, direct beyond): random words, windows beside
     word edges and empty ones, final states out of the row, one launch a
-    call.  No call runs a plain version."""
+    call; the full walk (#2) at every S the same way.  No call runs a plain
+    version."""
     import torch
 
     from repro_torch.core import ConvCode
@@ -463,10 +498,29 @@ def phase_parity_wide(gen):
                                                                          whi))
             _same(f"traceback_packed_window S={S}", walk,
                   survivors.traceback_packed_window_plain(code, words, fs, lo, whi))
+        # the full walk (#2): staged to S = 128, direct past it; rows of T
+        # ints with T 2 mod 4 (or odd past S = 256), odd and 0 mod 4
+        for Tw in (T, 33, 64):
+            words = torch.randint(-2 ** 31, 2 ** 31 - 1, (-(-Tw // 32), B, S), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            fs = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+            bits = _one_launch(f"traceback_packed S={S} T={Tw}", "traceback_packed",
+                               lambda: survivors.traceback_packed(code, words, fs, Tw))
+            _same(f"traceback_packed S={S} T={Tw}", (bits,),
+                  (survivors.traceback_packed_plain(code, words, fs, Tw),))
+        # words one int off 16-byte alignment: the direct walk at every S
+        buf = torch.randint(-2 ** 31, 2 ** 31 - 1, (words.numel() + 1,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        words = buf[1:].view(words.shape)
+        bits = _one_launch(f"traceback_packed S={S} misaligned", "traceback_packed",
+                           lambda: survivors.traceback_packed(code, words, fs, 64))
+        _same(f"traceback_packed S={S} misaligned", (bits,),
+              (survivors.traceback_packed_plain(code, words, fs, 64),))
         print(f"[parity] S={S} B={B} T={T}: viterbi_scan_packed, viterbi_scan_packed_window "
               "(soft with NaN/inf/1e30, hard, table; windows beside word edges), viterbi_scan "
               "(hard and soft tables)" + (", traceback_packed_window" if S <= 512 else "")
-              + ": exact")
+              + f", traceback_packed (T = {T}, 33, 64; words one int off 16 bytes): exact")
 
 
 def _touched_words(code, bits: "torch.Tensor") -> int:
@@ -487,9 +541,9 @@ def _touched_words(code, bits: "torch.Tensor") -> int:
     return int(torch.unique(key).numel())
 
 
-def _row(name, src, ref, ms, plain_ms, nbytes, n_ops):
+def _row(name, src, ref, ms, plain_ms, nbytes, n_ops, ops_per_s=FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     row = dict(name=name, route="cuda", source=src, replaces=ref, ms=ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                library_ms=None, bytes=nbytes, operations=n_ops)
@@ -550,6 +604,8 @@ def phase_timing(hard_spec, rx, feats, weights):
              tb_plain_ms, tb_bytes, tb_ops),
     ]
     _device_only(rows[0], lambda: viterbi_scan.viterbi_scan_packed(code, feats, b0, b1, rb), 20)
+    _device_only(rows[1], lambda: survivors.traceback_packed(code, packed, fs, T), 20)
+    rows[1].update(shape=f"{B} lanes x {T} steps")
     return rows, dict(decode_ms=decode_ms, bits_per_s=B * N_INFO / (decode_ms / 1e3),
                       peak_bytes=peak)
 
@@ -905,14 +961,6 @@ def phase_timing_seeded(tiled, stream):
     for label, fn in parts.items():
         breakdown[label] = statistics.median(_event_ms(fn, 1, rounds=3, warmup=1))
     print(f"[timing] tiled P={TILES} torch parts (ms, median of 3): {breakdown}")
-    # the session's second kernel at its shape: the traceback over the
-    # 128-step packed ring of 128 streams
-    ring = torch.zeros((4, STREAM_B, S), dtype=torch.int32, device="cuda")
-    best = torch.zeros((STREAM_B,), dtype=torch.int32, device="cuda")
-    tb_ms = statistics.median(_event_ms(
-        lambda: survivors.traceback_packed(code, ring, best, 128), 50, rounds=5))
-    print(f"[timing] traceback_packed at the session shape (128 streams x 128 steps): "
-          f"{tb_ms!r} ms")
 
     # --- end to end: the tiled decode, pinned and planned
     from repro_torch.decode import DecodeContext, DecodeRequest, decode
@@ -929,7 +977,6 @@ def phase_timing_seeded(tiled, stream):
               f"median {ms!r} ms, {e2e[label]['bits_per_s']!r} decoded bits/s, peak device "
               f"memory {e2e[label]['peak_bytes']} bytes above the live tensors")
     e2e["pinned_torch_parts_ms"] = breakdown
-    e2e["session_traceback_ms"] = tb_ms
     return rows, e2e
 
 
@@ -1520,10 +1567,15 @@ def _same_nan(label, got, want) -> float:
     return float((got[~nan].double() - want[~nan].double()).abs().max())
 
 
+#: the square (min,+) kernel's S (csrc/minplus.cu: I = K = J = S)
+SQUARE_STATES = (2, 4, 8, 16, 32, 64, 128)
+
+
 def phase_parity_minplus(gen):
     """The (min,+) product against its plain version at both inits, with
     unreachable (1e30, 2e30) and NaN entries, K = 1, strided batch views and
-    an empty batch."""
+    an empty batch; the square kernel at every S it takes.  Every call one
+    launch and no plain call."""
     import torch
 
     from repro_torch.kernels import launch_counts, minplus
@@ -1549,7 +1601,36 @@ def phase_parity_minplus(gen):
                       minplus.minplus_matmul_plain(a4[:, 0:-1:2].contiguous(),
                                                    b4[:, 1::2].contiguous(), init))
         print(f"[parity] minplus N={N} I={I} K={K} J={J} (1e30, 2e30, NaN; init 1e30 and inf; "
-              "strided batch): exact")
+              f"strided batch; {minplus.kernel_variant(a, b)}): exact")
+    # the square kernel at every S it takes: N off the products a block takes
+    # at once; contiguous, the associative scan's strided slices and a
+    # stride-0 batch (square), operands one element off 16 bytes (general)
+    for S in SQUARE_STATES:
+        per_block = 256 // (min(S, 64) // min(S, 4)) ** 2
+        N = 2 * per_block + 3
+        a = torch.randn((2 * N + 1, S, S), generator=gen, device="cuda") * 5
+        b = torch.randn((2 * N + 1, S, S), generator=gen, device="cuda") * 5
+        for x in (a, b):
+            pick = torch.rand(x.shape, generator=gen, device="cuda")
+            for i, v in enumerate((big, 2 * big, math.inf, -math.inf, float("nan"))):
+                x[(pick >= 0.05 * i) & (pick < 0.05 * (i + 1))] = v
+        flat = torch.empty((N * S * S + 1,), device="cuda")
+        flat[1:] = a[:N].reshape(-1)
+        a4, b4 = a.reshape(1, 2 * N + 1, S, S), b.reshape(1, 2 * N + 1, S, S)
+        cases = (("contiguous", a[:N], b[:N], f"square S={S}"),
+                 ("strided", a4[:, 0:-1:2], b4[:, 1::2], f"square S={S}"),
+                 ("stride 0", a[:1].expand(N, S, S), b[N:2 * N], f"square S={S}"),
+                 ("misaligned", flat[1:].view(N, S, S), b[:N], "general"))
+        for label, x, y, want in cases:
+            if minplus.kernel_variant(x, y) != want:
+                _fail(f"minplus S={S} {label}: {minplus.kernel_variant(x, y)}, not {want}")
+            for init in (big, math.inf):
+                got = _one_launch(f"minplus S={S} {label} init={init}", "minplus_matmul",
+                                  lambda: minplus.minplus_matmul(x, y, init))
+                _same_nan(f"minplus S={S} {label} init={init}", got,
+                          minplus.minplus_matmul_plain(x.contiguous(), y.contiguous(), init))
+        print(f"[parity] minplus square S={S} N={N} (1e30, 2e30, +-inf, NaN; init 1e30 and inf): "
+              + ", ".join(f"{label} ({want})" for label, _, _, want in cases) + ": exact")
     before = launch_counts["minplus_matmul"]
     empty = minplus.minplus_matmul(torch.zeros((0, 4, 4), device="cuda"),
                                    torch.zeros((0, 4, 4), device="cuda"), math.inf)
@@ -1558,40 +1639,99 @@ def phase_parity_minplus(gen):
     print("[parity] minplus N=0: empty product, no launch")
 
 
+def _replayer(calls):
+    """A combine that hands back, in order, the results ``calls`` recorded
+    (so an associative scan runs its slices, cats and interleaves alone)."""
+    outs = iter([out for _, out, _ in calls])
+    return lambda a, b: next(outs)
+
+
+def _sm_instructions_per_s() -> tuple:
+    """(fp32 instructions a second the card can issue: 128 a clock on each
+    SM at the SM clock's maximum, that clock in MHz, the SMs)."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 128 * sms * mhz * 1e6, mhz, sms
+
+
 def phase_timing_parallel(tiled, parallel):
-    """Row 11 at the widest combine launch of the NASA-frame parallel decode,
-    row 7 at both re-scan shapes (returned as its ``shapes``), and the
-    parallel decode's end-to-end times."""
+    """Row 11 at each of the seven combine launches of the NASA-frame
+    parallel decode (the widest is the row's own numbers), row 7 at both
+    re-scan shapes (returned as its ``shapes``), and the parallel decode's
+    end-to-end times and steps.  Also returns the walk's operands and its
+    launches in the captured decode."""
     import torch
 
     from repro_torch.decode import DecodeContext, DecodeRequest, decode
-    from repro_torch.kernels import minplus, ops
+    from repro_torch.kernels import launch_counts, minplus, ops, plain_counts, reset_counts
 
     hard = tiled["hard"]
     spec = hard["spec"]
     bm = spec.branch_metrics(hard["rx"])
     cap = {}
-    bits, metric = ops.viterbi_decode_parallel_op(spec.code, bm, PARALLEL_CHUNK, True, capture=cap)
+    torch.cuda.synchronize()
+    reset_counts()
+    with _recording(ops, "_minplus_unclamped") as combines:
+        bits, metric = ops.viterbi_decode_parallel_op(spec.code, bm, PARALLEL_CHUNK, True,
+                                                      capture=cap)
+    torch.cuda.synchronize()
+    decode_launches, decode_plain = dict(launch_counts), dict(plain_counts)
     del bits, metric
+    # each combine's own launches: together, every (min,+) launch of the
+    # decode, and no plain version anywhere in it
+    per_combine = [counts[0]["minplus_matmul"] for _, _, counts in combines]
+    if any(decode_plain.values()) or any(counts[1] for _, _, counts in combines):
+        _fail(f"the captured parallel decode ran plain versions: {decode_plain}")
+    if sum(per_combine) != decode_launches.get("minplus_matmul", 0):
+        _fail(f"the combines' minplus_matmul launches {per_combine} do not sum to the "
+              f"decode's {decode_launches.get('minplus_matmul', 0)}")
+    walk_launches = decode_launches.get("traceback_packed", 0)
     mats = cap["mats"]  # (B, nc, S, S)
-    # the first pairwise combine of the associative scan: chunk 2m with 2m+1
-    a, b = mats[:, 0:-1:2], mats[:, 1::2]
-    Bm, n1, I, K = a.shape
-    J = b.shape[-1]
-    N = Bm * n1
-    r, pms, k, p = _timed(lambda: minplus.minplus_matmul(a, b, math.inf),
-                          lambda: minplus.minplus_matmul_plain(a, b, math.inf), 20)
-    err = _same_nan("minplus at the widest combine", k, p)
-    del k, p
-    print(f"[timing] rounds (ms): minplus_matmul {r}")
-    # bytes: each operand matrix read once, each product written once;
-    # operations: one add and one min per (n, i, j, k)
-    row = _row("minplus_matmul", MINPLUS_SRC, "src/repro/kernels/minplus.py:59",
-               statistics.median(r), pms, 4 * N * (I * K + K * J + I * J), 2 * N * I * J * K)
-    row.update(max_abs_err=err, shape=f"{N} products of {I}x{K} by {K}x{J}")
-    print(f"[timing] minplus_matmul as two fp32 instructions a candidate at 33.5e12/s: "
-          f"{N * I * J * K * 2 / 33.5e12 * 1e3!r} ms")
-    del a, b
+    # the combines that launch (an empty one returns without a launch), in
+    # the order of the associative scan, each with its launches in the
+    # decode; the widest is chunk 2m with 2m+1
+    launched = [(args, n) for (args, _, _), n in zip(combines, per_combine)
+                if args[0].shape[0] * args[0].shape[1]]
+    if any(n < 1 for _, n in launched):
+        _fail(f"a non-empty combine launched no minplus_matmul: {per_combine}")
+    ins_per_s, mhz, sms = _sm_instructions_per_s()
+    print(f"[timing] minplus_matmul bound: bytes over {HBM_BYTES_PER_S!r} B/s, two fp32 "
+          f"instructions a candidate over 128 x {sms} SMs x {mhz!r} MHz = {ins_per_s!r}/s")
+    shapes = {}
+    for i, ((a, b), n_launch) in enumerate(launched):
+        Bm, n1, I, K = a.shape
+        J = b.shape[-1]
+        N = Bm * n1
+        r, pms, k, p = _timed(lambda: minplus.minplus_matmul(a, b, math.inf),
+                              lambda: minplus.minplus_matmul_plain(a, b, math.inf), 20)
+        err = _same_nan(f"minplus at combine {i}", k, p)
+        del k, p
+        variant = minplus.kernel_variant(a, b)
+        print(f"[timing] rounds (ms): minplus_matmul combine {i} ({N} products, {variant}) {r}")
+        # bytes: each operand matrix read once, each product written once;
+        # operations: one add and one min per (n, i, j, k), each an issued
+        # fp32 instruction
+        srow = _row(f"minplus_matmul (combine {i})", MINPLUS_SRC, "", statistics.median(r), pms,
+                    4 * N * (I * K + K * J + I * J), 2 * N * I * J * K, ops_per_s=ins_per_s)
+        srow.update(max_abs_err=err, launches=n_launch, variant=variant,
+                    shape=f"{N} products of {I}x{K} by {K}x{J}")
+        _device_only(srow, lambda: minplus.minplus_matmul(a, b, math.inf), 20)
+        shapes[f"combine_{i}"] = srow
+    total = {k: sum(s[k] for s in shapes.values())
+             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bytes", "operations")}
+    total.update(launches=decode_launches.get("minplus_matmul", 0),
+                 max_abs_err=max(s["max_abs_err"] for s in shapes.values()),
+                 shape=f"the {len(shapes)} combines of one decode")
+    print(f"[timing] minplus_matmul, the {len(shapes)} combines of one NASA parallel decode: "
+          f"back to back {total['ms']!r} ms, device-only {total['device_ms']!r} ms, bound "
+          f"{total['bound_ms']!r} ms")
+    row = dict(shapes["combine_0"], name="minplus_matmul",
+               replaces="src/repro/kernels/minplus.py:59", clock_mhz=mhz, sms=sms)
+    row["shapes"] = dict(shapes, nasa_decode=total)
     # the decode's steps one by one, on the operands it gave each of them
     from repro_torch.core.viterbi import _associative_scan
     from repro_torch.kernels import survivors, viterbi_scan
@@ -1601,6 +1741,10 @@ def phase_timing_parallel(tiled, parallel):
             lambda: viterbi_scan.viterbi_scan_packed_window(*cap["pass1"]),
         "associative scan (minplus_matmul)":
             lambda: _associative_scan(ops._minplus_unclamped, mats, axis=1),
+        "associative scan: its minplus_matmul launches":
+            lambda: [minplus.minplus_matmul(a, b, math.inf) for (a, b), _ in launched],
+        "associative scan: its torch slices, cat and interleave":
+            lambda: _associative_scan(_replayer(combines), mats, axis=1),
         "re-scan (viterbi_scan_carry)": lambda: viterbi_scan.viterbi_scan_carry(*cap["rescan"]),
         "pack selects (torch)": lambda: survivors.pack_survivors(cap["bps"]),
         "walk (traceback_packed)": lambda: survivors.traceback_packed(*cap["walk"]),
@@ -1651,7 +1795,8 @@ def phase_timing_parallel(tiled, parallel):
         rescan[label] = {k: row7[k] for k in ("ms", "rounds", "device_ms", "device_rounds",
                                               "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                                               "bytes", "operations", "B", "T", "S")}
-    del cap, cap_long, mats, steps
+    walk = cap["walk"], walk_launches
+    del cap, cap_long, mats, steps, combines, launched
 
     e2e = {"nasa_hard_steps_ms": breakdown}
     for label, rq, chunk, n_bits in (
@@ -1670,7 +1815,72 @@ def phase_timing_parallel(tiled, parallel):
         print(f"[timing] parallel decode() {label} chunk={chunk}: rounds {rounds} median "
               f"{ms!r} ms, {n_bits / (ms / 1e3)!r} decoded bits/s, peak device memory {peak} "
               "bytes above the live tensors")
-    return [row], e2e, rescan, wrow
+    return [row], e2e, rescan, wrow, walk
+
+
+def _walk_shape(label, args, launches, reps):
+    """Row 2 at one path shape, on the operands its decode handed the
+    wrapper: back to back and device-only, against its plain version, with
+    its bound (the touched words, the start states and the bits)."""
+    from repro_torch.kernels import survivors
+
+    code, packed, fs, T = args
+    W, B, S = packed.shape
+    if launches < 1:
+        _fail(f"traceback_packed was not launched by the {label} decode")
+    r, pms, k, p = _timed(lambda: survivors.traceback_packed(*args),
+                          lambda: survivors.traceback_packed_plain(*args), reps)
+    err = _same(f"traceback_packed, {label}", (k,), (p,))
+    print(f"[timing] rounds (ms): traceback_packed {label} ({B} lanes x {T} steps) {r}")
+    row = _row(f"traceback_packed ({label})", TB_SRC, "", statistics.median(r), pms,
+               4 * (_touched_words(code, k) + B + B * T), 6 * B * T)
+    row.update(max_abs_err=err, launches=launches, shape=f"{B} lanes x {T} steps")
+    _device_only(row, lambda: survivors.traceback_packed(*args), reps)
+    return row
+
+
+def phase_timing_walks(tiled, stream, parallel_walk):
+    """Row 2 at its path shapes besides the short blocks': the walk of the
+    planned NASA decode, of the ``parallel`` NASA decode (``parallel_walk``:
+    its operands and its launches in that decode) and of a packed session's
+    push (its 128 x 128 ring, from a session of 128 streams over the 64k
+    stream's first 2048 steps), each captured from the decode."""
+    import torch
+
+    from repro_torch.decode import DecodeRequest, decode
+    from repro_torch.kernels import launch_counts, plain_counts, reset_counts, survivors
+    from repro_torch.stream import StreamSession
+
+    hard = tiled["hard"]
+    torch.cuda.synchronize()
+    reset_counts()
+    with _recording(survivors, "traceback_packed") as calls:
+        decode(DecodeRequest(hard["spec"], received=hard["rx"]))
+    torch.cuda.synchronize()
+    planned_launches = launch_counts["traceback_packed"]
+    if len(calls) != 1 or any(plain_counts.values()):
+        _fail(f"the planned NASA decode walked {len(calls)} times, not once, or ran plain "
+              f"versions {dict(plain_counts)}")
+    with _recording(survivors, "traceback_packed") as pushes:
+        StreamSession(stream["spec"], batch=STREAM_B, chunk=STREAM_CHUNK, backend="fused_packed",
+                      inputs="received").decode_all(stream["rx"][:, :2048])
+    ring = [args for args, _, _ in pushes if args[1].shape[0] == 4]
+    if not ring:
+        _fail("no session push walked a 4-word ring")
+    walk_args, walk_launches = parallel_walk
+    return {"nasa_planned": _walk_shape("NASA planned", calls[0][0], planned_launches, 20),
+            "parallel_nasa": _walk_shape("parallel NASA", walk_args, walk_launches, 20),
+            "session": _walk_shape("session push", ring[-1],
+                                   stream["launches_session"].get("traceback_packed", 0), 50)}
+
+
+#: what a kernel row keeps of each of its further shapes
+SHAPE_KEYS = ("ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+              "bytes", "operations", "shape", "variant")
+
+
+def _summary(x) -> dict:
+    return {k: x[k] for k in SHAPE_KEYS if k in x}
 
 
 def main(argv=None) -> int:
@@ -1692,20 +1902,28 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     wall0 = time.perf_counter()
+
+    def mark(label):  # the wall time each phase ends at, to see where a run's time goes
+        print(f"[wall] {label}: {time.perf_counter() - wall0!r} s")
+
     smi = phase_build()
+    mark("build")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     launches, inputs, hard_spec, results = phase_decode(gen)
     tiled = phase_tiled(gen)
     stream = phase_stream(gen)
+    mark("decode, tiled, stream")
     fused_launches = phase_fused(inputs, results)
     texpand_launches, texpand_tables = phase_texpand(inputs, results)
     siso_launches, siso = phase_siso(gen)
     parallel_launches, parallel = phase_parallel(gen, tiled)
+    mark("fused, texpand, siso, parallel")
     feats, weights, errs = phase_parity(gen, inputs["hard"], hard_spec)
     phase_parity_seeded(gen)
     phase_parity_wide(gen)
     phase_parity_siso(gen)
     phase_parity_minplus(gen)
+    mark("parity")
     rows, e2e = phase_timing(hard_spec, inputs["hard"][2], feats, weights)
     for row, err in zip(rows, errs):
         row["launches"] = launches.get(row["name"], 0)
@@ -1719,30 +1937,35 @@ def main(argv=None) -> int:
         "traceback_packed_window": tiled["hard"]["launches_pinned"],
     }
     siso_rows, siso_e2e = phase_timing_siso(texpand_tables, siso)
-    parallel_rows, parallel_e2e, rescan, window_parallel = phase_timing_parallel(tiled, parallel)
+    parallel_rows, parallel_e2e, rescan, window_parallel, walk = phase_timing_parallel(tiled,
+                                                                                        parallel)
     walk_long = phase_timing_walk_long(parallel)
+    walks = phase_timing_walks(tiled, stream, walk)
+    mark("timing")
+    # row 2: the short blocks' walk is the row's own numbers; the other
+    # paths' walks its further shapes
+    rows[1]["shapes"] = {label: _summary(x) for label, x in (("short_blocks", rows[1]),
+                                                             *walks.items())}
     path_launches.update(viterbi_scan=fused_launches, texpand=texpand_launches,
                          bcjr_alpha_scan=siso_launches, bcjr_beta_llr_scan=siso_launches,
                          minplus_matmul=parallel_launches)
     for row in seeded_rows + siso_rows + parallel_rows:
         row["launches"] = path_launches[row["name"]].get(row["name"], 0)
+        if row["name"] == "minplus_matmul":
+            row["shapes"] = {label: _summary(x) for label, x in row["shapes"].items()}
         if row["name"] == "viterbi_scan_carry":
             row["shapes"] = rescan
         if row["name"] == "traceback_packed_window":
             # the pinned NASA walk is the row's own numbers; the long stream's
             # planned walk its second shape, with its own bound
-            row["shapes"] = {label: {k: x[k] for k in (
-                "ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                "bytes", "operations", "shape") if k in x} for label, x in (
+            row["shapes"] = {label: _summary(x) for label, x in (
                 ("tiled_p8", row), ("long_stream_planned", walk_long))}
         if row["name"] == "viterbi_scan_packed_window":
             # the pinned tiled passes are the row's own numbers; the parallel
             # decode's transfer matrices are its second shape
             window_parallel["launches"] = parallel_launches.get(row["name"], 0)
             row["shapes"]["parallel_nasa"] = window_parallel
-            row["shapes"] = {label: {k: x[k] for k in (
-                "ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                "bytes", "operations") if k in x} for label, x in row["shapes"].items()}
+            row["shapes"] = {label: _summary(x) for label, x in row["shapes"].items()}
     rows += seeded_rows + siso_rows + parallel_rows
     e2e = {"decode_short": e2e, "tiled_nasa_frame": tiled_e2e, "stream_64k": stream["e2e"],
            "fused_texpand_siso": siso_e2e, "parallel": parallel_e2e,

@@ -3,7 +3,10 @@ PyTorch version — and the (min,+) state-map algebra of the tiled seams.
 
 ``minplus_matmul(a, b, init)`` computes ``C[n,i,j] = min(init, min_k
 a[n,i,k] + b[n,k,j])`` in float32.  On a CUDA tensor it launches
-``csrc/minplus.cu`` (see its header for the design); on a CPU tensor it runs
+``csrc/minplus.cu`` (see its header for the design: a square kernel for
+I = K = J = S a power of two from 2 to 128 on 16-byte aligned matrices, the
+general kernel for every other product; :func:`kernel_variant` says which
+one takes given operands); on a CPU tensor it runs
 :func:`minplus_matmul_plain`, the Pallas body ``_minplus_kernel`` of the
 reference step for step (an accumulator from ``init``, min-reduced over
 k-blocks).  Each is counted under ``"minplus_matmul"`` in ``launch_counts`` /
@@ -58,14 +61,22 @@ def minplus_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return acc
 
 
+#: the arguments every entry of csrc/minplus.cu starts with: a, b, c, N0,
+#: N1, the four batch strides, I, K, J
+_OPERAND_TYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 4
+                  + [ctypes.c_int] * 3)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = _build.load("minplus")
     fn = lib.minplus_matmul_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = _OPERAND_TYPES + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib, fn
+    variant = lib.minplus_matmul_variant
+    variant.argtypes = _OPERAND_TYPES
+    variant.restype = ctypes.c_int
+    return lib, fn, variant
 
 
 def _batch_strides(what: str, t: torch.Tensor) -> Tuple[int, int]:
@@ -76,6 +87,37 @@ def _batch_strides(what: str, t: torch.Tensor) -> Tuple[int, int]:
         raise ValueError(f"{NAME}: {what} must hold row-major matrices with contiguous rows, "
                          f"got strides {t.stride()}")
     return t.stride(0), t.stride(1)
+
+
+def _check(a: torch.Tensor, b: torch.Tensor):
+    """(batch, I, K, J, a4, b4, a's strides, b's strides) of a valid
+    product; raises on any other."""
+    if a.dim() not in (3, 4) or b.dim() != a.dim():
+        raise ValueError(f"{NAME}: a and b must both be 3-D or 4-D, got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    batch, (I, K), J = a.shape[:-2], a.shape[-2:], b.shape[-1]
+    if b.shape[:-2] != batch or b.shape[-2] != K or min(I, K, J) < 1:
+        raise ValueError(f"{NAME}: shapes {tuple(a.shape)} x {tuple(b.shape)} do not make a "
+                         "batched (I, K) x (K, J) product with I, K, J >= 1")
+    for what, t in (("a", a), ("b", b)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{NAME}: {what} must be torch.float32, got {t.dtype}")
+    a4, b4 = (a, b) if a.dim() == 4 else (a[:, None], b[:, None])
+    return batch, I, K, J, a4, b4, _batch_strides("a", a4), _batch_strides("b", b4)
+
+
+def kernel_variant(a: torch.Tensor, b: torch.Tensor) -> str:
+    """Which kernel :func:`minplus_matmul` launches on these CUDA operands:
+    ``"square S=<S>"`` or ``"general"`` — decided, as the launch decides it,
+    from the shape and the alignment (``minplus_matmul_variant`` of
+    ``csrc/minplus.cu``).  Launches nothing."""
+    _, I, K, J, a4, b4, sa, sb = _check(a, b)
+    if not on_card(NAME, (a, b)):
+        raise ValueError(f"{NAME}: kernel_variant takes CUDA operands")
+    # the output is a fresh allocation, so aligned: 0 stands in for it
+    _, _, variant = _launcher()
+    S = variant(a4.data_ptr(), b4.data_ptr(), 0, *a4.shape[:2], *sa, *sb, I, K, J)
+    return f"square S={S}" if S else "general"
 
 
 def minplus_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -93,18 +135,7 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor,
       (N, I, J) or (N0, N1, I, J) float32, contiguous.  An empty batch
       returns an empty tensor without a launch.
     """
-    if a.dim() not in (3, 4) or b.dim() != a.dim():
-        raise ValueError(f"{NAME}: a and b must both be 3-D or 4-D, got {tuple(a.shape)} "
-                         f"and {tuple(b.shape)}")
-    batch, (I, K), J = a.shape[:-2], a.shape[-2:], b.shape[-1]
-    if b.shape[:-2] != batch or b.shape[-2] != K or min(I, K, J) < 1:
-        raise ValueError(f"{NAME}: shapes {tuple(a.shape)} x {tuple(b.shape)} do not make a "
-                         "batched (I, K) x (K, J) product with I, K, J >= 1")
-    for what, t in (("a", a), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{NAME}: {what} must be torch.float32, got {t.dtype}")
-    a4, b4 = (a, b) if a.dim() == 4 else (a[:, None], b[:, None])
-    sa, sb = _batch_strides("a", a4), _batch_strides("b", b4)
+    batch, I, K, J, a4, b4, sa, sb = _check(a, b)
     card = on_card(NAME, (a, b))
     if batch.numel() == 0:
         return torch.empty(batch + (I, J), dtype=torch.float32, device=a.device)
@@ -113,7 +144,7 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor,
         return minplus_matmul_plain(a, b, init)
     N0, N1 = a4.shape[:2]
     out = torch.empty(batch + (I, J), dtype=torch.float32, device=a.device)
-    lib, fn = _launcher()
+    lib, fn, _ = _launcher()
     err = fn(a4.data_ptr(), b4.data_ptr(), out.data_ptr(), N0, N1, *sa, *sb, I, K, J,
              float(init), torch.cuda.current_stream(a.device).cuda_stream)
     _build.raise_on_error(lib, "minplus_error_string", NAME, err)

@@ -394,6 +394,58 @@ def test_staged_windowed_traceback_matches_plain_on_card(card, K, polys):
             assert torch.equal(entry, entry_p), (S, B, W)
 
 
+#: lanes (B) and steps (T) of the full walk: one lane, on and off a warp,
+#: about a thousand and the short-block path's 8192; T on and off a word
+#: (odd, 2 mod 4 and 0 mod 4 row strides), the short blocks' 1006 and the
+#: NASA frame's 1030
+FULL_WALK_LANES = (1, 31, 33, 1000, 8192)
+FULL_WALK_STEPS = (1, 31, 32, 33, 1006, 1030)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,polys", CHAIN_CODES, ids=[f"S{2 ** (k - 1)}" for k, _ in CHAIN_CODES])
+def test_full_traceback_matches_plain_on_card(card, K, polys):
+    """The full walk (#2) against its plain version at one S: the staged walk
+    (S <= 128) or the direct one past it; every B of FULL_WALK_LANES with
+    every T of FULL_WALK_STEPS, except the pairs whose words pass 2^28 ints
+    (B = 8192 at T > 33 from S = 1024); random words, bit 31 included; final
+    states of every value, out-of-row ones among them (masked by & (S-1));
+    and words one int off 16-byte alignment.  Bits exact, one launch a call,
+    no plain call."""
+    code = ConvCode(K, polys)
+    S = code.n_states
+    gen = torch.Generator(device=card).manual_seed(K + 1900)
+    reset_counts()
+    calls = 0
+    for B in FULL_WALK_LANES:
+        for T in FULL_WALK_STEPS:
+            W = -(-T // 32)
+            if W * B * S > 2 ** 28:
+                continue
+            words = torch.randint(-2 ** 31, 2 ** 31 - 1, (W, B, S), generator=gen, device=card,
+                                  dtype=torch.int32)
+            fs = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=gen, device=card,
+                               dtype=torch.int32)
+            n = min(B, S)
+            fs[:n] = torch.arange(n, device=card, dtype=torch.int32)
+            bits = survivors.traceback_packed(code, words, fs, T)
+            torch.cuda.synchronize()
+            calls += 1
+            assert launch_counts["traceback_packed"] == calls and not plain_counts
+            assert torch.equal(bits, survivors.traceback_packed_plain(code, words, fs, T)), (B, T)
+    # words one int off 16 bytes (a view into a larger buffer) take the direct walk
+    B, T = 33, 70
+    buf = torch.randint(-2 ** 31, 2 ** 31 - 1, (3 * B * S + 1,), generator=gen, device=card,
+                        dtype=torch.int32)
+    words = buf[1:].view(3, B, S)
+    fs = torch.randint(0, S, (B,), generator=gen, device=card, dtype=torch.int32)
+    bits = survivors.traceback_packed(code, words, fs, T)
+    torch.cuda.synchronize()
+    assert launch_counts["traceback_packed"] == calls + 1 and not plain_counts
+    assert torch.equal(bits, survivors.traceback_packed_plain(code, words, fs, T))
+    assert calls >= 24
+
+
 #: (B, T) of the unpacked scan: the wide scans' shapes and a 1006-step block
 UNPACKED_SHAPES = WIDE_SHAPES + [(3, 1006)]
 
@@ -665,6 +717,78 @@ def test_minplus_matmul_matches_plain_on_card(card, shape, init):
     # an empty batch launches nothing
     assert minplus.minplus_matmul(a4[:, 0:0], b4[:, 0:0], init).shape == (N, 0, I, J)
     assert launch_counts["minplus_matmul"] == 2
+
+
+#: the square kernel's S (csrc/minplus.cu: I = K = J = S, 2 to 128)
+SQUARE_STATES = (2, 4, 8, 16, 32, 64, 128)
+
+
+def _square_operands(gen, n, S, card):
+    """(n, S, S) float32 pairs with 1e30, 2e30, +-inf and NaN entries."""
+    a = torch.randn((n, S, S), generator=gen, device=card) * 5
+    b = torch.randn((n, S, S), generator=gen, device=card) * 5
+    for x in (a, b):
+        pick = torch.rand(x.shape, generator=gen, device=card)
+        x[pick < 0.2] = NEG_UNREACHABLE
+        x[(pick >= 0.2) & (pick < 0.3)] = 2 * NEG_UNREACHABLE
+        x[(pick >= 0.3) & (pick < 0.31)] = float("inf")
+        x[(pick >= 0.31) & (pick < 0.32)] = -float("inf")
+        x[(pick >= 0.32) & (pick < 0.33)] = float("nan")
+    return a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", SQUARE_STATES)
+@pytest.mark.parametrize("init", [NEG_UNREACHABLE, float("inf")], ids=["1e30", "inf"])
+def test_square_minplus_matches_plain_on_card(card, S, init):
+    """The square kernel at one S against the plain version: N products not a
+    multiple of the products a block takes at once; contiguous, the
+    associative scan's strided slices of a (1, 2N+1, S, S) stack and a
+    stride-0 batch (all square), and operands one element off 16-byte
+    alignment (the general kernel).  NaN where the plain version has NaN,
+    every other entry equal; one launch a call, no plain call."""
+    gen = torch.Generator(device=card).manual_seed(S + 1911)
+    per_block = 256 // (min(S, 64) // min(S, 4)) ** 2
+    N = 2 * per_block + 3
+    a, b = _square_operands(gen, 2 * N + 1, S, card)
+    stack_a, stack_b = a.reshape(1, 2 * N + 1, S, S), b.reshape(1, 2 * N + 1, S, S)
+    flat = torch.empty((N * S * S + 1,), device=card)
+    flat[1:] = a[:N].reshape(-1)
+    cases = [
+        ("square", a[:N], b[:N]),
+        ("square", stack_a[:, 0:-1:2], stack_b[:, 1::2]),
+        ("square", a[:1].expand(N, S, S), b[N:2 * N]),
+        ("general", flat[1:].view(N, S, S), b[:N]),
+    ]
+    reset_counts()
+    for calls, (variant, x, y) in enumerate(cases, start=1):
+        assert minplus.kernel_variant(x, y) == (f"square S={S}" if variant == "square"
+                                               else "general")
+        got = minplus.minplus_matmul(x, y, init)
+        torch.cuda.synchronize()
+        assert launch_counts["minplus_matmul"] == calls and not plain_counts
+        want = minplus.minplus_matmul_plain(x.contiguous(), y.contiguous(), init)
+        _same_with_nan(got, want)
+        assert torch.isnan(got).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [64, 128])
+def test_square_minplus_launches_on_every_card(card, S):
+    """The square kernel's shared-memory limit (above 48 KB at S = 64 and
+    128) is a per-device attribute: on each visible card in turn, made the
+    current device, one launch that matches the plain version."""
+    for d in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", d)
+        with torch.cuda.device(dev):
+            gen = torch.Generator(device=dev).manual_seed(S + d)
+            a, b = _square_operands(gen, 9, S, dev)
+            assert minplus.kernel_variant(a, b) == f"square S={S}"
+            reset_counts()
+            got = minplus.minplus_matmul(a, b, float("inf"))
+            torch.cuda.synchronize(dev)
+            assert launch_counts["minplus_matmul"] == 1 and not plain_counts
+            _same_with_nan(got, minplus.minplus_matmul_plain(a, b, float("inf")))
 
 
 @pytest.mark.gpu

@@ -158,10 +158,16 @@ def test_plain_scan_matches_pallas_kernel_small_trellises(name):
 # --------------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("name", ["k2", "k3", "k7"])
-@pytest.mark.parametrize("T", [1, 31, 33, 64, 70])
+#: the walk's codes: CODES and S = 128 and 256, where the card's full walk
+#: goes from the staged design to the direct one
+WALK_CODES = dict(CODES, k8=(8, (0o247, 0o371)), k9=(9, (0o561, 0o753)))
+
+
+@pytest.mark.parametrize("name", ["k2", "k3", "k7", "k8", "k9"])
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 64, 70, 1006])
 def test_plain_traceback_matches_pallas_kernel(name, T):
-    rc, pc = _pair(name)
+    K, polys = WALK_CODES[name]
+    rc, pc = RCode(K, polys), PCode(K, polys)
     rng = np.random.default_rng(100 + T)
     W, S = -(-T // 32), pc.n_states
     words = rng.integers(0, 2 ** 32, size=(W, S, B), dtype=np.uint64).astype(np.uint32)

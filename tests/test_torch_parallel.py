@@ -110,6 +110,21 @@ def test_plain_product_propagates_nan_as_jnp(init):
     _eq(got[~np.isnan(got)], want[~np.isnan(want)])
 
 
+@pytest.mark.parametrize("S", [2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("init", [NEG_UNREACHABLE, INF], ids=["1e30", "inf"])
+def test_plain_square_product_matches_jnp_product(S, init):
+    # the square shapes the card's square kernel takes (I = K = J = S, a
+    # power of two from 2 to 128), two products, with 1e30 and NaN entries
+    a, b = _operands((2, S, S, S), 1900 + S)
+    a[0, S - 1, 0] = np.nan
+    b[1, 0, S // 2] = np.nan
+    want = np.asarray(jnp.minimum(init, R_vit.minplus_matmul(jnp.asarray(a), jnp.asarray(b))))
+    got = minplus.minplus_matmul(torch.from_numpy(a), torch.from_numpy(b), init).numpy()
+    assert np.isnan(want).any() and (a == NEG_UNREACHABLE).any()
+    _eq(np.isnan(got), np.isnan(want))
+    _eq(got[~np.isnan(got)], want[~np.isnan(want)])
+
+
 @pytest.mark.parametrize("shape", SHAPES + [(2, 3, 4, 8, 5)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_minplus_matmul_op_matches_reference_op(shape):

@@ -3,8 +3,8 @@
 the survivor walks (``csrc/survivors.cu``) and ``texpand`` at the shapes their
 paths give them, on one NVIDIA card.
 
-    python3 tools/scan_measure.py device split paths sass [--src DIR] [--out FILE.jsonl]
-    python3 tools/scan_measure.py sweep wide [--out FILE.jsonl]
+    python3 tools/scan_measure.py device split paths peak sass [--src DIR] [--out FILE.jsonl]
+    python3 tools/scan_measure.py sweep wide square [--out FILE.jsonl]
 
 ``device``  device-only time of #3 (the packed session's chunk), #7 (the
             ``streaming`` chunk and both ``parallel`` re-scans), #8 (one
@@ -12,9 +12,15 @@ paths give them, on one NVIDIA card.
             P=8 tiled NASA frame, the ``parallel`` NASA frame's transfer
             matrices, pass 1 of a planned one-frame tiled decode, B·P·S = 512
             lanes, and the K=3 long stream's ``parallel`` transfer matrices)
-            #6 (the ``fused`` decode's scan), #2 (the main path's walk) and
-            #5 (the pinned P=8 NASA frame's walk, 524288 lanes, and the K=3
-            long stream's planned ``tiled`` walk, P=128, 512 lanes): a CUDA
+            #6 (the ``fused`` decode's scan), #2 (the walks of the main
+            path, 8192 x 1006, of the planned NASA decode, 1024 x 1030, of
+            the ``parallel`` NASA decode, 1024 x 1030, and of a packed
+            session's push, its 128 x 128 ring), #5 (the pinned P=8 NASA
+            frame's walk, 524288 lanes, and the K=3 long stream's planned
+            ``tiled`` walk, P=128, 512 lanes) and #11 (the seven combines of
+            the ``parallel`` NASA decode's associative scan, 1024 to 8192
+            products of 64 x 64, and the first of the K=3 long stream's, 4 x
+            4), each on the operands its decode hands the wrapper: a CUDA
             graph of N captured wrapper calls,
             replayed, its CUDA-event time over N (N a power of two set by the
             kernel's device time, so that the graph's own launch cost weighs
@@ -34,7 +40,10 @@ paths give them, on one NVIDIA card.
             #5 at both of its ``device`` shapes with its slab copies (loads)
             cut, its stores cut, or both: the staged walk through
             ``TRACEBACK_CUT``, the direct walk of earlier checkouts by text
-            substitutions.
+            substitutions.  #2 at the main path's shape the same way (the
+            staged full walk only), and #11's square kernel at the widest
+            NASA combine with its copies cut, its candidates cut, or both
+            (``MINPLUS_CUT``).
 ``paths``   the paths that launch #1-#7, end to end as ``chip_smoke.py``
             drives them: the ``fused_packed`` decode (8192 x 1000 info bits,
             K=7 hard), the NASA frame (1024 x 1024 info bits) as planned,
@@ -47,6 +56,13 @@ paths give them, on one NVIDIA card.
             the ``streaming`` decode of the same symbols (host clock around
             each, after a synchronize).  Host-bound paths vary between runs:
             run two checkouts in turns in one call.
+``peak``    the peak device memory of the ``parallel`` decodes above the
+            tensors live before each (``max_memory_allocated`` after a
+            reset, as ``chip_smoke.py`` reads it): the K=3 long stream's
+            (chunk 512) three times in a fresh process, then the NASA
+            frame's (chunk 64) once, then the long stream's twice more, so
+            that what the allocator's cache left behind shows apart from
+            what the tree allocates.  Run it as a process of its own.
 ``sweep``   every launch choice of the chain kernel's carried entries (#3,
             #7: G threads a lane, L lanes a block, Tc steps a tile) at every S
             of VITERBI_CHOICES, each a build of the source with its own table
@@ -69,18 +85,30 @@ paths give them, on one NVIDIA card.
             (``wide``), each shape's best, and the time of the choice the
             source builds.
 
-``sass``    the SASS of the built scan and survivors libraries (cuobjdump):
-            for every chain, wide (packed and unpacked), block and walk
-            kernel a digest of its instructions (constant-bank offsets
-            masked), so two checkouts' kernels can be held equal, and for the
-            S=64 chain kernels the step loop's instructions a state-step (its
-            body over half its shuffles) and their mix.
+``square``  the square (min,+) kernel's launch choices (MINPLUS_SQUARE_CHOICE:
+            rows of a thread's tile, threads a block, stages of the copy
+            ring), each a build of ``minplus.cu`` with its own choice, at the
+            seven combines of the ``parallel`` NASA decode and the long
+            stream's first, and at 4096 contiguous products (1024 at S=128)
+            of every other S; each output held exactly against the
+            package's build; per choice the NASA combines' summed time.
+
+``sass``    the SASS of the built scan, survivors and (min,+) libraries
+            (cuobjdump): for every chain, wide (packed and unpacked), block,
+            walk and (min,+) kernel a digest of its instructions
+            (constant-bank offsets masked), so two checkouts' kernels can be
+            held equal; for the S=64 chain kernels the step loop's
+            instructions a state-step (its body over half its shuffles) and
+            their mix, for the S=64 walks the step loop's instructions a step
+            (over its shared-memory loads) and for the square (min,+) kernels
+            the k loop's instructions a candidate (over its FMNMX).
 
 ``--src DIR`` measures the ``repro_torch`` under DIR (default: this
-checkout's ``src``), for ``device``, ``split``, ``paths`` and ``sass``; run them on two checkouts
-in one call to compare them.  Device-only times are the median of 5
-replays, back-to-back times of 5 rounds, after a warm-up call.  Builds go
-to ``<DIR>/repro_torch/_build/measure/``.
+checkout's ``src``), for ``device``, ``split``, ``paths``, ``peak`` and
+``sass``; run them on two checkouts in one call to compare them.
+Device-only times are the median of 5 replays, back-to-back times of 5
+rounds, after a warm-up call.  Builds go to
+``<DIR>/repro_torch/_build/measure/``.
 """
 from __future__ import annotations
 
@@ -121,6 +149,8 @@ WIDE_LANE_STATES = MAIN_B * 64
 CUTS = {"features": 1, "dots": 2, "stores": 4, "all": 7}
 #: the staged walk's cuts (TRACEBACK_CUT)
 WALK_CUTS = {"loads": 1, "stores": 2, "all": 3}
+#: the square (min,+) kernel's cuts (MINPLUS_CUT)
+MINPLUS_CUTS = {"copies": 1, "candidates": 2, "all": 3}
 #: the direct windowed walk's step, cut on a copy: bit -> [(text, replacement)]
 DIRECT_WALK_CUTS = {
     1: [("\n      const uint32_t word = static_cast<uint32_t>(\n"
@@ -330,6 +360,84 @@ def _window_cases(gen) -> dict:
     return cases
 
 
+@contextlib.contextmanager
+def _recording(module, name: str, calls: list):
+    """``module.name`` appends its arguments to ``calls`` inside (the call
+    itself goes on as before)."""
+    orig = getattr(module, name)
+
+    def record(*args):
+        calls.append(args)
+        return orig(*args)
+    setattr(module, name, record)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _nasa_rx(gen, code, B, n_info, flip):
+    import torch
+
+    from repro_torch.decode import CodecSpec
+
+    spec = CodecSpec(code=code, metric="hard")
+    return spec, spec.channel(gen, spec.encode(torch.randint(0, 2, (B, n_info), generator=gen,
+                                                             device="cuda", dtype=torch.int32)),
+                              flip_prob=flip)
+
+
+def _captured_cases(gen) -> dict:
+    """#2 and #11 on what the decodes hand their wrappers: the planned NASA
+    decode's walk (1024 frames, P=1), the ``parallel`` NASA decode's walk and
+    its seven combines (chunk 64), the first combine of the K=3 long
+    stream's ``parallel`` decode (chunk 512) and the walk of a packed
+    session's last push (128 streams, chunk 64, its 128 x 128 ring)."""
+    import math
+
+    from repro_torch.core import CODE_K3_STD, CODE_K7_NASA
+    from repro_torch.decode import DecodeContext, DecodeRequest, decode
+    from repro_torch.kernels import minplus, ops, survivors
+    from repro_torch.stream import StreamSession
+
+    def walk(args):
+        return "traceback_packed", lambda: survivors.traceback_packed(*args)
+
+    def combine(a, b):
+        return "minplus_matmul", lambda: minplus.minplus_matmul(a, b, math.inf)
+
+    cases = {}
+    spec, rx = _nasa_rx(gen, CODE_K7_NASA, NASA_B, 1024, 0.03)
+    walks = []
+    with _recording(survivors, "traceback_packed", walks):
+        decode(DecodeRequest(spec, received=rx), ctx=DecodeContext())
+    cases["nasa_planned_walk"] = walk(walks[-1])
+    for label, code, rx_p, chunk in (("nasa", CODE_K7_NASA, rx, 64),
+                                     ("long", CODE_K3_STD, None, 512)):
+        if rx_p is None:
+            spec_p, rx_p = _nasa_rx(gen, code, 1, LONG_INFO, 0.01)
+        else:
+            spec_p = spec
+        walks, combines = [], []
+        with _recording(survivors, "traceback_packed", walks), \
+                _recording(ops, "_minplus_unclamped", combines):
+            ops.viterbi_decode_parallel_op(code, spec_p.branch_metrics(rx_p), chunk, True)
+        combines = [(a, b) for a, b in combines if a.shape[0] * a.shape[1]]
+        if label == "nasa":
+            cases["parallel_walk"] = walk(walks[-1])
+        else:
+            combines = combines[:1]
+        for i, (a, b) in enumerate(combines):
+            cases[f"combine_{label}_{i}"] = combine(a, b)
+    walks = []
+    srx = _nasa_rx(gen, CODE_K7_NASA, STREAM_B, 2048, 0.03)[1]
+    with _recording(survivors, "traceback_packed", walks):
+        StreamSession(spec, batch=STREAM_B, chunk=STREAM_T, backend="fused_packed",
+                      inputs="received").decode_all(srx)
+    cases["session_walk"] = walk(next(a for a in reversed(walks) if a[1].shape[0] == 4))
+    return cases
+
+
 def _walk_cases(gen) -> dict:
     """#2 at the main path's shape (the walk of #1's words from the
     terminated frontier) and #5 at the two tiled walks the paths give it, on
@@ -376,6 +484,7 @@ def device(gen, fh, src):
                         lambda a=args: viterbi_scan.viterbi_scan_packed_window(*a))
     cases.update(_path_only_cases(gen))
     cases.update(_walk_cases(gen))
+    cases.update(_captured_cases(gen))
     for label, (name, fn) in cases.items():
         outs = fn()
         torch.cuda.synchronize()
@@ -384,11 +493,42 @@ def device(gen, fh, src):
         b2b, host = _eager_ms(fn, n)
         row = dict(mode="device", src=str(src), shape=label, kernel=name, device_ms=ms,
                    device_rounds=rounds, back_to_back_ms=b2b, host_ms=host, calls=n,
-                   digest=_digest(outs))
+                   digest=_digest(outs), operands=_operand_shapes(fn))
+        if name == "minplus_matmul":
+            row.update(_variant(fn))
         fh.write(json.dumps(row) + "\n")
         print(f"[device] {src} {label} {name}: device-only {ms!r} ms, back-to-back {b2b!r} ms, "
-              f"host {host!r} ms a call (n={n}); digest {row['digest']}")
+              f"host {host!r} ms a call (n={n}); digest {row['digest']}; operands "
+              f"{row['operands']}" + (f"; {row['variant']}" if "variant" in row else ""))
         del outs
+
+
+def _closure_tensors(fn) -> list:
+    """The tensors a case's closure holds (its defaults and free variables,
+    one level into tuples)."""
+    import torch
+
+    vals = list(fn.__defaults__ or ()) + [c.cell_contents for c in fn.__closure__ or ()]
+    out = []
+    for v in vals:
+        for x in (v if isinstance(v, tuple) else (v,)):
+            if isinstance(x, torch.Tensor):
+                out.append(x)
+    return out
+
+
+def _operand_shapes(fn) -> list:
+    return [[list(x.shape), list(x.stride())] for x in _closure_tensors(fn)]
+
+
+def _variant(fn) -> dict:
+    """{"variant": ...} of a (min,+) case where the checkout can say which
+    kernel takes it, else {}."""
+    from repro_torch.kernels import minplus
+
+    if not hasattr(minplus, "kernel_variant"):
+        return {}
+    return {"variant": minplus.kernel_variant(*_closure_tensors(fn))}
 
 
 def _nvcc_all(units: dict, out_dir: Path, build, stem: str = "viterbi_scan") -> dict:
@@ -416,20 +556,20 @@ def _nvcc_all(units: dict, out_dir: Path, build, stem: str = "viterbi_scan") -> 
 
 @contextlib.contextmanager
 def _library(lib):
-    """The package's viterbi_scan and survivors wrappers launch from ``lib``
-    inside."""
-    from repro_torch.kernels import _build, survivors, viterbi_scan
+    """The package's viterbi_scan, survivors and minplus wrappers launch
+    from ``lib`` inside."""
+    from repro_torch.kernels import _build, minplus, survivors, viterbi_scan
 
     load = _build.load
     _build.load = lambda name: lib
-    viterbi_scan._launcher.cache_clear()
-    survivors._launcher.cache_clear()
+    for m in (viterbi_scan, survivors, minplus):
+        m._launcher.cache_clear()
     try:
         yield
     finally:
         _build.load = load
-        viterbi_scan._launcher.cache_clear()
-        survivors._launcher.cache_clear()
+        for m in (viterbi_scan, survivors, minplus):
+            m._launcher.cache_clear()
 
 
 def _substitute(text: str, subs, what: str) -> str:
@@ -482,16 +622,30 @@ def split(gen, fh, src):
                 if bits & bit:
                     text = _substitute(text, subs, f"walk cut {bit}")
             walk_units[f"{walk}/{name}"] = text
+    # the full walk (#2) and the square (min,+) kernel (#11) are cut only
+    # where the checkout builds them with their cut flags
+    full = "bool FULL" in walk_source
+    mp_source = (_build.CSRC / "minplus.cu").read_text()
+    mp_units = ({"square/as_is": mp_source} | {
+        f"square/{k}": f"#define MINPLUS_CUT {v}\n#include \"{_build.CSRC}/minplus.cu\"\n"
+        for k, v in MINPLUS_CUTS.items()}) if "MINPLUS_CUT" in mp_source else {}
     libs = _nvcc_all({k.replace("/", "_"): v for k, v in units.items()},
                      _build.BUILD_ROOT / "measure", _build)
     libs.update(_nvcc_all({k.replace("/", "_"): v for k, v in walk_units.items()},
                           _build.BUILD_ROOT / "measure", _build, stem="survivors"))
+    libs.update(_nvcc_all({k.replace("/", "_"): v for k, v in mp_units.items()},
+                          _build.BUILD_ROOT / "measure", _build, stem="minplus"))
     cases = _device_cases(gen)
     cases["fused"] = _path_only_cases(gen)["fused"]
     cases.update(_walk_cases(gen))
     shapes = [(label, designs[label], units, MAIN_T if label in ("main", "fused") else STREAM_T)
               for label in ("session", "streaming", "main", "fused")]
     shapes += [(label, walk, walk_units, None) for label in ("pinned_walk", "long_planned_walk")]
+    if full:
+        shapes.append(("main_walk", walk, walk_units, MAIN_T))
+    if mp_units:
+        cases.update(_captured_cases(gen))
+        shapes.append(("combine_nasa_0", "square", mp_units, None))
     for label, design, variants, steps in shapes:
         name, fn = cases[label]
         n = _reps(fn)
@@ -571,6 +725,35 @@ def paths(gen, fh, src):
         ms = fn()
         fh.write(json.dumps(dict(mode="paths", src=str(src), path=label, ms=ms)) + "\n")
         print(f"[paths] {src} {label}: {ms!r} ms")
+
+
+def peak(gen, fh, src):
+    import torch
+
+    from repro_torch.core import CODE_K3_STD, CODE_K7_NASA
+    from repro_torch.decode import CodecSpec, DecodeContext, DecodeRequest, decode
+
+    spec = CodecSpec(code=CODE_K7_NASA, metric="hard")
+    spec3 = CodecSpec(code=CODE_K3_STD, metric="hard")
+    nasa = spec.channel(gen, spec.encode(torch.randint(0, 2, (1024, 1024), generator=gen,
+                                                       device="cuda", dtype=torch.int32)),
+                        flip_prob=0.03)
+    long = spec3.channel(gen, spec3.encode(torch.randint(0, 2, (1, LONG_INFO), generator=gen,
+                                                         device="cuda", dtype=torch.int32)),
+                         flip_prob=0.01)
+    runs = {"parallel_long": (DecodeRequest(spec3, received=long), DecodeContext(chunk=512)),
+            "parallel_nasa": (DecodeRequest(spec, received=nasa), DecodeContext(chunk=64))}
+    for i, label in enumerate(["parallel_long"] * 3 + ["parallel_nasa"] + ["parallel_long"] * 2):
+        r, ctx = runs[label]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        decode(r, backend="parallel", ctx=ctx)
+        torch.cuda.synchronize()
+        nbytes = torch.cuda.max_memory_allocated() - base
+        fh.write(json.dumps(dict(mode="peak", src=str(src), path=label, call=i,
+                                 peak_bytes=nbytes)) + "\n")
+        print(f"[peak] {src} call {i} {label}: {nbytes} bytes above the live tensors")
 
 
 def _texpand_decode(code, bm_t):
@@ -709,11 +892,18 @@ def _kernel_key(name: str):
         if P == "0":
             return f"chain S={S} G={G} L={L} unpacked state0"
         return f"chain S={S} G={G} L={L} packed {'window' if W == '1' else 'state0'}"
-    m = re.search(r"window_walk_kernelILi(\d+)ELi(\d+)EEEv", name)
+    m = re.search(r"window_walk_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)ELi(\d)E)?EEv", name)
     if m:
-        return f"walk window staged S={m.group(1)} D={m.group(2)}"
+        S, D, full, V = m.groups()
+        if full == "1":
+            return f"walk packed staged S={S} D={D} V={V}"
+        return f"walk window staged S={S} D={D}"
+    m = re.search(r"minplus_square_kernelILi(\d+)EEEv", name)
+    if m:
+        return f"minplus square S={m.group(1)}"
     for kernel, key in (("traceback_window_kernel", "walk window direct"),
-                        ("traceback_packed_kernel", "walk packed")):
+                        ("traceback_packed_kernel", "walk packed"),
+                        ("minplus_kernel", "minplus general")):
         if kernel in name:
             return key
     m = re.search(r"scan_kernelILi(\d+)E((?:Lb\dE){3})?EEv", name)
@@ -729,7 +919,7 @@ def sass(fh, src):
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     text = "".join(subprocess.run([str(tool), "-sass", str(_build.build_all()[lib].path)],
                                   capture_output=True, text=True, check=True).stdout
-                   for lib in ("viterbi_scan", "survivors"))
+                   for lib in ("viterbi_scan", "survivors", "minplus"))
     parts = re.split(r"\n\s*Function : (\S+)\n", text)
     for name, body in zip(parts[1::2], parts[2::2]):
         key = _kernel_key(name)
@@ -756,11 +946,42 @@ def sass(fh, src):
                     ops[op] = ops.get(op, 0) + 1
                 row["step_loop"] = dict(instructions=n, shuffles=n_shfl, per_state_step=per,
                                         ops=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+        # the walks' step loop (one shared-memory load a step) and the square
+        # (min,+) kernel's k loop (one FMNMX a candidate) at S=64
+        marker = ("LDS" if re.match(r"walk (packed|window) staged S=64 ", key)
+                  else "FMNMX" if key == "minplus square S=64" else None)
+        if marker:
+            row["inner_loop"] = _inner_loop(ins, marker)
         fh.write(json.dumps(row) + "\n")
         loop = row.get("step_loop")
+        inner = row.get("inner_loop")
         print(f"[sass] {src} {key}: {len(ins)} instructions, digest {row['digest']}"
               + (f"; step loop {loop['instructions']} instructions, {loop['shuffles']} shuffles, "
-                 f"{loop['per_state_step']!r} a state-step, {loop['ops']}" if loop else ""))
+                 f"{loop['per_state_step']!r} a state-step, {loop['ops']}" if loop else "")
+              + (f"; inner loop {inner['instructions']} instructions, {inner['marker']} "
+                 f"{inner['marked']}, {inner['per_marked']!r} a {inner['marker']}, "
+                 f"{inner['ops']}" if inner else ""))
+
+
+def _inner_loop(ins, marker: str):
+    """Of the loops (backward branches) of ``ins`` that hold ``marker``
+    instructions, the one with the fewest instructions per marker: its size,
+    marker count, instructions per marker and op mix."""
+    best = None
+    for addr, t in ins:
+        m = re.search(r"BRA (0x[0-9a-f]+)", t)
+        if not (m and int(m.group(1), 16) < addr):
+            continue
+        loop = [x for a, x in ins if int(m.group(1), 16) <= a <= addr]
+        ops = {}
+        for x in loop:
+            op = re.sub(r"^@!?U?P\w+\s+", "", x).split()[0].split(".")[0]
+            ops[op] = ops.get(op, 0) + 1
+        if ops.get(marker) and (best is None or len(loop) / ops[marker] < best["per_marked"]):
+            best = dict(instructions=len(loop), marker=marker, marked=ops[marker],
+                        per_marked=len(loop) / ops[marker],
+                        ops=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+    return best
 
 
 def _pick(fh, S, rows, relative=True):
@@ -787,6 +1008,49 @@ def _pick(fh, S, rows, relative=True):
               f"build {own[s]!r})" for s in best))
     fh.write(json.dumps(dict(mode="pick", S=S, group=pick[0], lanes=pick[1], tile=pick[2],
                              ms=mine, best=best, best_choice=argbest, built_ms=own)) + "\n")
+
+
+#: MINPLUS_SQUARE_CHOICE candidates: (rows of a thread's tile, threads a
+#: block, stages); the first is the source's own
+SQUARE_CHOICES = ((4, 256, 2), (4, 256, 3), (8, 128, 2), (8, 128, 3))
+
+
+def sweep_square(gen, fh):
+    import math
+
+    import torch
+
+    from repro_torch.kernels import _build, minplus
+
+    src = _build.CSRC / "minplus.cu"
+    libs = _nvcc_all({f"square{i}": "#define MINPLUS_SQUARE_CHOICE {%d, %d, %d}\n" % c
+                      + f"#include \"{src}\"\n" for i, c in enumerate(SQUARE_CHOICES)},
+                     _build.BUILD_ROOT / "measure", _build, stem="minplus")
+    cases = {k: v for k, v in _captured_cases(gen).items() if v[0] == "minplus_matmul"}
+    for S in (2, 4, 8, 16, 32, 64, 128):
+        n = 1024 if S == 128 else 4096
+        a, b = (torch.randn((n, S, S), generator=gen, device="cuda") for _ in range(2))
+        cases[f"square_{S}"] = ("minplus_matmul",
+                                lambda a=a, b=b: minplus.minplus_matmul(a, b, math.inf))
+    want = {label: fn() for label, (_, fn) in cases.items()}
+    totals = {}
+    for i, choice in enumerate(SQUARE_CHOICES):
+        with _library(libs[f"square{i}"]):
+            for label, (_, fn) in cases.items():
+                got = fn()
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.int32), want[label].view(torch.int32)):
+                    raise SystemExit(f"square {choice} {label}: differs from the package's build")
+                ms = _graph_ms(fn, _reps(fn))[0]
+                fh.write(json.dumps(dict(mode="square", choice=list(choice), shape=label,
+                                         device_ms=ms)) + "\n")
+                print(f"[square] {choice} {label}: {ms!r} ms")
+                if label.startswith("combine_nasa"):
+                    totals[choice] = totals.get(choice, 0.0) + ms
+    for choice, ms in totals.items():
+        print(f"[square] {choice}: the NASA combines {ms!r} ms"
+              + (" (the source's choice)" if choice == SQUARE_CHOICES[0] else ""))
+        fh.write(json.dumps(dict(mode="square_total", choice=list(choice), device_ms=ms)) + "\n")
 
 
 def _wide_candidates(S):
@@ -907,7 +1171,8 @@ def sweep_wide(gen, fh):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("modes", nargs="+",
-                    choices=("device", "split", "paths", "sweep", "wide", "sass"))
+                    choices=("device", "split", "paths", "peak", "sweep", "wide", "square",
+                             "sass"))
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory that holds the repro_torch to measure (all but sweep)")
     ap.add_argument("--out", default=None, help="append every row here as JSON lines")
@@ -921,7 +1186,7 @@ def main(argv=None) -> int:
     # a graph that captured nothing (a launch on another stream) times nothing
     warnings.filterwarnings("error", message="The CUDA Graph is empty")
     src = Path(args.src).resolve()
-    if {"sweep", "wide"} & set(args.modes) and src != (ROOT / "src").resolve():
+    if {"sweep", "wide", "square"} & set(args.modes) and src != (ROOT / "src").resolve():
         print("scan_measure: the sweeps measure this checkout's source only", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
@@ -942,10 +1207,14 @@ def main(argv=None) -> int:
                 split(gen, fh, src)
             elif mode == "paths":
                 paths(gen, fh, src)
+            elif mode == "peak":
+                peak(gen, fh, src)
             elif mode == "sweep":
                 sweep(gen, fh)
             elif mode == "sass":
                 sass(fh, src)
+            elif mode == "square":
+                sweep_square(gen, fh)
             else:
                 sweep_wide(gen, fh)
     return 0
