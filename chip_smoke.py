@@ -27,6 +27,17 @@ Phases (any failure raises and exits non-zero):
                carried unpacked scan kernel); BERs beside the block decode of
                the same symbols, and a smaller case with depth >= T that must
                equal the block decode exactly;
+ 4b. scheduler — the same 128 streams through a ``StreamScheduler`` at the
+               ``STREAM`` deployment (64 slots: two waves, chunk 64, depth
+               5K, 512 rows buffered a stream; ``fused_packed`` on raw
+               symbols), each stream fed by a producer of seeded random
+               arrivals of 1-512 rows: every stream's bits and metric equal
+               the packed session's, the BER the stream phase's, #3 and #2
+               launched once a tick and no plain call; wall time, tick time,
+               arrival-to-commit latency and peak memory, and from a traced
+               run over each stream's first 16384 rows (open) the tick's
+               phase shares, that run snapshotted at tick 300 and restored
+               on the card, its bits equal a packed session's;
   5. fused   — the unpacked route at phase 2's shape and symbols:
                ``decode(..., backend="fused")`` (the unpacked scan kernel +
                the plain traceback), hard and soft, bits (and the hard
@@ -74,9 +85,11 @@ Phases (any failure raises and exits non-zero):
                replayed), #4 at the ``parallel`` transfer matrices' shape
                beside the pinned tiled passes, #5 at the long stream's
                planned ``tiled`` walk beside the pinned one, #7 at both
-               ``parallel`` re-scan shapes, #2 at its four path shapes (the
+               ``parallel`` re-scan shapes, #2 at its five path shapes (the
                short blocks, the planned and the ``parallel`` NASA decodes'
-               walks, a session push's ring) and #11 at each of the seven
+               walks, a session push's ring, a scheduler tick's ring), #3 at
+               the session's and a scheduler tick's shapes, and #11 at each
+               of the seven
                combines of the ``parallel`` NASA decode, all on the operands
                their decodes hand them; end-to-end times of every path.
 
@@ -793,10 +806,192 @@ def phase_stream(gen):
     print("[stream] depth >= T (B=16, T=506): session and streaming decode equal the block "
           "decode exactly")
     n_bits = STREAM_B * STREAM_INFO
-    return dict(spec=spec, rx=rx, launches_session=la, launches_windowed=lb, ber=bers,
+    return dict(spec=spec, rx=rx, bits=bits, session_bits=s_bits, session_metric=s_metric,
+                launches_session=la, launches_windowed=lb, ber=bers,
                 e2e=dict(session_s=session_s, session_bits_per_s=n_bits / session_s,
                          session_peak_bytes=session_peak, streaming_decode_s=windowed_s,
                          streaming_decode_bits_per_s=n_bits / windowed_s))
+
+
+#: ``STREAM`` (src/repro_torch/configs/paper_viterbi.py): 64 slots, chunk 64,
+#: depth 5K, 512 rows buffered a stream; arrivals of 1 to 512 rows.  The
+#: traced run (phase shares, snapshot/restore) takes the first 16384 rows of
+#: each stream, open-ended: a cut of length only, the widths and counts stay.
+SCHED_MAX_ARRIVAL = 512
+SCHED_TRACE_ROWS = 16384
+SCHED_SNAP_TICK = 300
+
+
+def _arrivals(table, rng):
+    """A stream's rows in seeded random arrival sizes of 1 to 512 rows."""
+    i = 0
+    while i < len(table):
+        n = int(rng.integers(1, SCHED_MAX_ARRIVAL + 1))
+        yield table[i:i + n]
+        i += n
+
+
+def _deployment_scheduler(spec, **kw):
+    """A ``StreamScheduler`` at the ``STREAM`` deployment, ``fused_packed``
+    on raw symbols, on the card."""
+    from repro_torch.configs import STREAM
+    from repro_torch.stream import StreamScheduler
+
+    return StreamScheduler(spec, n_slots=STREAM.n_slots, chunk=STREAM.chunk,
+                           depth=STREAM.depth(spec.code), backend="fused_packed",
+                           inputs="received", max_buffered=STREAM.max_buffered, **kw)
+
+
+def _open_streams(sched, rows, seed, **kw):
+    """Open one stream a row of ``rows`` on a ``GeneratorProducer`` of its
+    arrivals; returns the producers by stream id."""
+    import numpy as np
+
+    from repro_torch.stream import GeneratorProducer
+
+    prods = {}
+    for i, table in enumerate(rows):
+        prods[f"s{i}"] = GeneratorProducer(_arrivals(table, np.random.default_rng([seed, i])))
+        sched.open_stream(f"s{i}", producer=prods[f"s{i}"], **kw)
+    return prods
+
+
+def phase_scheduler(stream, seed):
+    """The continuous-batching scheduler at the 64k deployment: the stream
+    phase's 128 streams through ``STREAM``'s 64 slots (two waves, every slot
+    reused), fed by producers of random arrival sizes; each stream's bits and
+    metric equal the packed session's exactly.  A second, traced run over
+    the first 16384 rows of each stream gives the tick's phase shares, and
+    is snapshotted at a mid-run tick and restored (producers re-attached):
+    its bits equal a packed session's on the same cut symbols."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import STREAM
+    from repro_torch.kernels import reset_counts, survivors, viterbi_scan
+    from repro_torch.obs import Telemetry, Tracer
+    from repro_torch.stream import StreamScheduler, StreamSession
+    from repro_torch.stream.scheduler import TICK_PHASES
+
+    spec = stream["spec"]
+    rows = stream["rx"].to(torch.float32).cpu().numpy()  # the caller's host symbols
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    sched = _deployment_scheduler(spec)
+    _open_streams(sched, rows, seed)
+    results = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    la, pa = _counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    ticks = sched.stats.ticks
+    print(f"[scheduler] {STREAM_B} streams x {STREAM_INFO} info bits, {STREAM.n_slots} slots, "
+          f"chunk {STREAM.chunk}, depth {sched.depth}, max_buffered {STREAM.max_buffered}, "
+          f"arrivals of 1-{SCHED_MAX_ARRIVAL} rows: launches {la} plain calls {pa}, {ticks} ticks")
+    for k in ("viterbi_scan_packed_carry", "traceback_packed"):
+        if la.get(k, 0) != ticks:
+            _fail(f"scheduler: {k} launched {la.get(k, 0)} times in {ticks} ticks")
+    if any(pa.values()):
+        _fail(f"scheduler: plain versions ran: {pa}")
+    if sched.stats.slot_claims != STREAM_B or sched.stats.streams_finished != STREAM_B:
+        _fail(f"scheduler: stats {sched.stats.asdict()}")
+    s_bits = stream["session_bits"].cpu().numpy()
+    s_metric = stream["session_metric"].cpu().numpy()
+    for i in range(STREAM_B):
+        bits, metric = results[f"s{i}"]
+        if not (np.array_equal(bits, s_bits[i]) and metric == float(s_metric[i])):
+            _fail(f"scheduler: stream s{i} differs from the packed session")
+    sched_bits = torch.from_numpy(np.stack([results[f"s{i}"][0] for i in range(STREAM_B)]))
+    ber = _ber(spec.strip_flush(sched_bits.cuda()), stream["bits"])
+    if ber != stream["ber"][0]:
+        _fail(f"scheduler BER {ber!r} != the stream phase's {stream['ber'][0]!r}")
+    n_bits = STREAM_B * STREAM_INFO
+    hist = sched.telemetry.metrics.histogram("stream_tick_seconds")
+    report = sched.load_report()
+    e2e = dict(wall_s=wall, bits_per_s=n_bits / wall, ticks=ticks,
+               starved_slot_ticks=sched.stats.starved_slot_ticks,
+               tick_s=dict(p50=hist.quantile(0.5), p99=hist.quantile(0.99), mean=hist.mean,
+                           max=hist.max),
+               arrival_to_commit_s=report["latency_s"], peak_bytes=peak,
+               session_s=stream["e2e"]["session_s"],
+               session_bits_per_s=stream["e2e"]["session_bits_per_s"], ber=ber,
+               stats=sched.stats.asdict())
+    print(f"[scheduler] every stream's bits and metric equal the packed session's; BER {ber!r} "
+          f"(stream phase {stream['ber'][0]!r})")
+    print(f"[scheduler] wall {wall!r} s = {e2e['bits_per_s']!r} info bits/s (packed session on "
+          f"the same symbols {stream['e2e']['session_s']!r} s = "
+          f"{stream['e2e']['session_bits_per_s']!r}); starved slot-ticks "
+          f"{e2e['starved_slot_ticks']}; tick time (stream_tick_seconds, bucket bounds) p50 "
+          f"{e2e['tick_s']['p50']!r} s p99 {e2e['tick_s']['p99']!r} s, mean {hist.mean!r} s, "
+          f"max {hist.max!r} s; arrival-to-commit {report['latency_s']}; peak device memory "
+          f"{peak} bytes above the live tensors")
+
+    # --- the traced run: phase shares, one tick's kernel operands, and a
+    # snapshot/restore round trip at a mid-run tick
+    cut = rows[:, :SCHED_TRACE_ROWS]
+    tracer = Tracer("chip_smoke")
+    traced = _deployment_scheduler(spec, telemetry=Telemetry(tracer=tracer))
+    prods = _open_streams(traced, cut, seed, terminated=False)
+    while traced.stats.ticks < SCHED_SNAP_TICK and traced.pending_work():
+        if traced.stats.ticks == SCHED_SNAP_TICK // 2:
+            with _recording(viterbi_scan, "viterbi_scan_packed_carry") as scans, \
+                    _recording(survivors, "traceback_packed") as walks:
+                traced.step()
+        else:
+            traced.step()
+    snap = traced.snapshot()
+    restored = StreamScheduler.restore(snap, telemetry=Telemetry(tracer=tracer))
+    for im in snap.active + snap.pending:
+        if not im.closed:
+            restored.attach_producer(im.stream_id, prods[im.stream_id])
+    cut_results = restored.run()
+    want_bits, want_metric = StreamSession(
+        spec, batch=STREAM_B, chunk=STREAM.chunk, backend="fused_packed",
+        inputs="received").decode_all(stream["rx"][:, :SCHED_TRACE_ROWS], terminated=False)
+    want_bits, want_metric = want_bits.cpu().numpy(), want_metric.cpu().numpy()
+    for i in range(STREAM_B):
+        bits, metric = cut_results[f"s{i}"]
+        if not (np.array_equal(bits, want_bits[i]) and metric == float(want_metric[i])):
+            _fail(f"scheduler: stream s{i} after snapshot/restore at tick {SCHED_SNAP_TICK} "
+                  "differs from the packed session")
+    if len(scans) != 1 or len(walks) != 1:
+        _fail(f"scheduler: a tick launched {len(scans)} scans and {len(walks)} walks")
+    total = tracer.total_s("tick")
+    shares = {p: tracer.total_s(p) / total for p in (*TICK_PHASES, "flush", "compact")}
+    e2e.update(traced_ticks=restored.stats.ticks, traced_tick_s=total, phase_shares=shares,
+               traced_coverage=tracer.coverage("tick", TICK_PHASES))
+    print(f"[scheduler] traced run ({STREAM_B} streams x {SCHED_TRACE_ROWS} rows, open; "
+          f"snapshot at tick {SCHED_SNAP_TICK} of {restored.stats.ticks}, restored on the card, "
+          f"producers re-attached): bits and metrics equal the packed session's; tick time "
+          f"{total!r} s in all, share by phase {shares} (flush inside admit)")
+    return dict(e2e=e2e, launches=la, scan_args=scans[0][0], walk_args=walks[0][0])
+
+
+def phase_timing_scheduler(sched):
+    """Rows #3 and #2 at the scheduler's tick shape (64 slots x 64 steps, a
+    4-word ring), on the operands one tick handed them."""
+    from repro_torch.kernels import viterbi_scan
+
+    code, pm0, feats, b0, b1, rb = args = sched["scan_args"]
+    S, M = code.n_states, code.n_symbols
+    B, C, F = feats.shape
+    W = -(-C // 32)
+    r, pms, k, p = _timed(lambda: viterbi_scan.viterbi_scan_packed_carry(*args),
+                          lambda: viterbi_scan.viterbi_scan_packed_carry_plain(*args), 50)
+    err = _same("carry at the scheduler shape", k, p)
+    print(f"[timing] rounds (ms): viterbi_scan_packed_carry scheduler {r}")
+    scan = _row("viterbi_scan_packed_carry (scheduler)", SCAN_SRC, "", statistics.median(r), pms,
+                4 * (B * C * F + 2 * B * S + W * B * S + 2 * S * F + 2 * S),
+                B * C * (M * 2 * F + 7 * S))
+    scan.update(max_abs_err=err, shape=f"{B} slots x {C} steps",
+                launches=sched["launches"].get("viterbi_scan_packed_carry", 0))
+    _device_only(scan, lambda: viterbi_scan.viterbi_scan_packed_carry(*args), 50)
+    walk = _walk_shape("scheduler tick", sched["walk_args"],
+                       sched["launches"].get("traceback_packed", 0), 50)
+    return {"viterbi_scan_packed_carry": scan, "traceback_packed": walk}
 
 
 def _timed(kernel_fn, plain_fn, reps):
@@ -1913,6 +2108,8 @@ def main(argv=None) -> int:
     tiled = phase_tiled(gen)
     stream = phase_stream(gen)
     mark("decode, tiled, stream")
+    sched = phase_scheduler(stream, args.seed)
+    mark("scheduler")
     fused_launches = phase_fused(inputs, results)
     texpand_launches, texpand_tables = phase_texpand(inputs, results)
     siso_launches, siso = phase_siso(gen)
@@ -1941,6 +2138,8 @@ def main(argv=None) -> int:
                                                                                         parallel)
     walk_long = phase_timing_walk_long(parallel)
     walks = phase_timing_walks(tiled, stream, walk)
+    sched_rows = phase_timing_scheduler(sched)
+    walks["scheduler"] = sched_rows["traceback_packed"]
     mark("timing")
     # row 2: the short blocks' walk is the row's own numbers; the other
     # paths' walks its further shapes
@@ -1955,6 +2154,11 @@ def main(argv=None) -> int:
             row["shapes"] = {label: _summary(x) for label, x in row["shapes"].items()}
         if row["name"] == "viterbi_scan_carry":
             row["shapes"] = rescan
+        if row["name"] == "viterbi_scan_packed_carry":
+            # the session push is the row's own numbers; the scheduler's
+            # tick its second shape
+            row["shapes"] = {label: _summary(x) for label, x in (
+                ("session", row), ("scheduler", sched_rows["viterbi_scan_packed_carry"]))}
         if row["name"] == "traceback_packed_window":
             # the pinned NASA walk is the row's own numbers; the long stream's
             # planned walk its second shape, with its own bound
@@ -1968,6 +2172,7 @@ def main(argv=None) -> int:
             row["shapes"] = {label: _summary(x) for label, x in row["shapes"].items()}
     rows += seeded_rows + siso_rows + parallel_rows
     e2e = {"decode_short": e2e, "tiled_nasa_frame": tiled_e2e, "stream_64k": stream["e2e"],
+           "scheduler_64k": sched["e2e"],
            "fused_texpand_siso": siso_e2e, "parallel": parallel_e2e,
            "parallel_launches": parallel_launches,
            "ber": {"tiled_hard": tiled["hard"]["ber"], "tiled_soft": tiled["soft"]["ber"],

@@ -6,13 +6,16 @@ sequential, block-parallel and HMM decoders, the CRF), ``kernels/`` (hand-writte
 beside its plain PyTorch version; tile plans and the (min,+) product and
 seam algebra),
 ``decode/`` (spec, registry, planner, ``decode``), ``stream/`` (the
-sliding-window core and ``StreamSession``), ``siso/`` (RSC codes,
-interleavers, turbo), ``obs/`` (telemetry) and ``convert.py`` (state bridge
-from the reference).
+sliding-window core, ``StreamSession``, the continuous-batching
+``StreamScheduler`` with online ingestion, snapshot/restore and the chaos
+harness), ``siso/`` (RSC codes, interleavers, turbo), ``obs/`` (telemetry),
+``configs/`` (the paper workload's codes, shapes and stream defaults),
+``serve/`` and ``train/`` (the slot allocator and the straggler detector the
+scheduler uses) and ``convert.py`` (state bridge from the reference).
 
 Entry points run on the card unless the caller asks for the CPU
 (``DecodeContext(device="cpu")``, ``StreamSession(..., device="cpu")``,
-``turbo_decode(..., device="cpu")``), where every kernel runs its plain
-version.  This package imports torch and numpy only — never jax, never
+``StreamScheduler(..., device="cpu")``, ``turbo_decode(..., device="cpu")``),
+where every kernel runs its plain version.  This package imports torch and numpy only — never jax, never
 ``repro``.
 """

@@ -225,7 +225,9 @@ def test_viterbi_decode_tie_heavy_open_trellis():
 def test_import_loads_neither_jax_nor_reference():
     code = (
         "import sys, repro_torch, repro_torch.decode, repro_torch.kernels, "
-        "repro_torch.convert, repro_torch.stream, repro_torch.obs, repro_torch.siso\n"
+        "repro_torch.convert, repro_torch.stream, repro_torch.obs, repro_torch.siso, "
+        "repro_torch.stream.scheduler, repro_torch.configs, repro_torch.serve, "
+        "repro_torch.train\n"
         "bad = [k for k in sys.modules if k.startswith('jax') or k == 'repro' "
         "or k.startswith('repro.')]\n"
         "assert not bad, bad\n"

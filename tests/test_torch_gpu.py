@@ -1,7 +1,8 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
 card, and the decode paths on the card (short blocks, tiled long blocks,
 streaming, the unpacked ``fused`` route, ``bcjr`` and turbo, the
-block-parallel ``parallel`` route) against the same decodes on the CPU.
+block-parallel ``parallel`` route, the stream scheduler) against the same
+decodes on the CPU; the scheduler's one synchronizing call a tick.
 
 Every test here is marked ``gpu`` and takes the ``card`` fixture, which
 skips inside the test when no CUDA device is present (so every worker
@@ -10,6 +11,7 @@ package, so it runs on a machine that has only the port's requirements:
 
     python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -826,3 +828,181 @@ def test_parallel_decode_on_card_matches_cpu_decode(card, metric, terminated, ch
     assert on_card.diagnostics == on_cpu.diagnostics == {"backend": "parallel", "chunk": chunk}
     assert torch.equal(on_card.bits.cpu(), on_cpu.bits)
     assert torch.equal(on_card.path_metric.cpu(), on_cpu.path_metric)
+
+
+# --------------------------------------------------------------------------- #
+# the stream scheduler on the card                                             #
+# --------------------------------------------------------------------------- #
+
+SCHED_KINDS = [  # backend, inputs, metric, punctured, terminated
+    ("fused", "bm", "hard", False, True),
+    ("fused", "bm", "soft", True, False),
+    ("scan", "bm", "soft", False, True),
+    ("fused_packed", "bm", "hard", False, False),
+    ("fused_packed", "received", "hard", False, True),
+    ("fused_packed", "received", "soft", True, False),
+]
+SCHED_KERNELS = {"fused": ("viterbi_scan_carry",),
+                 "fused_packed": ("viterbi_scan_packed_carry", "traceback_packed")}
+
+
+def _sched_rows(spec, inputs, n, seed):
+    """Per-stream host rows (numpy arrays, as a caller hands them over):
+    the channel output of random info bits, as raw symbols or bm tables."""
+    gen = torch.Generator().manual_seed(seed)
+    rows = {}
+    for i in range(n):
+        coded = spec.encode(torch.randint(0, 2, (1, (150, 211, 97, 260)[i % 4]), generator=gen))
+        rx = (spec.channel(gen, coded, snr_db=2.0) if spec.soft
+              else spec.channel(gen, coded, flip_prob=0.04))
+        rows[f"s{i}"] = (rx if inputs == "received" else spec.branch_metrics(rx))[0].numpy()
+    return rows
+
+
+def _arrivals(table, sizes=(40, 24, 57)):
+    i, k = 0, 0
+    while i < len(table):
+        yield table[i:i + sizes[k % len(sizes)]]
+        i += sizes[k % len(sizes)]
+        k += 1
+
+
+def _scheduler(spec, backend, inputs, device, **kw):
+    from repro_torch.stream import StreamScheduler
+
+    return StreamScheduler(spec, n_slots=3, chunk=64 if backend == "fused_packed" else 32,
+                           backend=backend, inputs=inputs, device=device, **kw)
+
+
+def _drive(sched, rows):
+    """Open every stream on a producer of uneven arrival chunks and tick to
+    the end; returns each tick's emitted bits."""
+    for sid, table in rows.items():
+        sched.open_stream(sid, producer=_arrivals(table))
+    ticks = []
+    while sched.pending_work():
+        ticks.append(sched.step())
+    return ticks
+
+
+def _same_schedulers(got, want, ticks_got, ticks_want):
+    assert len(ticks_got) == len(ticks_want)
+    for a, b in zip(ticks_got, ticks_want):
+        assert a.keys() == b.keys() and all((a[k] == b[k]).all() for k in a)
+    assert got.results.keys() == want.results.keys()
+    for sid, (bits, metric) in want.results.items():
+        assert (got.results[sid][0] == bits).all() and got.results[sid][1] == metric, sid
+    stats, ref = got.stats.asdict(), want.stats.asdict()
+    stats.pop("straggler_ticks"), ref.pop("straggler_ticks")  # wall-clock outliers
+    assert stats == ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,inputs,metric,punctured,terminated", SCHED_KINDS)
+def test_scheduler_on_card_matches_cpu_scheduler(card, backend, inputs, metric, punctured,
+                                                 terminated):
+    """Eight streams through three slots on uneven arrivals: every tick's
+    bits, the results (metrics exactly) and the stats equal the CPU
+    scheduler's; each tick launches the path's kernels once, no plain call."""
+    from repro_torch.obs import Telemetry
+
+    spec = CodecSpec(code=CODE_K7_NASA, metric=metric,
+                     puncture=PUNCTURE_2_3 if punctured else None, terminated=terminated)
+    rows = _sched_rows(spec, inputs, 8, 21)
+    tele = lambda: Telemetry(device_counters=True)  # noqa: E731
+    on_card = _scheduler(spec, backend, inputs, "cuda", telemetry=tele())
+    reset_counts()
+    ticks_card = _drive(on_card, rows)
+    torch.cuda.synchronize()
+    assert not plain_counts
+    for k in SCHED_KERNELS.get(backend, ()):
+        assert launch_counts[k] == on_card.stats.ticks > 0, k
+    on_cpu = _scheduler(spec, backend, inputs, "cpu", telemetry=tele())
+    _same_schedulers(on_card, on_cpu, ticks_card, _drive(on_cpu, rows))
+    assert on_card.stats.streams_finished == 8 and on_card.stats.slot_claims == 8
+
+
+@pytest.mark.gpu
+def test_scheduler_on_card_one_gather_and_one_step_per_tick(card, monkeypatch):
+    spec = CodecSpec(code=CODE_K7_NASA)
+    sched = _scheduler(spec, "fused_packed", "received", "cuda")
+    calls = {"gather": 0, "step": 0}
+    gather, step_fn = sched._gather, sched._step_fn
+
+    def counting_gather(*a):
+        calls["gather"] += 1
+        return gather(*a)
+
+    def counting_step(*a, **k):
+        calls["step"] += 1
+        return step_fn(*a, **k)
+
+    monkeypatch.setattr(sched, "_gather", counting_gather)
+    monkeypatch.setattr(sched, "_step_fn", counting_step)
+    _drive(sched, _sched_rows(spec, "received", 5, 22))
+    assert calls["gather"] == calls["step"] == sched.stats.ticks > 0
+
+
+def _syncs_per_tick(sched, n_ticks):
+    """Synchronizing CUDA calls of each of ``n_ticks`` ticks, counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    counts = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for _ in range(n_ticks):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sched.step()
+            counts.append(sum("synchronizing" in str(w.message) for w in caught))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_counters", [False, True])
+@pytest.mark.parametrize("backend,inputs", [("fused_packed", "received"), ("fused", "bm")])
+def test_scheduler_steady_tick_syncs_once(card, backend, inputs, device_counters):
+    """The commit's copy of the bits is a steady-state tick's ONE
+    synchronizing call, device counters on or off — also while producers
+    feed rows every tick (their upload is staged, not blocking)."""
+    from repro_torch.obs import Telemetry
+
+    spec = CodecSpec(code=CODE_K7_NASA)
+    sched = _scheduler(spec, backend, inputs, "cuda",
+                       telemetry=Telemetry(device_counters=device_counters))
+    for sid, table in _sched_rows(spec, inputs, 3, 23).items():
+        # long streams, fed by producers every tick: far from their flush
+        sched.open_stream(sid, producer=_arrivals(np.concatenate([table] * 8, axis=0)))
+    sched.step()  # warm: builds and first launches land before the count
+    sched.step()
+    assert _syncs_per_tick(sched, 4) == [1, 1, 1, 1]
+    assert len(sched.active) == 3 and sched.stats.ticks == 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,inputs", [("fused_packed", "received"), ("fused", "bm")])
+def test_scheduler_snapshot_on_card_restores_on_card(card, backend, inputs):
+    from repro_torch.stream import StreamScheduler
+
+    spec = CodecSpec(code=CODE_K7_NASA, metric="soft")
+    rows = _sched_rows(spec, inputs, 5, 24)
+    whole = _scheduler(spec, backend, inputs, "cuda")
+    for sid, table in rows.items():
+        whole.submit(sid, table)
+    want = whole.run()
+    cut = _scheduler(spec, backend, inputs, "cuda")
+    for sid, table in rows.items():
+        cut.submit(sid, table)
+    for _ in range(5):
+        cut.step()
+    snap = cut.snapshot()
+    assert snap.active and all(im.packed == (backend == "fused_packed") for im in snap.active)
+    restored = StreamScheduler.restore(snap)
+    assert restored.device.type == "cuda" and restored.state.ring.is_cuda
+    got = restored.run()
+    assert got.keys() == want.keys()
+    for sid in want:
+        assert (got[sid][0] == want[sid][0]).all() and got[sid][1] == want[sid][1]
