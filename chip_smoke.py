@@ -91,7 +91,23 @@ Phases (any failure raises and exits non-zero):
                the session's and a scheduler tick's shapes, and #11 at each
                of the seven
                combines of the ``parallel`` NASA decode, all on the operands
-               their decodes hand them; end-to-end times of every path.
+               their decodes hand them; end-to-end times of every path;
+ 11. analysis — the port's repo rules (RPR001-RPR005) over src/repro_torch
+               must be clean, and every registered backend's hot path
+               (``repro_torch.analysis.check_hot_paths``) runs once warm and
+               once under ``sanitized()`` with its op trace: per entry the
+               dispatched ops, host syncs against the contract's bound and
+               their lines, uploads, rebuilds (0), launches per kernel (each
+               named kernel > 0), plain calls (0) and contract violations
+               (0);
+ 12. paper   — the paper's comparison on the card, at its 4-state code and
+               at K=7 NASA, B as in the timing phase: the device-only time a
+               trellis step (CUDA graphs) of ACS without the custom
+               instruction (``acs_step_unfused``, torch ops a transition),
+               ``acs_step`` (torch ops), one ``texpand`` (#8) launch and the
+               fused unpacked scan (#6) over T=1006 divided by T, beside the
+               torch ops or launches a step; all four give equal metrics
+               and selects, and ``paper_expansion_calls(12) == 19``.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2070,6 +2086,131 @@ def phase_timing_walks(tiled, stream, parallel_walk):
 
 
 #: what a kernel row keeps of each of its further shapes
+def phase_analysis(smi):
+    """Phase 11: the repo rules over the port's tree, then every registered
+    backend's hot path under its contract and the sanitizer (after every
+    other phase: the catalog zeroes the launch counters per entry)."""
+    from repro_torch.analysis import check_hot_paths, lint_paths, problems
+
+    violations, n_files = lint_paths([Path(__file__).resolve().parent / "src" / "repro_torch"])
+    if violations:
+        _fail("repo rules: " + "; ".join(map(str, violations)))
+    print(f"[analysis] repo rules RPR001-RPR005: {n_files} files of src/repro_torch clean")
+    report = check_hot_paths(device="cuda")
+    table = {}
+    for name, e in report.items():
+        found = problems(e)
+        if e["host_syncs"] > e["max_host_syncs"]:
+            found.append(f"{e['host_syncs']} host syncs over the bound {e['max_host_syncs']}")
+        print(f"[analysis] {name} ({e['backend']}): {e['ops']} dispatched ops, host syncs "
+              f"{e['host_syncs']} / bound {e['max_host_syncs']} at {e['sync_sites']}, uploads "
+              f"{e['uploads']}, rebuilds {e['rebuilds']}, launches {e['launches']}, plain "
+              f"calls {e['plain']}, contract violations {len(e['violations'])} ({smi})")
+        if found:
+            _fail(f"analysis {name}: " + "; ".join(found))
+        table[name] = {k: e[k] for k in ("backend", "ops", "host_syncs", "max_host_syncs",
+                                         "sync_sites", "uploads", "rebuilds", "launches")}
+    return table
+
+
+#: the paper's comparison: its own 4-state encoder (Fig. 1(b)) and K=7 NASA
+PAPER_CODES = (("k3_paper", 3, (0b110, 0b010)), ("k7_nasa", 7, (0o171, 0o133)))
+#: steps driven one call a step for the equality check (the unfused K=7
+#: step is ~10^3 torch ops)
+PAPER_CHECK_T = 64
+#: calls captured in one CUDA graph per variant: (unfused, acs_step, texpand)
+PAPER_GRAPH_N = {"k3_paper": (50, 500, 500), "k7_nasa": (4, 200, 500)}
+
+
+def _stepped(step, code, bm_t):
+    """Drive ``step(code, pm, bm)`` over (T, B, M) tables from the state-0
+    start: (final pm (B, S), selects (T, B, S))."""
+    import torch
+
+    T, B, _ = bm_t.shape
+    pm = torch.full((B, code.n_states), 1e30, dtype=torch.float32, device=bm_t.device)
+    pm[:, 0] = 0.0
+    sel = []
+    for t in range(T):
+        pm, bp = step(code, pm, bm_t[t])
+        sel.append(bp)
+    return pm, torch.stack(sel)
+
+
+def _ops_per_call(fn) -> int:
+    """Ops one call of ``fn`` dispatches (the analogue of the paper's
+    instruction count for a step of torch ops)."""
+    from repro_torch.analysis.op_lint import OpRecorder
+
+    with OpRecorder() as rec:
+        fn()
+    return len(rec.ops)
+
+
+def phase_paper(smi):
+    """Phase 12: ACS without and with the custom instruction on the card."""
+    import torch
+
+    from repro_torch.core import ConvCode, acs_step, acs_step_unfused, paper_expansion_calls
+    from repro_torch.kernels import launch_counts, ops, reset_counts, viterbi_scan
+
+    calls = paper_expansion_calls(12)
+    if calls != 19:
+        _fail(f"paper_expansion_calls(12) = {calls}, the paper counts 19")
+    print(f"[paper] paper_expansion_calls(12) = {calls} (the paper's count, 4-state K=3)")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for label, K, polys in PAPER_CODES:
+        code = ConvCode(K, polys)
+        S, M = code.n_states, code.n_symbols
+        bm = torch.randn((B_MAIN, N_INFO + K - 1, M), generator=gen, device="cuda")
+        bm_t = bm.transpose(0, 1).contiguous()  # (T, B, M): one contiguous row a step
+        T = bm.shape[1]
+        # equality over the first PAPER_CHECK_T steps: metrics, and selects
+        # (the unfused step's survivor parity p & 1 is the select bit)
+        head, head_t = bm[:, :PAPER_CHECK_T].contiguous(), bm_t[:PAPER_CHECK_T]
+        reset_counts()
+        want_pm, want_sel = viterbi_scan.viterbi_scan(code, head)
+        for name, step in (("acs_step_unfused", acs_step_unfused), ("acs_step", acs_step),
+                           ("texpand", ops.texpand_op)):
+            pm, sel = _stepped(step, code, head_t)
+            torch.cuda.synchronize()
+            if not (torch.equal(pm, want_pm) and torch.equal(sel, want_sel)):
+                _fail(f"paper {label}: {name} disagrees with the fused scan over "
+                      f"{PAPER_CHECK_T} steps")
+        if launch_counts["texpand"] != PAPER_CHECK_T or launch_counts["viterbi_scan"] != 1:
+            _fail(f"paper {label}: launches {dict(launch_counts)}")
+        # per-step device-only times: one step's inputs mid-trellis
+        pm_mid = want_pm
+        step_bm = bm_t[PAPER_CHECK_T]
+        n_unfused, n_acs, n_tex = PAPER_GRAPH_N[label]
+        row = {"states": S, "batch": B_MAIN, "card": smi}
+        for name, fn, n in (
+            ("acs_step_unfused", lambda: acs_step_unfused(code, pm_mid, step_bm), n_unfused),
+            ("acs_step", lambda: acs_step(code, pm_mid, step_bm), n_acs),
+            ("texpand", lambda: ops.texpand_op(code, pm_mid, step_bm), n_tex),
+        ):
+            r, _ = _graph_ms(fn, n)
+            reset_counts()
+            n_ops = _ops_per_call(fn)
+            row[name] = {"ms_per_step": statistics.median(r), "rounds": r,
+                         "torch_ops_per_step": n_ops,
+                         "launches_per_step": launch_counts.get(name, 0)}
+        r, _ = _graph_ms(lambda: viterbi_scan.viterbi_scan(code, bm), 5)
+        row["fused_scan"] = {"ms_per_step": statistics.median(r) / T, "rounds_ms": r,
+                             "steps": T, "launches_per_step": 1 / T}
+        for name in ("acs_step_unfused", "acs_step", "texpand", "fused_scan"):
+            x = row[name]
+            print(f"[paper] {label} (S={S}, B={B_MAIN}): {name} {x['ms_per_step']!r} ms a step "
+                  f"(device-only), {x.get('torch_ops_per_step', 0)} torch ops and "
+                  f"{x['launches_per_step']!r} kernel launches a step ({smi})")
+        print(f"[paper] {label}: all four give equal metrics and selects over "
+              f"{PAPER_CHECK_T} steps; unfused / texpand step time "
+              f"{row['acs_step_unfused']['ms_per_step'] / row['texpand']['ms_per_step']!r}")
+        out[label] = row
+    return out
+
+
 SHAPE_KEYS = ("ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
               "bytes", "operations", "shape", "variant")
 
@@ -2193,6 +2334,12 @@ def main(argv=None) -> int:
                                     "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "shapes") if k in row}
                for row in rows]
+    mark("kernels table")
+    analysis = phase_analysis(smi)
+    mark("analysis")
+    paper = phase_paper(smi)
+    mark("paper")
+    print(json.dumps({"analysis": analysis, "paper": paper}))
     print(json.dumps({"end_to_end": e2e, "bound_inputs": [
         {k: r[k] for k in ("name", "bytes", "operations", "shape") if k in r} for r in rows]}))
     print(f"[done] wall time {time.perf_counter() - wall0!r} s")

@@ -1,6 +1,6 @@
 """Numeric core: trellis tables, encoder, channels, metrics, ACS, the plain
 decoders (sequential oracle, block-parallel, HMM) and the linear-chain CRF."""
-from repro_torch.core.acs import acs_step
+from repro_torch.core.acs import acs_step, acs_step_unfused
 from repro_torch.core.channel import (
     awgn,
     bpsk_modulate,
@@ -32,6 +32,7 @@ from repro_torch.core.trellis import (
     CODE_K7_NASA,
     NEG_UNREACHABLE,
     ConvCode,
+    paper_expansion_calls,
 )
 from repro_torch.core.viterbi import (
     hmm_viterbi,
@@ -52,6 +53,7 @@ __all__ = [
     "PUNCTURE_TURBO_1_2",
     "ConvCode",
     "acs_step",
+    "acs_step_unfused",
     "awgn",
     "bpsk_modulate",
     "bsc",
@@ -66,6 +68,7 @@ __all__ = [
     "hmm_viterbi",
     "minplus_matmul",
     "pack_symbols",
+    "paper_expansion_calls",
     "pattern_mask",
     "punctured_hard_metrics",
     "soft_branch_metrics",

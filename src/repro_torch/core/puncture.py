@@ -37,6 +37,14 @@ def pattern_mask(code, T: int, pattern: np.ndarray, device="cpu") -> torch.Tenso
     return torch.tensor(mask, dtype=torch.float32, device=device)
 
 
+def puncture(code: ConvCode, coded_bits: torch.Tensor, pattern: np.ndarray) -> torch.Tensor:
+    """Apply a puncture mask: (..., T, n_out) coded bits with the punctured
+    positions zeroed (not transmitted), float32 as the reference's (the
+    int32 bits times the float32 mask promote)."""
+    mask = pattern_mask(code, coded_bits.shape[-2], pattern, coded_bits.device)
+    return coded_bits * mask
+
+
 def punctured_hard_metrics(code: ConvCode, received_bits: torch.Tensor,
                            pattern: np.ndarray) -> torch.Tensor:
     """Hamming branch metrics with punctured positions as erasures.

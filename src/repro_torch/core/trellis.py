@@ -175,3 +175,15 @@ CODE_K3_STD = ConvCode(3, (0b111, 0b101))        # (7,5): the textbook K=3 code
 CODE_K3_PAPER = ConvCode(3, (0b110, 0b010))      # the encoder of the paper's Fig. 1(b)
 CODE_K5_GSM = ConvCode(5, (0b10011, 0b11101))    # GSM full-rate (23, 35)_oct, K=5
 CODE_K7_NASA = ConvCode(7, (0o171, 0o133))       # NASA/Voyager K=7 (171,133)
+
+
+def paper_expansion_calls(n_coded_bits: int, code: ConvCode = CODE_K3_STD) -> int:
+    """Number of trellis-expansion calls as counted by the paper (§V).
+
+    For the 4-state K=3 trellis and 12 coded bits the paper counts 19 calls:
+    the active-state frontier grows 1, 2, 4, 4, ... so the total over
+    T = n_coded_bits / n_out steps is ``sum_t min(2^t, S)``.
+    """
+    T = n_coded_bits // code.n_out
+    S = code.n_states
+    return int(sum(min(2 ** t, S) for t in range(T)))

@@ -46,7 +46,7 @@ def _result(spec, bits, metric, **diag) -> DecodeResult:
     return DecodeResult(bits=bits, path_metric=metric, spec=spec, diagnostics=diag)
 
 
-def _not_ported(name: str, item: int):
+def _not_ported(name: str, item: str):
     """Entry of a backend that is registered but not ported yet."""
 
     def entry(spec, data, *, ctx: DecodeContext) -> DecodeResult:
@@ -149,24 +149,6 @@ def decode_tiled(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> DecodeRes
                    overlap=ctx.tile_overlap, metrics="table")
 
 
-@register_decoder(
-    "streaming",
-    capabilities=BackendCapabilities(family="conv", supports_streaming=True, online=True),
-)
-def decode_streaming(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> DecodeResult:
-    """Truncated-traceback sliding window over the carried chunk scan kernel
-    (unpacked survivors) — O(depth + chunk) memory, the online path behind
-    stream sessions (stream/)."""
-    from repro_torch.stream.window import default_depth, viterbi_decode_windowed
-
-    depth = ctx.stream_depth if ctx.stream_depth is not None else default_depth(spec.code)
-    bits, metric = viterbi_decode_windowed(
-        spec.code, ctx.place(bm_tables), depth=depth, chunk=ctx.chunk,
-        terminated=spec.terminated,
-    )
-    return _result(spec, bits, metric, backend="streaming", depth=depth, chunk=ctx.chunk)
-
-
 @register_decoder("sequential", capabilities=BackendCapabilities(family="conv"))
 def decode_sequential(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> DecodeResult:
     """Plain sequential decoder — the oracle every other backend is tested
@@ -190,7 +172,7 @@ register_decoder(
     "seqparallel",
     capabilities=BackendCapabilities(family="conv", supports_mesh=True, requires_mesh=True),
     summary="sequence-parallel decode across a mesh (not ported yet)",
-)(_not_ported("seqparallel", 9))
+)(_not_ported("seqparallel", "9b"))
 
 register_decoder(
     "sharded_stream",
@@ -204,7 +186,7 @@ register_decoder(
         max_states=FUSED_MAX_STATES,
     ),
     summary="mesh-sharded streaming scheduler (not ported yet)",
-)(_not_ported("sharded_stream", 9))
+)(_not_ported("sharded_stream", "9b"))
 
 
 def _bcjr_from_received(spec: CodecSpec, received, *, ctx: DecodeContext) -> DecodeResult:
@@ -252,3 +234,21 @@ def decode_turbo(spec, llrs, *, ctx: DecodeContext) -> DecodeResult:
         iterations=result.iterations_run, converged=result.converged,
         agreement=result.agreement, llr=result.llr,
     )
+
+
+@register_decoder(
+    "streaming",
+    capabilities=BackendCapabilities(family="conv", supports_streaming=True, online=True),
+)
+def decode_streaming(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> DecodeResult:
+    """Truncated-traceback sliding window over the carried chunk scan kernel
+    (unpacked survivors) — O(depth + chunk) memory, the online path behind
+    stream sessions (stream/)."""
+    from repro_torch.stream.window import default_depth, viterbi_decode_windowed
+
+    depth = ctx.stream_depth if ctx.stream_depth is not None else default_depth(spec.code)
+    bits, metric = viterbi_decode_windowed(
+        spec.code, ctx.place(bm_tables), depth=depth, chunk=ctx.chunk,
+        terminated=spec.terminated,
+    )
+    return _result(spec, bits, metric, backend="streaming", depth=depth, chunk=ctx.chunk)

@@ -15,7 +15,7 @@ The planner (planner.py) reads the capability records to auto-select.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Protocol, Tuple
+from typing import Callable, Dict, ItemsView, Iterator, Optional, Protocol, Tuple
 
 from repro_torch.decode.request import DecodeContext, DecodeResult
 from repro_torch.decode.spec import CodecSpec
@@ -121,6 +121,15 @@ class DecoderRegistry:
 
     def names(self) -> Tuple[str, ...]:
         return tuple(sorted(self._decoders))
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._decoders
+
+    def __iter__(self) -> Iterator[RegisteredDecoder]:
+        return iter(self._decoders.values())
+
+    def items(self) -> ItemsView[str, RegisteredDecoder]:
+        return self._decoders.items()
 
 
 #: The process-wide registry every built-in backend registers onto.

@@ -73,6 +73,17 @@ class DecodeRequest:
             raise ValueError("DecodeRequest needs received or bm_tables")
         return tuple(src.shape[:2])
 
+    def metrics(self, ctx: Optional[DecodeContext] = None):
+        """Branch-metric tables for this request: the precomputed
+        ``bm_tables`` as handed in, else built from ``received`` through the
+        spec on ``ctx``'s device (the card unless ``ctx`` says otherwise)."""
+        if self.bm_tables is not None:
+            return self.bm_tables
+        if self.received is None:
+            raise ValueError("DecodeRequest needs received or bm_tables")
+        ctx = DecodeContext() if ctx is None else ctx
+        return self.spec.branch_metrics(ctx.place(self.received))
+
 
 @dataclasses.dataclass
 class DecodeResult:

@@ -20,6 +20,7 @@ import logging
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List
 
@@ -28,6 +29,10 @@ log = logging.getLogger(__name__)
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
+
+#: "compile" (one nvcc run of a source) and "load" (one library loaded) —
+#: a steady-state call adds neither (analysis.guards counts them as rebuilds)
+events: Counter = Counter()
 
 #: Hopper with its arch-specific features (the ``a``), exact float math (no
 #: --use_fast_math), and ptxas's register / shared-memory report.
@@ -95,6 +100,7 @@ def build_all() -> Dict[str, Library]:
         if so.exists():
             continue
         log.info("building %s: %s", name, " ".join(cmd))
+        events["compile"] += 1
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((libs[name], tmp, proc))
     failed = []
@@ -113,7 +119,9 @@ def build_all() -> Dict[str, Library]:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``."""
-    return ctypes.CDLL(str(build_all()[name].path))
+    lib = ctypes.CDLL(str(build_all()[name].path))
+    events["load"] += 1
+    return lib
 
 
 def raise_on_error(lib: ctypes.CDLL, error_string: str, kernel: str, err: int) -> None:

@@ -68,7 +68,8 @@ def distinct_rows(*tables: np.ndarray) -> Tuple[np.ndarray, List[np.ndarray]]:
     index: dict = {}
     maps = []
     for w in tables:
-        maps.append(np.array([index.setdefault(row.tobytes(), len(index)) for row in w],
+        # a host list of row indices: no device read
+        maps.append(np.array([index.setdefault(row.tobytes(), len(index)) for row in w],  # repr-lint: allow[RPR003]
                              dtype=np.int32))
     F = tables[0].shape[1]
     rows = np.frombuffer(b"".join(index), dtype=np.float32).reshape(len(index), F).copy()

@@ -34,7 +34,8 @@ def _phase_mask(
     """(T, n) 0/1 CPU puncture mask for trellis steps starting at ``phase``
     within the pattern period (callers reduce an absolute t0 mod period, so
     the key space — and the cache — is bounded by the period)."""
-    return pattern_mask(code, phase + T, np.asarray(pattern))[phase:]
+    # the pattern is a host tuple: no device read
+    return pattern_mask(code, phase + T, np.asarray(pattern))[phase:]  # repr-lint: allow[RPR003]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,10 +98,11 @@ def fused_metric_plan(
     """Build the affine in-kernel form of a branch metric (see module doc)."""
     if metric not in ("hard", "soft"):
         raise ValueError(f"metric must be 'hard' or 'soft', got {metric!r}")
-    X = np.asarray(code.symbol_bits, np.float64)
+    # plan construction reads the code's host tables only: no device read
+    X = np.asarray(code.symbol_bits, np.float64)  # repr-lint: allow[RPR003]
     punct = (
         None if puncture is None
-        else tuple(tuple(int(v) for v in row) for row in np.asarray(puncture))
+        else tuple(tuple(int(v) for v in row) for row in puncture)
     )
     if metric == "soft":
         W = 2.0 * X - 1.0

@@ -146,7 +146,7 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty(batch + (I, J), dtype=torch.float32, device=a.device)
     lib, fn, _ = _launcher()
     err = fn(a4.data_ptr(), b4.data_ptr(), out.data_ptr(), N0, N1, *sa, *sb, I, K, J,
-             float(init), torch.cuda.current_stream(a.device).cuda_stream)
+             init, torch.cuda.current_stream(a.device).cuda_stream)
     _build.raise_on_error(lib, "minplus_error_string", NAME, err)
     launch_counts[NAME] += 1
     return out

@@ -199,7 +199,8 @@ def viterbi_decode_fused_packed(
 def _tile_lane_row(per_tile: np.ndarray, B: int, S: int = 1, device="cpu") -> torch.Tensor:
     """Per-tile (P,) int vector -> per-lane (B*P*S,) int32 row in the
     canonical lane order (b outer, p middle, s inner)."""
-    v = np.repeat(np.tile(np.asarray(per_tile, np.int32), B), S)
+    # per_tile is a host array of the tile plan: no device read
+    v = np.repeat(np.tile(np.asarray(per_tile, np.int32), B), S)  # repr-lint: allow[RPR003]
     return torch.from_numpy(v).to(device)
 
 
@@ -207,7 +208,7 @@ def _tile_data(data_btf: torch.Tensor, tp: _tiling.TilePlan) -> torch.Tensor:
     """(B, T, F) -> (B*P, span, F) float32: every tile's span gathered onto
     the lane axis, lanes (b, p)."""
     B, _, F = data_btf.shape
-    idx = torch.from_numpy(tp.gather_index()).long().to(data_btf.device)  # (P, span)
+    idx = torch.from_numpy(tp.gather_index()).to(data_btf.device).long()  # (P, span)
     tiles = data_btf.to(torch.float32)[:, idx]  # (B, P, span, F)
     return tiles.reshape(B * tp.n_tiles, tp.span, F)
 

@@ -227,6 +227,7 @@ def restore_scheduler(
     snap: StreamSnapshot,
     *,
     mesh=None,
+    mesh_axis: str = "data",
     telemetry=None,
     device="cuda",
 ):
@@ -263,6 +264,7 @@ def restore_scheduler(
         max_buffered=cfg["max_buffered"],
         max_pending=cfg["max_pending"],
         mesh=mesh,
+        mesh_axis=mesh_axis,
         telemetry=telemetry,
     )
 

@@ -179,6 +179,8 @@ class StreamScheduler:
         (None -> 8 * chunk).  ``open_stream`` can override per stream.
       max_pending: overload bound on streams awaiting a slot (None: none).
       mesh: not ported yet — anything but None raises.
+      mesh_axis: the reference's mesh axis name, taken for its signature;
+        unused while ``mesh`` is None.
       telemetry: obs.Telemetry bundle.  The metrics registry (always live)
         absorbs SchedulerStats plus the arrival-to-commit latency histogram;
         an attached tracer records tick-phase spans (see TICK_PHASES);
@@ -211,6 +213,7 @@ class StreamScheduler:
         max_buffered: Optional[int] = None,
         max_pending: Optional[int] = None,
         mesh: Optional[object] = None,
+        mesh_axis: str = "data",
         telemetry: Optional[Telemetry] = None,
     ):
         if mesh is not None:
@@ -617,7 +620,7 @@ class StreamScheduler:
         with span(tr, "commit"):
             # the sanctioned device->host transfer: every other per-tick
             # value stays device-resident (DeviceCounters, arena, ring)
-            bits_np = bits.cpu().numpy()
+            bits_np = bits.cpu().numpy()  # repr-lint: allow[RPR003]
             self.stats.ticks += 1
             self.stats.steps_decoded += len(ready) * self.chunk
             now = time.monotonic()
@@ -790,6 +793,7 @@ class StreamScheduler:
         snap,
         *,
         mesh: Optional[object] = None,
+        mesh_axis: str = "data",
         telemetry: Optional[Telemetry] = None,
         device="cuda",
     ) -> "StreamScheduler":
@@ -798,7 +802,8 @@ class StreamScheduler:
         restored; re-attach with ``attach_producer``."""
         from repro_torch.stream.resilience import restore_scheduler
 
-        return restore_scheduler(snap, mesh=mesh, telemetry=telemetry, device=device)
+        return restore_scheduler(snap, mesh=mesh, mesh_axis=mesh_axis, telemetry=telemetry,
+                                 device=device)
 
     # ------------------------------ internals ------------------------------ #
 

@@ -72,6 +72,8 @@ class StreamSession:
         channel symbols and the kernel computes the metrics.
       normalize: renormalize path metrics every chunk.
       mesh: not ported yet — anything but None raises.
+      mesh_axis: the reference's mesh axis name, taken for its signature;
+        unused while ``mesh`` is None.
       telemetry: obs.Telemetry bundle — an attached tracer records ``push``
         / ``finish`` spans; ``device_counters=True`` carries DeviceCounters
         through every push, read back only by :meth:`device_counter_report`.
@@ -90,6 +92,7 @@ class StreamSession:
         normalize: bool = True,
         inputs: str = "bm",
         mesh: Optional[object] = None,
+        mesh_axis: str = "data",
         telemetry: Optional[Telemetry] = None,
         validate: bool = True,
         device="cuda",
@@ -97,7 +100,7 @@ class StreamSession:
         if mesh is not None:
             raise NotImplementedError(
                 "StreamSession(mesh=...) is not ported to repro_torch yet "
-                "(ROADMAP.md queue 1, item 9)"
+                "(ROADMAP.md queue 1, item 9b)"
             )
         if chunk < 1:
             raise ValueError("chunk must be >= 1")

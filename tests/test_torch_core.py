@@ -227,7 +227,8 @@ def test_import_loads_neither_jax_nor_reference():
         "import sys, repro_torch, repro_torch.decode, repro_torch.kernels, "
         "repro_torch.convert, repro_torch.stream, repro_torch.obs, repro_torch.siso, "
         "repro_torch.stream.scheduler, repro_torch.configs, repro_torch.serve, "
-        "repro_torch.train\n"
+        "repro_torch.serve.bits, repro_torch.train, repro_torch.analysis, "
+        "repro_torch.analysis.hotpaths, repro_torch.analysis.__main__\n"
         "bad = [k for k in sys.modules if k.startswith('jax') or k == 'repro' "
         "or k.startswith('repro.')]\n"
         "assert not bad, bad\n"

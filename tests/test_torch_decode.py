@@ -32,6 +32,14 @@ NOT_PORTED = ("seqparallel", "sharded_stream")
 #: backends bcjr and turbo: tests/test_torch_siso.py; the parallel grid:
 #: tests/test_torch_parallel.py)
 PORTED_SINCE = ("fused", "parallel", "streaming", "tiled")
+#: every registered backend, each on a leg of the port's CPU parity grid:
+#: fused_packed and sequential (the decode grid), PORTED_SINCE (their
+#: registry entries), NOT_PORTED (they raise), bcjr and turbo
+#: (tests/test_torch_siso.py) — the repo linter's RPR004 reads this tuple
+EXPECTED_BACKENDS = (
+    "bcjr", "fused", "fused_packed", "parallel", "seqparallel", "sequential",
+    "sharded_stream", "streaming", "tiled", "turbo",
+)
 
 
 def _specs(code_name, metric, punctured, terminated):
@@ -196,12 +204,18 @@ def test_registry_mirrors_reference_capabilities():
         assert dec.summary
 
 
+def test_expected_backends_are_the_registry_and_each_rides_a_grid_leg():
+    assert PD.list_decoders() == RD.list_decoders() == tuple(sorted(EXPECTED_BACKENDS))
+    legs = {"fused_packed", "sequential", "bcjr", "turbo", *PORTED_SINCE, *NOT_PORTED}
+    assert legs == set(EXPECTED_BACKENDS)
+
+
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_backends_not_ported_raise_by_name(name):
     _, pspec = _specs("k3", "hard", False, True)
     bm = torch.zeros((2, 10, pspec.table_width))
     dec = PD.get_decoder(name)
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.*item 9b"):
         dec(pspec, bm, ctx=CPU)
     if dec.from_received is not None:
         with pytest.raises(NotImplementedError, match=name):

@@ -1,8 +1,10 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
 card, and the decode paths on the card (short blocks, tiled long blocks,
 streaming, the unpacked ``fused`` route, ``bcjr`` and turbo, the
-block-parallel ``parallel`` route, the stream scheduler) against the same
-decodes on the CPU; the scheduler's one synchronizing call a tick.
+block-parallel ``parallel`` route, the stream scheduler, every registered
+backend) against the same decodes on the CPU; the scheduler's one
+synchronizing call a tick; the analysis layer's hot-path catalog and
+sanitizer on the card; the paper's unfused ACS step.
 
 Every test here is marked ``gpu`` and takes the ``card`` fixture, which
 skips inside the test when no CUDA device is present (so every worker
@@ -1006,3 +1008,116 @@ def test_scheduler_snapshot_on_card_restores_on_card(card, backend, inputs):
     assert got.keys() == want.keys()
     for sid in want:
         assert (got[sid][0] == want[sid][0]).all() and got[sid][1] == want[sid][1]
+
+
+# --------------------------------------------------------------------------- #
+# every backend on the card; the analysis layer; the paper's baseline         #
+# --------------------------------------------------------------------------- #
+
+#: every registered backend a card test decodes (the repo linter's RPR004
+#: card leg); seqparallel and sharded_stream raise (ROADMAP item 9b) and are
+#: exempt there
+CARD_BACKENDS = ("bcjr", "fused", "fused_packed", "parallel", "sequential", "streaming",
+                 "tiled", "turbo")
+#: the kernels one decode of each backend launches on the card
+CARD_BACKEND_KERNELS = {
+    "bcjr": {"bcjr_alpha_scan", "bcjr_beta_llr_scan"},
+    "fused": {"viterbi_scan"},
+    "fused_packed": {"viterbi_scan_packed", "traceback_packed"},
+    "parallel": {"viterbi_scan_packed_window", "minplus_matmul", "viterbi_scan_carry",
+                 "traceback_packed"},
+    "sequential": set(),
+    "streaming": {"viterbi_scan_carry"},
+    "tiled": {"viterbi_scan_packed_window", "traceback_packed_window"},
+    "turbo": {"bcjr_alpha_scan", "bcjr_beta_llr_scan"},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", CARD_BACKENDS)
+def test_every_backend_decodes_on_card_as_on_cpu(card, backend):
+    from repro_torch.siso import RSC_K4_LTE, QPPInterleaver, TurboSpec
+
+    gen = torch.Generator().manual_seed(31)
+    if backend == "turbo":
+        spec = TurboSpec(code=RSC_K4_LTE, interleaver=QPPInterleaver(64, 7, 16))
+        rx = spec.channel(gen, spec.encode(torch.randint(0, 2, (12, 64), generator=gen)),
+                          snr_db=0.0)
+    else:
+        code = RSC_K4_LTE if backend == "bcjr" else CODE_K7_NASA
+        spec = CodecSpec(code=code, metric="soft")
+        rx = spec.channel(gen, spec.encode(torch.randint(0, 2, (12, 150), generator=gen)),
+                          snr_db=2.0)
+    kw = dict(chunk=32, tiles=4 if backend == "tiled" else None)
+    reset_counts()
+    on_card = decode(DecodeRequest(spec, received=rx.to(card)), backend=backend,
+                     ctx=DecodeContext(**kw))
+    torch.cuda.synchronize()
+    assert set(launch_counts) == CARD_BACKEND_KERNELS[backend] and not plain_counts
+    on_cpu = decode(DecodeRequest(spec, received=rx), backend=backend,
+                    ctx=DecodeContext(device="cpu", **kw))
+    assert on_card.plan.backend == on_cpu.plan.backend == backend
+    assert torch.equal(on_card.bits.cpu(), on_cpu.bits)
+    if backend == "turbo":
+        # a float32 mean of |LLR|: the card's reduction adds in another
+        # order (the port's stated turbo-metric tolerance)
+        torch.testing.assert_close(on_card.path_metric.cpu(), on_cpu.path_metric,
+                                   rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(on_card.path_metric.cpu(), on_cpu.path_metric)
+
+
+@pytest.mark.gpu
+def test_hot_path_catalog_on_card_is_clean(card):
+    from repro_torch.analysis import check_hot_paths, problems
+    from repro_torch.decode import list_decoders
+
+    report = check_hot_paths(device="cuda")
+    assert {entry["backend"] for entry in report.values()} == set(list_decoders())
+    for name, entry in report.items():
+        assert problems(entry) == [], name
+        assert entry["host_syncs"] <= entry["max_host_syncs"], (name, entry["sync_sites"])
+    assert report["stream_tick"]["host_syncs"] == 1
+
+
+@pytest.mark.gpu
+def test_sanitized_on_card_counts_syncs_and_guards_transfers(card):
+    from repro_torch.analysis import TransferError, sanitized
+
+    x = torch.arange(8.0, device=card)
+    # warm: the first use of an op in a process may synchronize once
+    x.sum().item(), x.cpu(), torch.isnan(x).any().item(), (x - 2.0).log()
+    torch.ones(4).pin_memory().to(card, non_blocking=True)
+    torch.cuda.synchronize()
+    with sanitized() as rep:
+        x.sum().item()
+        x.cpu()
+        assert rep.host_syncs == 2, dict(rep.sync_sites)
+        assert all("test_torch_gpu.py:" in site for site in rep.sync_sites)
+        staged = torch.ones(4).pin_memory().to(card, non_blocking=True)
+        assert rep.host_syncs == 2 and rep.uploads == 1  # staged: no sync
+        with pytest.raises(TransferError):
+            x[torch.tensor([0, 1])]  # a host index tensor in a card op
+        assert rep.host_syncs > 2  # its implicit copy blocked, and was counted
+        n = rep.host_syncs
+        with pytest.raises(FloatingPointError):
+            torch.log(staged - 2.0)
+        assert rep.host_syncs == n  # the NaN check's reads are not counted
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,polys", [(3, (0b110, 0b010)), (3, (0b111, 0b101)),
+                                     (7, (0o171, 0o133))])
+def test_acs_step_unfused_on_card_equals_acs_step_and_cpu(card, K, polys):
+    from repro_torch.core import acs_step, acs_step_unfused
+
+    code = ConvCode(K, polys)
+    gen = torch.Generator().manual_seed(K)
+    pm = torch.randint(0, 4, (64, code.n_states), generator=gen).float()
+    bm = torch.randint(0, 3, (64, code.n_symbols), generator=gen).float()
+    got_pm, got_par = acs_step_unfused(code, pm.to(card), bm.to(card))
+    want_pm, want_bp = acs_step(code, pm.to(card), bm.to(card))
+    assert torch.equal(got_pm, want_pm) and torch.equal(got_par, want_bp)
+    cpu_pm, cpu_par = acs_step_unfused(code, pm, bm)
+    assert torch.equal(got_pm.cpu(), cpu_pm) and torch.equal(got_par.cpu(), cpu_par)
