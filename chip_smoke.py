@@ -107,7 +107,24 @@ Phases (any failure raises and exits non-zero):
                ``acs_step`` (torch ops), one ``texpand`` (#8) launch and the
                fused unpacked scan (#6) over T=1006 divided by T, beside the
                torch ops or launches a step; all four give equal metrics
-               and selects, and ``paper_expansion_calls(12) == 19``.
+               and selects, and ``paper_expansion_calls(12) == 19``;
+ 13. lm_serve — the LM serving path at qwen2.5-3b's full width (36 layers,
+               d=2048, GQA 16/2, d_ff 11008, vocab 151936, QKV bias, tied
+               embeddings; random weights from the seed): ``build`` on the
+               card, greedy ``ServeEngine.generate`` of 32 tokens after 4
+               prompts of 16 (no host sync a token: counted at 32 and 16
+               tokens), parameter count beside ``param_count()``, bytes held,
+               ``cache_bytes``, peak memory, prefill and decode-step times
+               (CUDA events, median of 5 rounds) and tokens/s beside the
+               step's byte bound; teacher forcing — prefill(16) + decode(token
+               16) against a full forward over 17 tokens — in bf16 (logits
+               within its stated tolerance, the decode's argmax a maximum of
+               the full forward up to it) and in float32 compute (the same
+               argmax in every row);
+ 14. serve_scenario — the paper's pipeline (examples/serve_viterbi.py): the
+               LM's tokens at 18 bits a token -> the K=3 code -> a BSC at flip
+               0, 0.01, 0.03 -> the planned decode (``fused_packed``: #1 and
+               #2, no plain call); bits and tokens exact at flip 0.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2211,6 +2228,254 @@ def phase_paper(smi):
     return out
 
 
+#: the LM serving path: qwen2.5-3b at full width (src/repro/configs/qwen2_5_3b.py),
+#: B prompts of LM_PROMPT tokens, LM_NEW new tokens, greedy
+LM_ARCH, LM_B, LM_PROMPT, LM_NEW = "qwen2_5_3b", 4, 16, 32
+#: timed rounds (CUDA events) of a prefill, of LM_DECODE_REPS decode steps, of a generate
+LM_ROUNDS, LM_DECODE_REPS = 5, 8
+#: teacher-forcing tolerances at full width, |decode - full forward| <= atol +
+#: rtol * |full forward|.  bf16: a few bf16 ulps at the logits' scale (ulp
+#: 0.03125 at |logit| in [4, 8)) — the prefill's chunked softmax and the
+#: decode's masked softmax round p at different points, and GEMMs of 1, 16
+#: and 17 rows sum in different orders, at every one of 36 layers.  float32
+#: compute: the bf16 caches alone (the full forward never reads them)
+LM_TF_TOL = {"bfloat16": (0.25, 0.05), "float32": (0.05, 0.02)}
+#: the serving scenario's channel: BSC flip probabilities
+SCENARIO_FLIPS = (0.0, 0.01, 0.03)
+
+
+def _lm_forward_check(model, params, toks, dtype):
+    """Teacher forcing at full width in ``dtype`` compute: prefill(S) then
+    decode(token S) against a full forward over S+1 tokens, position S.
+    Returns (max |diff|, argmax rows equal, rows whose argmax differs with
+    the full forward's logit at the decode's argmax below its max, top-2
+    margins of the full forward)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model_zoo import Model
+
+    cfg = dataclasses.replace(model.cfg, compute_dtype=dtype)
+    m = Model(cfg=cfg, part=model.part, param_specs=model.param_specs, device=model.device)
+    B, S1 = toks.shape
+    S = S1 - 1
+    x = tf.embed_tokens(params, cfg, toks)
+    x, _ = tf.run_stack_full(params["blocks"], cfg, m.part, x)
+    x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps, compute_dtype=cm.dtype_of(dtype))
+    full = tf.lm_head(params, cfg, x)[:, S].float()
+    caches = m.init_cache(B, S1)
+    _, caches = m.prefill(params, {"tokens": toks[:, :S]}, caches)
+    dec, _ = m.decode_step(params, toks[:, S:], torch.full((B,), S, dtype=torch.int32,
+                                                         device=toks.device), caches)
+    dec = dec.float()
+    if dec.shape != full.shape or not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        _fail(f"lm_serve {dtype}: bad logits {tuple(dec.shape)} or non-finite values")
+    atol, rtol = LM_TF_TOL[dtype]
+    diff = (dec - full).abs()
+    over = (diff > atol + rtol * full.abs()).sum().item()
+    arg_d, arg_f = dec.argmax(-1), full.argmax(-1)
+    top2 = full.topk(2, dim=-1).values
+    below = (full.max(-1).values - full.gather(1, arg_d[:, None])[:, 0]).tolist()
+    return {"max_abs_diff": diff.max().item(), "over_tolerance": over,
+            "argmax_equal": (arg_d == arg_f).tolist(), "decode_argmax_below_max": below,
+            "top2_margin": (top2[:, 0] - top2[:, 1]).tolist(), "atol": atol, "rtol": rtol}
+
+
+def _host_syncs(fn) -> tuple:
+    """``fn()``'s result and the synchronizing CUDA calls it made, with
+    their caller lines (the analysis layer's counter)."""
+    from repro_torch.analysis import sanitized
+
+    with sanitized(transfer_guard=None, debug_nans=False) as rep:
+        out = fn()
+    return out, rep.host_syncs, dict(rep.sync_sites)
+
+
+def phase_lm_serve(smi, seed):
+    """Phase 13: the LM serving path at qwen2.5-3b's full width on the card:
+    ``build`` + ``init`` from a seeded generator, greedy ``ServeEngine``
+    generation, its host syncs, prefill and decode-step times, peak memory,
+    and the teacher-forcing check in bf16 (the served dtype) and float32
+    compute."""
+    import torch
+
+    from repro_torch.analysis.op_lint import OpRecorder
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine, cache_bytes
+
+    torch.cuda.synchronize()
+    live0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(get_arch(LM_ARCH))
+    cfg = model.cfg
+    if model.device.type != "cuda":
+        _fail(f"lm_serve: model built on {model.device}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        else:
+            leaves.append(node)
+    n_params = sum(t.numel() for t in leaves)
+    held = sum(t.numel() * t.element_size() for t in leaves)
+    counted = cfg.param_count()["total"]
+    # param_count() leaves out the norms' scales and the QKV biases
+    hd = cfg.resolved_head_dim
+    extra = (2 * cfg.n_layers + 1) * cfg.d_model + (
+        cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd if cfg.qkv_bias else 0)
+    if n_params != counted + extra or not all(t.device.type == "cuda" for t in leaves):
+        _fail(f"lm_serve: {n_params} parameters on the card, param_count() {counted} + "
+              f"norms and biases {extra}")
+    kv_bytes = cache_bytes(model, LM_B, LM_PROMPT + LM_NEW)
+    print(f"[lm_serve] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} heads "
+          f"({cfg.n_kv_heads} KV), head_dim {hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{n_params} parameters in tensors, param_count()['total'] {counted!r} (+ {extra} norm "
+          f"scales and QKV biases), {held} bytes held (float32), init {init_s!r} s; "
+          f"cache_bytes(model, {LM_B}, {LM_PROMPT + LM_NEW}) = {kv_bytes} ({smi})")
+
+    prompts = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT), generator=gen, device="cuda")
+    engine = ServeEngine(model, params, max_len=LM_PROMPT + LM_NEW)
+    engine.generate(prompts, LM_NEW)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    out, syncs, sites = _host_syncs(lambda: engine.generate(prompts, LM_NEW))
+    _, syncs_half, _ = _host_syncs(lambda: engine.generate(prompts, LM_NEW // 2))
+    tokens = out["tokens"]
+    host_tokens = tokens.cpu()  # the final read
+    print(f"[lm_serve] host syncs inside generate: {syncs} for {LM_NEW} tokens, {syncs_half} for "
+          f"{LM_NEW // 2} (sites {sites}); then one read of the tokens ({smi})")
+    if syncs != syncs_half:
+        _fail(f"lm_serve: generate syncs per token ({syncs} for {LM_NEW}, {syncs_half} for "
+              f"{LM_NEW // 2})")
+    if tuple(host_tokens.shape) != (LM_B, LM_NEW) or host_tokens.dtype != torch.int32 or not (
+            (host_tokens >= 0) & (host_tokens < cfg.vocab)).all():
+        _fail(f"lm_serve: bad tokens {tuple(host_tokens.shape)} {host_tokens.dtype}")
+    again = engine.generate(prompts, LM_NEW)["tokens"]
+    if not torch.equal(again, tokens):
+        _fail("lm_serve: greedy generation is not deterministic")
+
+    with torch.inference_mode():
+        caches = model.init_cache(LM_B, LM_PROMPT + LM_NEW)
+        batch = {"tokens": prompts}
+        prefill = _event_ms(lambda: model.prefill(params, batch, caches), 1, LM_ROUNDS)
+        tok = tokens[:, :1]
+        pos = torch.full((LM_B,), LM_PROMPT, dtype=torch.int32, device="cuda")
+        step = _event_ms(lambda: model.decode_step(params, tok, pos, caches), LM_DECODE_REPS,
+                         LM_ROUNDS)
+        with OpRecorder() as rec:
+            model.decode_step(params, tok, pos, caches)
+        step_ops = len(rec.ops)
+        with OpRecorder() as rec:
+            model.prefill(params, batch, caches)
+        prefill_ops = len(rec.ops)
+    gen_ms = _event_ms(lambda: engine.generate(prompts, LM_NEW), 1, 3, warmup=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        # device-only: the same calls replayed from a CUDA graph (a
+        # measurement; the served path is eager), after the peak's reading
+        step_dev, _ = _graph_ms(lambda: model.decode_step(params, tok, pos, caches), 4)
+        prefill_dev, _ = _graph_ms(lambda: model.prefill(params, batch, caches), 1)
+    # the step's bytes as written: each layer parameter and the tied table
+    # read as float32 (4 B), its bf16 copy written (2 B) and read by the
+    # product (2 B); the floor reads each float32 parameter once
+    step_bytes = 8 * counted
+    row = {
+        "arch": cfg.name, "batch": LM_B, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+        "params_in_tensors": n_params, "param_count_total": counted, "bytes_held": held,
+        "cache_bytes": kv_bytes, "peak_bytes": peak, "peak_bytes_above_phase_start": peak - live0,
+        "prefill_ms": statistics.median(prefill), "prefill_rounds": prefill,
+        "decode_ms_per_token": statistics.median(step), "decode_rounds": step,
+        "prefill_device_ms": statistics.median(prefill_dev), "prefill_device_rounds": prefill_dev,
+        "decode_device_ms": statistics.median(step_dev), "decode_device_rounds": step_dev,
+        "generate_ms": statistics.median(gen_ms), "generate_rounds": gen_ms,
+        "tokens_per_s": LM_B * LM_NEW / (statistics.median(gen_ms) / 1e3),
+        "decode_ops": step_ops, "prefill_ops": prefill_ops,
+        "step_bytes_as_written": step_bytes, "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "fp32_read_once_bound_ms": 4 * counted / HBM_BYTES_PER_S * 1e3,
+        "host_syncs_generate": syncs, "card": smi,
+    }
+    print(f"[lm_serve] prefill ({LM_B} x {LM_PROMPT}) {row['prefill_ms']!r} ms (rounds {prefill}, "
+          f"{prefill_ops} dispatched ops); decode {row['decode_ms_per_token']!r} ms a token "
+          f"(rounds {step}, {step_ops} dispatched ops a step); generate {LM_NEW} tokens "
+          f"{row['generate_ms']!r} ms = {row['tokens_per_s']!r} tokens/s; step bound as written "
+          f"{row['step_bound_ms']!r} ms ({step_bytes} bytes), float32 read once "
+          f"{row['fp32_read_once_bound_ms']!r} ms; device-only (CUDA graph replays) prefill "
+          f"{row['prefill_device_ms']!r} ms {prefill_dev}, decode step "
+          f"{row['decode_device_ms']!r} ms {step_dev}; peak {peak} bytes ({peak - live0} above "
+          f"the phase's start) ({smi})")
+
+    toks = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT + 1), generator=gen, device="cuda")
+    with torch.inference_mode():
+        for dtype in ("bfloat16", "float32"):
+            tf = _lm_forward_check(model, params, toks, dtype)
+            print(f"[lm_serve] teacher forcing, {dtype} compute: {tf} ({smi})")
+            if tf["over_tolerance"]:
+                _fail(f"lm_serve {dtype}: {tf['over_tolerance']} logits beyond atol {tf['atol']} "
+                      f"+ rtol {tf['rtol']}")
+            # float32: the same argmax in every row; bf16: the decode's
+            # argmax is a maximum of the full forward up to the tolerance
+            # (bf16 logits tie at their maximum: ulp 0.03125 at 4-8)
+            if dtype == "float32" and not all(tf["argmax_equal"]):
+                _fail(f"lm_serve float32: argmax differs: {tf}")
+            if max(tf["decode_argmax_below_max"]) > tf["atol"]:
+                _fail(f"lm_serve {dtype}: the decode's argmax is no maximum of the full forward")
+            row[f"teacher_forcing_{dtype}"] = tf
+    return row, tokens
+
+
+def phase_serve_scenario(tokens, smi):
+    """Phase 14: the paper's serving scenario on the card: the LM's tokens
+    (vocab 151936: 18 bits a token) -> bits -> the K=3 code -> a BSC ->
+    the planned decode (#1 and #2)."""
+    import torch
+
+    from repro_torch.configs import DECODE_SPEC
+    from repro_torch.decode import DecodeRequest, decode
+    from repro_torch.kernels import reset_counts
+    from repro_torch.serve import bits_to_tokens, tokens_to_bits
+
+    bits_per_token = 18
+    bits = tokens_to_bits(tokens, bits_per_token)
+    coded = DECODE_SPEC.encode(bits)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rxs = [DECODE_SPEC.channel(gen, coded, flip_prob=p) for p in SCENARIO_FLIPS]
+    torch.cuda.synchronize()
+    reset_counts()
+    results = [decode(DecodeRequest(DECODE_SPEC, received=rx)) for rx in rxs]
+    torch.cuda.synchronize()
+    launches, plain = _counts()
+    out = {"bits": tuple(bits.shape), "backend": results[0].plan.backend, "ber": {},
+           "launches": launches, "plain": plain, "card": smi}
+    for p, res in zip(SCENARIO_FLIPS, results):
+        out["ber"][p] = _ber(res.info_bits, bits)
+    print(f"[serve_scenario] {tuple(tokens.shape)} tokens -> {tuple(bits.shape)} bits "
+          f"({bits_per_token} a token) -> K=3 -> BSC; backend {out['backend']!r}; BER at flip "
+          f"{out['ber']}; launches {launches}, plain calls {plain} ({smi})")
+    print(f"[serve_scenario] {results[0].plan.explain(costs=True)}")
+    if any(r.plan.backend != "fused_packed" for r in results):
+        _fail(f"serve_scenario: planned {[r.plan.backend for r in results]}")
+    if launches.get("viterbi_scan_packed", 0) != len(rxs) or launches.get(
+            "traceback_packed", 0) != len(rxs) or any(plain.values()):
+        _fail(f"serve_scenario: launches {launches}, plain calls {plain}")
+    if not torch.equal(results[0].info_bits, bits) or not torch.equal(
+            bits_to_tokens(results[0].info_bits, bits_per_token), tokens):
+        _fail("serve_scenario: flip 0 did not recover the bits and tokens exactly")
+    if max(out["ber"].values()) > 0.05:
+        _fail(f"serve_scenario: BERs {out['ber']} far above what this code and channel give")
+    return out
+
+
 SHAPE_KEYS = ("ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
               "bytes", "operations", "shape", "variant")
 
@@ -2339,7 +2604,11 @@ def main(argv=None) -> int:
     mark("analysis")
     paper = phase_paper(smi)
     mark("paper")
-    print(json.dumps({"analysis": analysis, "paper": paper}))
+    lm, lm_tokens = phase_lm_serve(smi, args.seed)
+    scenario = phase_serve_scenario(lm_tokens, smi)
+    mark("lm_serve, serve_scenario")
+    print(json.dumps({"analysis": analysis, "paper": paper, "lm_serve": lm,
+                      "serve_scenario": scenario}))
     print(json.dumps({"end_to_end": e2e, "bound_inputs": [
         {k: r[k] for k in ("name", "bytes", "operations", "shape") if k in r} for r in rows]}))
     print(f"[done] wall time {time.perf_counter() - wall0!r} s")

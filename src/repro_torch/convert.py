@@ -84,3 +84,13 @@ def packed_to_reference(packed: torch.Tensor) -> np.ndarray:
     if packed.dtype != torch.int32 or packed.dim() != 3:
         raise ValueError(f"expected (W, B, S) int32, got {tuple(packed.shape)} {packed.dtype}")
     return np.ascontiguousarray(packed.cpu().numpy().view(np.uint32).transpose(0, 2, 1))
+
+
+def lm_params_from_arrays(tree, device) -> dict:
+    """The reference's LM parameter tree, as nested dicts of numpy arrays
+    (``np.asarray`` of each leaf), as the port's parameters on ``device``
+    under the same keys: a copy, not a reshuffle (both stack the group
+    dimension first)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_arrays(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)

@@ -68,10 +68,12 @@ class DecodePlan:
         tracer cannot follow)."""
         return None
 
-    def explain(self) -> str:
-        """Human-readable plan summary."""
+    def explain(self, costs: bool = False) -> str:
+        """Human-readable plan summary; ``costs=True`` appends a cost line.
+        The port has no cost model yet (``predicted_costs()`` is None), so
+        that line says so and gives no figures."""
         caps = self.decoder.capabilities
-        return (
+        text = (
             f"plan: backend={self.backend!r} for shape (B={self.batch}, T={self.steps}, "
             f"S={self.spec.code.n_states}) on {self.device_kind}\n"
             f"  spec: {self.spec.describe()}\n"
@@ -79,6 +81,10 @@ class DecodePlan:
             f"  caps: mesh={caps.supports_mesh} streaming={caps.supports_streaming} "
             f"max_states={caps.max_states} needs_terminated={caps.needs_terminated}"
         )
+        if costs:
+            text += ("\n  cost: no cost model yet — predictions must rest on H100 "
+                     "measurements (ROADMAP.md queue 1, item 12)")
+        return text
 
     def execute(self, bm_tables) -> DecodeResult:
         """Run the planned backend on (B, T, M) branch-metric tables."""

@@ -1,15 +1,18 @@
-"""Serving-side slot and bucket bookkeeping (pure Python).
+"""KV-cache bookkeeping for the serving engine (pure Python).
 
-Length buckets (compile-once per bucket on the reference; here the fixed
-shapes a batched decode block keeps) and batched slot assignment for
-continuous batching.  ``cache_bytes``, the memory accounting over a model's
-cache layout, waits for the LM models (ROADMAP queue 1, item 11).
+The cache *layouts* are owned by the models (``models/transformer.cache_specs``);
+this module adds length buckets (compile-once per bucket on the reference;
+here the fixed shapes a batched decode block keeps), batched slot
+assignment for continuous batching, and ``cache_bytes``, the memory
+accounting over a model's cache layout.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
 from typing import Dict, List, Optional, Tuple
+
+from repro_torch.models.common import spec_leaves
 
 DEFAULT_BUCKETS = (1024, 4096, 16384, 32768, 131072, 524288)
 
@@ -21,6 +24,11 @@ def pick_bucket(prompt_len: int, max_new: int,
     if i == len(buckets):
         raise ValueError(f"request needs {need} tokens > max bucket {buckets[-1]}")
     return buckets[i]
+
+
+def cache_bytes(model, B: int, S: int) -> int:
+    """Total cache bytes for a (batch, bucket) — for admission control."""
+    return sum(leaf.nbytes for leaf in spec_leaves(model.cache_specs(B, S)))
 
 
 @dataclasses.dataclass

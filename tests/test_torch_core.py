@@ -228,7 +228,8 @@ def test_import_loads_neither_jax_nor_reference():
         "repro_torch.convert, repro_torch.stream, repro_torch.obs, repro_torch.siso, "
         "repro_torch.stream.scheduler, repro_torch.configs, repro_torch.serve, "
         "repro_torch.serve.bits, repro_torch.train, repro_torch.analysis, "
-        "repro_torch.analysis.hotpaths, repro_torch.analysis.__main__\n"
+        "repro_torch.analysis.hotpaths, repro_torch.analysis.__main__, "
+        "repro_torch.models, repro_torch.serve.engine, repro_torch.launch.serve\n"
         "bad = [k for k in sys.modules if k.startswith('jax') or k == 'repro' "
         "or k.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -1121,3 +1121,147 @@ def test_acs_step_unfused_on_card_equals_acs_step_and_cpu(card, K, polys):
     assert torch.equal(got_pm, want_pm) and torch.equal(got_par, want_bp)
     cpu_pm, cpu_par = acs_step_unfused(code, pm, bm)
     assert torch.equal(got_pm.cpu(), cpu_pm) and torch.equal(got_par.cpu(), cpu_par)
+
+
+# --------------------------------------------------------------------------- #
+# the LM serving path                                                          #
+# --------------------------------------------------------------------------- #
+
+LM_SERVED = ("qwen2_5_3b", "qwen3_4b", "qwen1_5_110b", "gemma3_12b", "internvl2_26b")
+#: float32 compute, card against CPU: the products sum in other orders
+#: (prefill); decode reads the bf16 caches, where a value within float32
+#: noise of a bf16 rounding boundary rounds the other way (one bf16 ulp)
+LM_PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
+LM_DECODE_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+def _lm_models(arch, card, compute_dtype="float32"):
+    """(CPU model, CPU params, card model, card params): the same smoke
+    weights, drawn on the CPU and copied to the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.models import build
+
+    bundle = get_smoke_arch(arch)
+    bundle = dataclasses.replace(bundle, model=dataclasses.replace(
+        bundle.model, compute_dtype=compute_dtype))
+    cpu_model, card_model = build(bundle, device="cpu"), build(bundle, device=card)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+
+    def to_card(tree):
+        return {k: to_card(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(card)
+
+    return cpu_model, params, card_model, to_card(params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_SERVED)
+def test_lm_on_card_matches_cpu(card, arch):
+    """Prefill logits and caches, three decode steps' logits and the greedy
+    tokens of a smoke model on the card equal its CPU run (float32 compute,
+    stated tolerances)."""
+    from repro_torch.serve import ServeEngine
+
+    cpu_model, params, card_model, card_params = _lm_models(arch, card)
+    cfg = cpu_model.cfg
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=gen)}
+    n_pre = 0
+    if cfg.modality == "vision":
+        n_pre = cfg.n_prefix_tokens
+        batch["patches"] = torch.randn((2, n_pre, cfg.frontend_dim), generator=gen)
+    steps = torch.randint(0, cfg.vocab, (2, 3), generator=gen)
+    with torch.inference_mode():
+        n_cache = 16 + n_pre + 3
+        c_cpu, c_card = cpu_model.init_cache(2, n_cache), card_model.init_cache(2, n_cache)
+        want, c_cpu = cpu_model.prefill(params, batch, c_cpu)
+        got, c_card = card_model.prefill(card_params, {k: v.to(card) for k, v in batch.items()},
+                                         c_card)
+        torch.testing.assert_close(got.cpu(), want, **LM_PREFILL_TOL)
+        for i in range(3):
+            pos = torch.full((2,), 16 + n_pre + i, dtype=torch.int32)
+            want, c_cpu = cpu_model.decode_step(params, steps[:, i:i + 1], pos, c_cpu)
+            got, c_card = card_model.decode_step(card_params, steps[:, i:i + 1].to(card),
+                                                 pos.to(card), c_card)
+            torch.testing.assert_close(got.cpu(), want, **LM_DECODE_TOL)
+    prompts = torch.randint(1, cfg.vocab, (2, 8), generator=gen)
+    want = ServeEngine(cpu_model, params, max_len=20).generate(prompts, 12)
+    got = ServeEngine(card_model, card_params, max_len=20).generate(prompts.to(card), 12)
+    assert got["tokens"].device.type == "cuda"
+    assert torch.equal(got["tokens"].cpu(), want["tokens"])
+    assert torch.equal(got["done"].cpu(), want["done"])
+
+
+@pytest.mark.gpu
+def test_lm_generate_makes_no_host_sync_per_token(card):
+    """The decode loop keeps the tokens and ``done`` on the card: generate
+    synchronizes nowhere (``set_sync_debug_mode("warn")``), at any length;
+    the caller's one read of the tokens comes after it."""
+    import warnings
+
+    from repro_torch.serve import ServeEngine
+
+    _, _, model, params = _lm_models("qwen2_5_3b", card, "bfloat16")
+    engine = ServeEngine(model, params, max_len=40)
+    prompts = torch.randint(1, model.cfg.vocab, (4, 8), device=card)
+    engine.generate(prompts, 4)  # warm
+    torch.cuda.synchronize()
+    counts = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for n in (8, 24):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                engine.generate(prompts, n)
+            counts.append(sum("synchronizing" in str(w.message) for w in caught))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert counts == [0, 0], counts
+
+
+@pytest.mark.gpu
+def test_serve_scenario_on_card_recovers_tokens_at_flip_0(card):
+    """LM tokens (smoke vocab 512: 9 bits a token) -> bits -> K=3 -> BSC at
+    flip 0 -> the planned decode on the card (#1 and #2): exact."""
+    from repro_torch.configs import DECODE_SPEC, SERVE_BITS_PER_TOKEN
+    from repro_torch.serve import ServeEngine, bits_to_tokens, tokens_to_bits
+
+    _, _, model, params = _lm_models("qwen2_5_3b", card, "bfloat16")
+    prompts = torch.randint(1, model.cfg.vocab, (4, 16), device=card)
+    toks = ServeEngine(model, params, max_len=48).generate(prompts, 32)["tokens"]
+    bits = tokens_to_bits(toks, SERVE_BITS_PER_TOKEN)
+    rx = DECODE_SPEC.channel(torch.Generator(device=card).manual_seed(2),
+                             DECODE_SPEC.encode(bits), flip_prob=0.0)
+    reset_counts()
+    res = decode(DecodeRequest(DECODE_SPEC, received=rx))
+    torch.cuda.synchronize()
+    assert res.plan.backend == "fused_packed"
+    assert launch_counts["viterbi_scan_packed"] == 1 and launch_counts["traceback_packed"] == 1
+    assert not plain_counts
+    assert torch.equal(res.info_bits, bits)
+    assert torch.equal(bits_to_tokens(res.info_bits, SERVE_BITS_PER_TOKEN), toks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["lm", "viterbi"])
+def test_launcher_runs_on_the_card_by_default(card, path):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    flags = ["--smoke"] if path == "lm" else ["--viterbi", "--batch", "16", "--bits", "128"]
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *flags],
+                          env={**os.environ, "PYTHONPATH": str(src)}, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    out = json.loads("\n".join(lines[max(i for i, x in enumerate(lines) if x == "{"):]))
+    assert out["device"].startswith("cuda")
+    if path == "viterbi":
+        assert out["backend"] == "fused_packed" and "cost: no cost model yet" in proc.stdout
+    else:
+        assert out["new_tokens"] == 32 and out["arch"] == "qwen2.5-smoke"
