@@ -125,6 +125,21 @@ Phases (any failure raises and exits non-zero):
                LM's tokens at 18 bits a token -> the K=3 code -> a BSC at flip
                0, 0.01, 0.03 -> the planned decode (``fused_packed``: #1 and
                #2, no plain call); bits and tokens exact at flip 0.
+ 15. lm_train — LM training at qwen2.5-3b's full width (remat "full", AdamW,
+               float32 master weights, bf16 compute; random weights from the
+               seed), after the serving phases' tensors are freed, on
+               ``SyntheticLM`` batches of 2 x 4096 tokens (``train_4k``'s
+               sequence, its global batch 256 cut to 2 for one card):
+               ``remat="full"`` against ``"none"`` at full width but 2 layers
+               (the loss equal, each gradient leaf within LM_REMAT_GRAD_TOL);
+               8 ``make_train_step`` steps on one fixed batch (lr 1e-4, warmup
+               2) — the step-0 loss equal to ``softmax_xent`` of a no-grad
+               forward of the same bf16 weights, every loss and grad norm
+               finite, the last loss below the first, one host sync a step
+               (``sanitized()``); step time (median of steps 2-7), tokens/s,
+               the model-FLOP share of the bf16 peak, peak memory against the
+               prediction, the optimizer update's own time; then ``train()``
+               for 3 steps on ``make_data_iter``.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2242,6 +2257,27 @@ LM_ROUNDS, LM_DECODE_REPS = 5, 8
 LM_TF_TOL = {"bfloat16": (0.25, 0.05), "float32": (0.05, 0.02)}
 #: the serving scenario's channel: BSC flip probabilities
 SCENARIO_FLIPS = (0.0, 0.01, 0.03)
+#: LM training: qwen2.5-3b at full width on ``train_4k``'s 4096-token
+#: sequences, the global batch of 256 cut to LM_TRAIN_B (what one card holds
+#: beside the float32 weights and AdamW's two moments); LM_TRAIN_STEPS steps
+#: of the fixed batch at lr 1e-4 with 2 warm-up steps, then train() for
+#: LM_TRAIN_LOOP_STEPS
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS, LM_TRAIN_LOOP_STEPS = 2, 4096, 8, 3
+LM_TRAIN_LR, LM_TRAIN_WARMUP = 1e-4, 2
+#: NVIDIA's published H100 SXM dense bf16 peak (FLOP/s)
+BF16_FLOPS_PER_S = 989.4e12
+#: remat "full" against "none" (2 layers): the loss equal; each bf16 gradient
+#: leaf within this relative L2 error (stated before the first run: the tied
+#: embedding's gradient sums the gather's scatter-add, whose accumulation
+#: order on the card is not fixed, and the head's product)
+LM_REMAT_GRAD_TOL = 1e-2
+#: the step-0 loss against softmax_xent of a no-grad forward: rtol
+LM_LOSS_RTOL = 1e-6
+#: predicted peak of the training run, bytes above the phase's start
+#: (PERF.md §6, PR 24): the float32 weights and AdamW's moments (37.03e9),
+#: the bf16 copy (6.17e9) and, at the loss's forward, the bf16 logits
+#: (2.49e9), their float32 copy (4.98e9) and logsumexp's two temporaries
+LM_TRAIN_PEAK_PREDICTED = (58e9, 64e9)
 
 
 def _lm_forward_check(model, params, toks, dtype):
@@ -2263,7 +2299,7 @@ def _lm_forward_check(model, params, toks, dtype):
     B, S1 = toks.shape
     S = S1 - 1
     x = tf.embed_tokens(params, cfg, toks)
-    x, _ = tf.run_stack_full(params["blocks"], cfg, m.part, x)
+    x, _, _ = tf.run_stack_full(params["blocks"], cfg, m.part, x)
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps, compute_dtype=cm.dtype_of(dtype))
     full = tf.lm_head(params, cfg, x)[:, S].float()
     caches = m.init_cache(B, S1)
@@ -2476,6 +2512,184 @@ def phase_serve_scenario(tokens, smi):
     return out
 
 
+def _lm_grads(model, params, batch):
+    """(loss, bf16 gradients) of ``model.train_loss`` with respect to a bf16
+    copy of ``params``, as the train step takes them."""
+    import torch
+
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    copies = [p.detach().to(torch.bfloat16).requires_grad_() for p in tree_leaves(params)]
+    it = iter(copies)
+    loss, _ = model.train_loss(tree_map(lambda _: next(it), params), batch)
+    return loss.detach(), torch.autograd.grad(loss, copies)
+
+
+def _lm_remat_check(bundle, batch, seed):
+    """``remat="full"`` against ``"none"`` at full width, 2 layers, on the
+    same weights and batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(bundle.model, n_layers=2)
+    out, params = {}, None
+    for remat in ("full", "none"):
+        model = build(dataclasses.replace(bundle, model=cfg, partition=dataclasses.replace(
+            bundle.partition, remat=remat)))
+        if params is None:
+            params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        out[remat] = _lm_grads(model, params, batch)
+    (loss_f, g_f), (loss_n, g_n) = out["full"], out["none"]
+    errs = [((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+            for a, b in zip(g_f, g_n)]
+    equal = sum(torch.equal(a, b) for a, b in zip(g_f, g_n))
+    return {"loss_full": loss_f.item(), "loss_none": loss_n.item(),
+            "loss_equal": bool(torch.equal(loss_f, loss_n)), "grad_leaves": len(errs),
+            "grad_leaves_equal": int(equal), "max_grad_rel_err": max(errs),
+            "tol": LM_REMAT_GRAD_TOL}
+
+
+def phase_lm_train(smi, seed):
+    """Phase 15: LM training at qwen2.5-3b's full width on the card."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.data import SyntheticLM, make_data_iter
+    from repro_torch.models import build
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import make_train_step, read_metrics, train
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    live0 = torch.cuda.memory_allocated()
+    bundle = get_arch(LM_ARCH)
+    cfg, part = bundle.model, bundle.partition
+    if (part.remat, part.microbatches, part.optimizer) != ("full", 1, "adamw"):
+        _fail(f"lm_train: {LM_ARCH} trains with {part}")
+    batch = SyntheticLM(cfg.vocab, LM_TRAIN_S, LM_TRAIN_B, seed=seed)(0)
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    t0 = time.perf_counter()
+    remat = _lm_remat_check(bundle, batch, seed)
+    remat_s = time.perf_counter() - t0
+    print(f"[lm_train] remat full vs none, 2 layers at full width: {remat} ({remat_s!r} s) "
+          f"({smi})")
+    if not remat["loss_equal"] or remat["max_grad_rel_err"] > LM_REMAT_GRAD_TOL:
+        _fail(f"lm_train: remat changes the loss or the gradients: {remat}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build(bundle)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = adamw()
+    state = opt.init(params)
+    with torch.no_grad():  # the step-0 loss's reference: a no-grad forward
+        params_c = tree_map(lambda p: p.to(torch.bfloat16), params)
+        x = tf.embed_tokens(params_c, cfg, batch["tokens"])
+        x, _, _ = tf.run_stack_full(params_c["blocks"], cfg, part, x)
+        x = cm.rmsnorm(params_c["final_norm"], x, cfg.norm_eps,
+                       compute_dtype=cm.dtype_of(cfg.compute_dtype))
+        ref_loss = tf.softmax_xent(tf.lm_head(params_c, cfg, x), batch["labels"]).item()
+        del params_c, x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(model, opt, cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP,
+                                                        LM_TRAIN_STEPS))
+
+    def one(i):
+        nonlocal params, state
+        params, state, met = step_fn(params, state, batch, i)
+        return read_metrics(met)
+
+    history, times, syncs, sites = [], [], None, None
+    for i in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:  # the one sync a steady step makes: the metrics' read-back
+            met, syncs, sites = _host_syncs(lambda: one(1))
+        else:
+            met = one(i)
+        times.append((time.perf_counter() - t0) * 1e3)
+        history.append(met)
+    peak = torch.cuda.max_memory_allocated() - live0
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    step_ms = statistics.median(times[2:])
+    # model FLOPs a token: 6 N (forward and backward of every parameter's
+    # product, the tied head's included) + 12 L H hd S (attention's scores
+    # and PV over the whole sequence, forward and backward)
+    flops_token = 6 * n_params + 12 * cfg.n_layers * cfg.n_heads * cfg.resolved_head_dim * LM_TRAIN_S
+    mfu = flops_token * tokens / (step_ms / 1e3) / BF16_FLOPS_PER_S
+    print(f"[lm_train] {cfg.name}: {n_params} parameters, B={LM_TRAIN_B} x S={LM_TRAIN_S}, "
+          f"remat {part.remat!r}, AdamW; losses {losses}; grad norms {norms}; lr "
+          f"{[h['lr'] for h in history]}; step-0 loss {losses[0]!r} against the no-grad "
+          f"forward's {ref_loss!r}; host syncs in step 1 {syncs} (sites {sites}) ({smi})")
+    print(f"[lm_train] step times (ms, host clock to the metrics' read-back) {times}; median "
+          f"of steps 2-{LM_TRAIN_STEPS - 1} {step_ms!r} ms = {tokens / (step_ms / 1e3)!r} "
+          f"tokens/s; model FLOPs {flops_token * tokens!r} a step = {mfu!r} of the "
+          f"{BF16_FLOPS_PER_S!r} FLOP/s bf16 peak; peak {peak} bytes above the phase's start "
+          f"(predicted {LM_TRAIN_PEAK_PREDICTED}) ({smi})")
+    if abs(losses[0] - ref_loss) > LM_LOSS_RTOL * abs(ref_loss):
+        _fail(f"lm_train: step-0 loss {losses[0]!r} against the no-grad forward's {ref_loss!r}")
+    if not all(math.isfinite(v) for v in losses + norms):
+        _fail(f"lm_train: non-finite losses {losses} or grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        _fail(f"lm_train: the fixed batch's loss did not fall: {losses}")
+    if syncs != 1:
+        _fail(f"lm_train: {syncs} host syncs in a step (sites {sites}), expected 1")
+
+    # the optimizer's own time: one AdamW update of the full model (CUDA
+    # events, median of 3 after 1 warm-up) on bf16 gradients like the step's
+    with torch.no_grad():
+        grads = tree_map(lambda p: torch.full(p.shape, 1e-4, dtype=torch.bfloat16,
+                                              device=p.device), params)
+    lr = torch.tensor(LM_TRAIN_LR)
+    opt_ms = _event_ms(lambda: opt.update(grads, state, params, LM_TRAIN_STEPS, lr), 1, 3,
+                       warmup=1)
+    print(f"[lm_train] AdamW update alone {statistics.median(opt_ms)!r} ms (rounds {opt_ms}) "
+          f"({smi})")
+    del grads, params, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=LM_TRAIN_S, global_batch=LM_TRAIN_B)
+    t0 = time.perf_counter()
+    report = train(model, make_data_iter(model, shape, seed=seed), steps=LM_TRAIN_LOOP_STEPS,
+                   lr=LM_TRAIN_LR, warmup=LM_TRAIN_WARMUP, seed=seed, log_every=1)
+    loop_s = time.perf_counter() - t0
+    loop = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm", "lr")}
+            for h in report["history"]]
+    print(f"[lm_train] train() {LM_TRAIN_LOOP_STEPS} steps on make_data_iter in {loop_s!r} s "
+          f"(init included): {loop}; final step {report['final_step']}, restarts "
+          f"{report['restarts']} ({smi})")
+    if report["final_step"] != LM_TRAIN_LOOP_STEPS or report["restarts"] or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in loop):
+        _fail(f"lm_train: train() report {loop}, final step {report['final_step']}")
+    del report
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "batch": LM_TRAIN_B, "seq_len": LM_TRAIN_S, "params": n_params,
+        "remat_check": remat, "losses": losses, "grad_norms": norms,
+        "step0_no_grad_loss": ref_loss, "step_ms": step_ms, "step_rounds_ms": times,
+        "tokens_per_s": tokens / (step_ms / 1e3), "model_flops_per_step": flops_token * tokens,
+        "mfu_bf16": mfu, "peak_bytes_above_phase_start": peak,
+        "peak_predicted": LM_TRAIN_PEAK_PREDICTED, "host_syncs_step": syncs,
+        "optimizer_ms": statistics.median(opt_ms), "optimizer_rounds_ms": opt_ms,
+        "train_loop": loop, "card": smi,
+    }
+
+
 SHAPE_KEYS = ("ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
               "bytes", "operations", "shape", "variant")
 
@@ -2607,8 +2821,10 @@ def main(argv=None) -> int:
     lm, lm_tokens = phase_lm_serve(smi, args.seed)
     scenario = phase_serve_scenario(lm_tokens, smi)
     mark("lm_serve, serve_scenario")
+    lm_train = phase_lm_train(smi, args.seed)
+    mark("lm_train")
     print(json.dumps({"analysis": analysis, "paper": paper, "lm_serve": lm,
-                      "serve_scenario": scenario}))
+                      "serve_scenario": scenario, "lm_train": lm_train}))
     print(json.dumps({"end_to_end": e2e, "bound_inputs": [
         {k: r[k] for k in ("name", "bytes", "operations", "shape") if k in r} for r in rows]}))
     print(f"[done] wall time {time.perf_counter() - wall0!r} s")

@@ -1,10 +1,13 @@
-"""Attention: chunked (online-softmax) prefill attention, sliding window,
-GQA, qk-norm, and the local full-cache decode path.
+"""Attention: chunked (online-softmax) training/prefill attention, sliding
+window, GQA, qk-norm, and the local full-cache decode path.
 
-No S x S score matrix is ever materialized: prefill runs in
+No S x S score matrix is ever materialized: training and prefill run in
 O(chunk_q x chunk_kv) score blocks, a Python loop over query and key
 blocks with the reference's chunk sizes (``_divisor_chunk``), because the
-chunking changes the online softmax's sums.
+chunking changes the online softmax's sums.  While grad is enabled each
+key block's step runs under a non-reentrant checkpoint (the reference's
+``jax.checkpoint`` of ``kv_block_step``), so the backward recomputes score
+blocks instead of saving them; inference runs no checkpoint.
 
 Numerics are the reference's: ``q`` is scaled in its own dtype before the
 score product; the score product comes out in the compute dtype and is
@@ -20,9 +23,11 @@ encoder-decoder family (item 11).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
 
@@ -45,8 +50,28 @@ def _divisor_chunk(total: int, want: int) -> int:
 
 
 # ---------------------------------------------------------------------------- #
-# Chunked attention core (prefill)                                              #
+# Chunked attention core (train / prefill)                                      #
 # ---------------------------------------------------------------------------- #
+
+
+def _kv_block_step(acc, m, l, q_blk, qpos, k_blk, v_blk, kpos, *, causal, window, softcap):
+    """One key block of the online softmax: returns (acc, m, l) updated."""
+    s = torch.einsum("bqhd,bshd->bhqs", q_blk, k_blk)  # (B,H,cq,ck)
+    s = _softcap(s, softcap).to(torch.float32)
+    mask = torch.ones((q_blk.shape[1], k_blk.shape[1]), dtype=torch.bool, device=s.device)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    s = torch.where(mask[None, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bhqs,bshd->bhqd", p.to(v_blk.dtype), v_blk
+    ).to(torch.float32)
+    return acc, m_new, l
 
 
 def chunked_attention(
@@ -85,6 +110,10 @@ def chunked_attention(
     else:
         nk_inner = nk
 
+    kv_step = functools.partial(_kv_block_step, causal=causal, window=window, softcap=softcap)
+    if torch.is_grad_enabled():
+        kv_step = functools.partial(checkpoint, kv_step, use_reentrant=False,
+                                    preserve_rng_state=False)
     outs = []
     for qi in range(nq):
         q_blk = q4[:, qi * cq:(qi + 1) * cq]
@@ -100,24 +129,8 @@ def chunked_attention(
         else:
             k_loc, v_loc, kpos = k, v, torch.arange(Sk, device=dev)
         for j in range(k_loc.shape[1] // ck):
-            k_blk, v_blk = k_loc[:, j * ck:(j + 1) * ck], v_loc[:, j * ck:(j + 1) * ck]
-            kp = kpos[j * ck:(j + 1) * ck]
-            s = torch.einsum("bqhd,bshd->bhqs", q_blk, k_blk)  # (B,H,cq,ck)
-            s = _softcap(s, softcap).to(torch.float32)
-            mask = torch.ones((cq, ck), dtype=torch.bool, device=dev)
-            if causal:
-                mask = mask & (kp[None, :] <= qpos[:, None])
-            if window > 0:
-                mask = mask & (kp[None, :] > qpos[:, None] - window)
-            s = torch.where(mask[None, None], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhqs,bshd->bhqd", p.to(v_blk.dtype), v_blk
-            ).to(torch.float32)
-            m = m_new
+            blk = slice(j * ck, (j + 1) * ck)
+            acc, m, l = kv_step(acc, m, l, q_blk, qpos, k_loc[:, blk], v_loc[:, blk], kpos[blk])
         outs.append(acc / torch.clamp_min(l[..., None], 1e-30))  # (B, H, cq, Dv)
     # (nq, B, H, cq, Dv) -> (B, Sq, H, Dv)
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, Sq, H, Dv)

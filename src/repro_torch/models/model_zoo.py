@@ -9,9 +9,9 @@ card unless the caller asks for the CPU (``device="cpu"``).
 
 ``build`` refuses, before any allocation, the families the port does not
 serve yet (the ``mla``, ``mamba``, ``mlstm``/``slstm`` mixers, the ``moe``
-ffn, the encoder-decoder family: ROADMAP item 11).  Training
-(``train_loss``) and the dry-run inputs wait for item 11 too; the sharding
-methods and ``mesh=`` for item 9b.
+ffn, the encoder-decoder family: ROADMAP item 11).  The dry-run inputs
+(``input_specs``) wait for item 11 too; the sharding methods and ``mesh=``
+for item 9b.
 """
 from __future__ import annotations
 
@@ -62,7 +62,9 @@ class Model:
     # ---------------- steps ---------------- #
 
     def train_loss(self, params, batch, mesh=None, rules=None):
-        _needs_item("train_loss (training)", "11")
+        """batch: {"tokens", "labels"} (+ "patches" for a VLM).  Returns
+        (loss, metrics), differentiable with respect to ``params``."""
+        return tf.lm_train_loss(params, self.cfg, self.part, batch, mesh=mesh, rules=rules)
 
     def prefill(self, params, batch, caches, mesh=None, rules=None):
         """batch: {"tokens": (B, S)} (+ "patches" for a VLM).  Writes the

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for serving: block stacks over the repeating
-layer group, the prefill and decode paths, cache management.
+"""Decoder-only LM assembly: block stacks over the repeating layer group,
+the training loss, the prefill and decode paths, cache management.
 
 The layer stack is ``n_groups`` repetitions of the config's ``pattern`` (a
 tuple of (mixer, ffn) block kinds).  As in the reference, every parameter
@@ -10,18 +10,34 @@ and so is every cache; the forward pass is a Python loop over the groups
 Caches are updated in place: ``lm_prefill`` and ``lm_decode_step`` write
 into the cache tensors they are given and return the same tree.
 
+Training (``lm_train_loss``) differentiates the same full-sequence stack
+with ``torch.autograd``.  Activation checkpointing follows the partition's
+``remat``: ``"full"`` puts a non-reentrant ``torch.utils.checkpoint``
+around each block (the reference's ``jax.checkpoint``), ``"dots"`` a
+selective checkpoint that keeps the dense products' outputs, ``"none"``
+none; with ``scan_layers`` and at least 4 groups the groups are also
+checkpointed in ~sqrt(n) chunks (``remat_scan``).  Checkpoints run only
+while grad is enabled, so inference runs none.
+
 Served here: the attention mixers (``attn``, ``attn_bidir``,
 ``attn_local``) with the ``mlp`` or ``none`` ffn.  The ``mla``, ``mamba``,
-``mlstm`` and ``slstm`` mixers, the ``moe`` ffn and training
-(``_remat_policy``, ``remat_scan``, ``softmax_xent``, ``lm_train_loss``)
-wait for ROADMAP item 11; ``model_zoo.build`` refuses them before any
-allocation.
+``mlstm`` and ``slstm`` mixers and the ``moe`` ffn wait for ROADMAP item
+11; ``model_zoo.build`` refuses them before any allocation.  A device mesh
+waits for item 9b.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.models import common as cm
 from repro_torch.models.attention import (
@@ -228,7 +244,7 @@ def apply_block_decode(bp, cfg, part, mixer: str, ffn: str, x, *, positions, cac
 
 
 # --------------------------------------------------------------------------- #
-# Group loop                                                                   #
+# Group loop and activation checkpointing                                      #
 # --------------------------------------------------------------------------- #
 
 
@@ -239,20 +255,107 @@ def _group(tree, g: int):
     return tree[g]
 
 
+def _groups(tree, n: int):
+    """The ``n`` group views of a stacked tree (None: ``n`` Nones).  One
+    ``unbind`` a leaf: its backward stacks the groups' gradients once, where
+    a view a group would add a zero-padded full-size gradient per group."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, tuple):
+        per_item = [_groups(t, n) for t in tree]
+        return [tuple(items[g] for items in per_item) for g in range(n)]
+    if isinstance(tree, dict):
+        per_key = {k: _groups(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][g] for k in tree} for g in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+_MM, _BMM = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+
+
+def _save_dense_products(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep the
+    outputs of products without batch dimensions — ``aten.mm``, and
+    ``aten.bmm`` over a batch of one, which is how ``torch.einsum`` lowers
+    ``dense`` — and recompute the rest (attention's batched products)."""
+    if op is _MM or (op is _BMM and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_policy(part):
+    """The checkpoint's ``context_fn`` for ``part.remat`` (None: no
+    checkpoint).  ``"full"`` saves nothing inside the checkpointed region."""
+    if part.remat == "full":
+        return noop_context_fn
+    if part.remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _save_dense_products)
+    return None
+
+
+def _checkpointed(fn, policy):
+    """``fn`` under a non-reentrant activation checkpoint with ``policy`` (a
+    ``context_fn``); ``fn`` itself without a policy or while grad is off."""
+    if policy is None or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+                             context_fn=policy)
+
+
+def remat_scan(body, carry, xs, n: int, policy, scan: bool = True):
+    """``body(carry, x_g) -> carry`` over the ``n`` groups of the stacked
+    tree ``xs``; returns the last carry.  (The reference's scan also stacks
+    per-group outputs: the prefill's caches, which the port writes in place.)
+
+    With a policy, ``scan`` and ``n >= 4`` (and grad enabled), the groups
+    run as ``no`` ~ sqrt(n) outer chunks of ``n // no``, each chunk under a
+    checkpoint: the backward keeps only the chunk boundaries plus one chunk
+    recomputed (O(sqrt(L)·carry + block) activations, as the reference's
+    factored scan)."""
+    groups = _groups(xs, n)
+
+    def run(c, chunk):
+        for xg in chunk:
+            c = body(c, xg)
+        return c
+
+    if not scan or policy is None or n < 4 or not torch.is_grad_enabled():
+        return run(carry, groups)
+    no = int(math.ceil(math.sqrt(n)))
+    while n % no:
+        no += 1
+    ni = n // no
+    outer = _checkpointed(run, policy)
+    for o in range(no):
+        carry = outer(carry, groups[o * ni:(o + 1) * ni])
+    return carry
+
+
 def run_stack_full(params_blocks, cfg, part, x, *, positions=None, caches=None, mesh=None,
-                   rules=None):
-    """Run the stacked block groups over a full-sequence input (prefill),
-    writing the caches in place when given.  Returns (x, caches) (the
-    reference also returns the MoE aux losses, which the served ffns do not
-    have)."""
-    for g in range(cfg.n_groups):
-        gp = _group(params_blocks, g)
-        gc = None if caches is None else _group(caches, g)
+                   rules=None, collect_aux=True):
+    """Run the stacked block groups over a full-sequence input (prefill and
+    training), writing the caches in place when given.  Returns (x, caches,
+    aux): the MoE aux-loss sums, zero for the served ffns (``collect_aux``,
+    the reference's keyword, changes nothing here)."""
+    policy = _remat_policy(part)
+
+    def group_fn(x, xs):
+        gp, gc = xs
         for i, (mixer, ffn) in enumerate(cfg.pattern):
-            x, _ = apply_block_full(
-                gp[f"p{i}"], cfg, part, mixer, ffn, x, positions=positions,
-                cache=None if gc is None else gc[f"p{i}"], mesh=mesh, rules=rules)
-    return x, caches
+            def block_fn(bp, x, cache, _mixer=mixer, _ffn=ffn):
+                return apply_block_full(bp, cfg, part, _mixer, _ffn, x, positions=positions,
+                                        cache=cache, mesh=mesh, rules=rules)
+
+            # remat at block granularity: the backward recomputes one block's
+            # internals at a time
+            x, _ = _checkpointed(block_fn, policy)(
+                gp[f"p{i}"], x, None if gc is None else gc[f"p{i}"])
+        return x
+
+    x = remat_scan(group_fn, x, (params_blocks, caches), cfg.n_groups, policy,
+                   scan=part.scan_layers)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, caches, {"load_balance_loss": zero, "router_z_loss": zero}
 
 
 def run_stack_decode(params_blocks, cfg, part, x, *, positions, caches, mesh=None, rules=None):
@@ -294,11 +397,40 @@ def lm_head(params, cfg, x):
 
 
 def softmax_xent(logits, labels, valid=None, z_weight: float = 0.0, mesh=None):
-    _not_ported("training (softmax_xent)")
+    """Cross-entropy in float32.  logits: (B,S,V); labels: (B,S) int.
+
+    The mean of ``logsumexp - gold`` over the ``valid`` positions (all when
+    None), plus ``z_weight`` times the mean squared logsumexp.  The
+    reference's vocab-sharded form on a mesh waits for item 9b."""
+    if mesh is not None:
+        cm._needs_mesh("softmax_xent(mesh=...)")
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    valid = torch.ones_like(nll) if valid is None else valid.to(torch.float32)
+    denom = torch.clamp_min(valid.sum(), 1.0)
+    loss = (nll * valid).sum() / denom
+    if z_weight:
+        loss = loss + z_weight * ((lse ** 2) * valid).sum() / denom
+    return loss
 
 
 def lm_train_loss(params, cfg, part, batch, mesh=None, rules=None):
-    _not_ported("training (lm_train_loss)")
+    """batch: {"tokens": (B,S), "labels": (B,S)} (+ "patches" for a VLM,
+    "valid" to mask positions).  Returns (loss, metrics)."""
+    if mesh is not None:
+        cm._needs_mesh("lm_train_loss(mesh=...)")
+    x = embed_tokens(params, cfg, batch["tokens"], batch.get("patches"))
+    x, _, aux = run_stack_full(params["blocks"], cfg, part, x, rules=rules)
+    x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps,
+                   compute_dtype=cm.dtype_of(cfg.compute_dtype))
+    logits = lm_head(params, cfg, x)
+    if cfg.modality == "vision" and cfg.n_prefix_tokens:
+        # patch positions carry no next-token target
+        logits = logits[:, cfg.n_prefix_tokens:]
+    loss = softmax_xent(logits, batch["labels"], batch.get("valid"))
+    return loss, {"loss": loss, **aux}
 
 
 # --------------------------------------------------------------------------- #
@@ -312,7 +444,7 @@ def lm_prefill(params, cfg, part, tokens, caches, *, patches=None, mesh=None, ru
     Returns (logits_last (B, V), caches)."""
     x = embed_tokens(params, cfg, tokens, patches)
     x = cm.constrain(x, mesh, rules, ("batch", None, None))
-    x, caches = run_stack_full(
+    x, caches, _ = run_stack_full(
         params["blocks"], cfg, part, x, caches=caches, mesh=mesh, rules=rules)
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps,
                    compute_dtype=cm.dtype_of(cfg.compute_dtype))

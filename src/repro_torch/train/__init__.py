@@ -1,7 +1,9 @@
-"""Training-side runtime.  Only the straggler detector is ported so far: the
-stream scheduler flags slow ticks with it.  The optimizers, training steps and
-checkpointing need the LM models (ROADMAP queue 1, item 11); ``elastic_mesh``
-needs a device mesh (item 9b)."""
+"""Training runtime: optimizers, the train-step builder, the fault-tolerant
+loop, async checkpointing, straggler detection.  On one device; a device
+mesh (``elastic_mesh``, sharded steps) waits for ROADMAP item 9b."""
 from repro_torch.train.fault_tolerance import StragglerDetector
+from repro_torch.train.optimizer import adafactor, adamw, cosine_warmup
+from repro_torch.train.train_loop import make_train_step, train
 
-__all__ = ["StragglerDetector"]
+__all__ = ["StragglerDetector", "adamw", "adafactor", "cosine_warmup", "make_train_step",
+           "train"]

@@ -4,7 +4,9 @@ streaming, the unpacked ``fused`` route, ``bcjr`` and turbo, the
 block-parallel ``parallel`` route, the stream scheduler, every registered
 backend) against the same decodes on the CPU; the scheduler's one
 synchronizing call a tick; the analysis layer's hot-path catalog and
-sanitizer on the card; the paper's unfused ACS step.
+sanitizer on the card; the paper's unfused ACS step; the LM's serving and
+training paths (a train step against its CPU run, its one host sync,
+crash -> restore -> resume, the launchers).
 
 Every test here is marked ``gpu`` and takes the ``card`` fixture, which
 skips inside the test when no CUDA device is present (so every worker
@@ -1265,3 +1267,169 @@ def test_launcher_runs_on_the_card_by_default(card, path):
         assert out["backend"] == "fused_packed" and "cost: no cost model yet" in proc.stdout
     else:
         assert out["new_tokens"] == 32 and out["arch"] == "qwen2.5-smoke"
+
+
+# --------------------------------------------------------------------------- #
+# LM training                                                                  #
+# --------------------------------------------------------------------------- #
+
+#: a smoke train step, card against CPU, float32 compute: the gradients are
+#: bf16 (taken with respect to the bf16 copy), so a product that sums in
+#: another order can move a gradient by one bf16 ulp; AdamW's first steps
+#: move each weight by ~lr whatever the gradient's size.  Losses by rtol,
+#: grad norms by rtol, weights and moments by relative L2 error a leaf
+LM_TRAIN_LOSS_RTOL = 1e-4
+LM_TRAIN_NORM_RTOL = 1e-2
+LM_TRAIN_LEAF_TOL = 1e-2
+
+
+def _smoke_trainer(device, compute_dtype="float32", **part):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.models import build
+
+    bundle = get_smoke_arch("qwen2_5_3b")
+    bundle = dataclasses.replace(
+        bundle, model=dataclasses.replace(bundle.model, compute_dtype=compute_dtype),
+        partition=dataclasses.replace(bundle.partition, **part))
+    return build(bundle, device=device)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+def test_lm_train_step_on_card_matches_cpu(card):
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import make_train_step, read_metrics
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    runs = {}
+    for dev in ("cpu", card):
+        model = _smoke_trainer(dev, remat="full")
+        params = _smoke_trainer("cpu").init(torch.Generator().manual_seed(0))
+        params = tree_map(lambda p: p.to(dev), params)
+        opt = adamw()
+        state = opt.init(params)
+        step = make_train_step(model, opt, cosine_warmup(1e-3, 0, 10))
+        batch = SyntheticLM(model.cfg.vocab, 64, 2, seed=1, device=str(dev))(0)
+        mets = []
+        for i in range(2):
+            params, state, met = step(params, state, batch, i)
+            mets.append(read_metrics(met))
+        runs[torch.device(dev).type] = (mets, tree_leaves((params, state)))
+    (want_m, want), (got_m, got) = runs["cpu"], runs["cuda"]
+    assert all(t.device.type == "cuda" for t in got)
+    for g, w in zip(got_m, want_m):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=LM_TRAIN_LOSS_RTOL)
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], rtol=LM_TRAIN_NORM_RTOL)
+        assert g["lr"] == w["lr"]
+    errs = [_rel_l2(g, w) for g, w in zip(got, want)]
+    assert max(errs) < LM_TRAIN_LEAF_TOL, errs
+
+
+@pytest.mark.gpu
+def test_lm_train_step_makes_one_host_sync_and_generate_none(card):
+    """A steady train step (bf16, remat "full" over 4 groups: nested
+    checkpoints) synchronizes nowhere; reading its metrics is the one sync.
+    Generation with the trained weights still makes none."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import make_train_step, read_metrics
+
+    bundle = get_smoke_arch("qwen2_5_3b")
+    bundle = dataclasses.replace(
+        bundle, model=dataclasses.replace(bundle.model, n_layers=4),
+        partition=dataclasses.replace(bundle.partition, remat="full"))
+    model = build(bundle, device=card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    opt = adamw()
+    state = opt.init(params)
+    step = make_train_step(model, opt, cosine_warmup(1e-3, 1, 10))
+    batch = SyntheticLM(model.cfg.vocab, 64, 2, seed=1)(0)
+    params, state, met = step(params, state, batch, 0)  # warm
+    read_metrics(met)
+    engine = ServeEngine(model, params, max_len=24)
+    prompts = torch.randint(1, model.cfg.vocab, (2, 8), device=card)
+    engine.generate(prompts, 4)  # warm
+    torch.cuda.synchronize()
+    counts = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for fn in (lambda: step(params, state, batch, 1),
+                   lambda: read_metrics(step(params, state, batch, 2)[2]),
+                   lambda: engine.generate(prompts, 16)):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+            counts.append(sum("synchronizing" in str(w.message) for w in caught))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert counts == [0, 1, 0], counts
+
+
+@pytest.mark.gpu
+def test_lm_crash_restore_resume_on_card(card, tmp_path):
+    """A simulated failure after step 3 restores the step-4 checkpoint onto
+    the card and resumes: weights, optimizer state and losses equal an
+    uninterrupted run on the card (deterministic algorithms: the embedding's
+    scatter-add otherwise accumulates in an order the atomics decide)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import make_data_iter
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import train
+    from repro_torch.train.tree import tree_leaves
+
+    model = _smoke_trainer(card, "bfloat16")
+    data = make_data_iter(model, dataclasses.replace(SHAPES["train_4k"], seq_len=64,
+                                                     global_batch=2))
+    kw = dict(steps=6, lr=1e-3, warmup=1, log_every=1)
+    crashed = []
+
+    def fail_hook(step):
+        if step == 3 and not crashed:
+            crashed.append(step)
+            raise ckpt.SimulatedFailure("node lost")
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        clean = train(model, data, **kw)
+        report = train(model, data, checkpoint_dir=str(tmp_path), checkpoint_every=2,
+                       fail_hook=fail_hook, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert report["restarts"] == 1 and report["final_step"] == 6
+    assert [h["loss"] for h in report["history"]] == [h["loss"] for h in clean["history"]]
+    got = tree_leaves((report["params"], report["opt_state"]))
+    assert all(t.device.type == "cuda" for t in got)
+    for a, b in zip(got, tree_leaves((clean["params"], clean["opt_state"]))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_train_launcher_runs_on_the_card_by_default(card):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                           "qwen2_5_3b", "--smoke", "--steps", "3", "--warmup", "1"],
+                          env={**os.environ, "PYTHONPATH": str(src)}, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert "training qwen2.5-smoke on cuda" in proc.stdout
+    assert '"steps": 3' in proc.stdout

@@ -468,10 +468,15 @@ def test_mesh_raises_naming_item_9b(call):
 
 
 def test_training_waits_for_item_11():
+    """Training is ported (``tests/test_torch_train.py``); of item 11's LM
+    pieces the dry run's ``input_specs`` still waits, and training on a mesh
+    waits for item 9b."""
     _, _, _, _, pm, pp = _pair("qwen2_5_3b", "float32")
-    for call in (lambda: pm.train_loss(pp, {}), lambda: pm.input_specs(None),
-                 lambda: PT.softmax_xent(None, None)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pm.input_specs(None)
+    for call in (lambda: pm.train_loss(pp, {}, mesh=object()),
+                 lambda: PT.softmax_xent(None, None, mesh=object())):
+        with pytest.raises(NotImplementedError, match="item 9b"):
             call()
     x = torch.ones(2)
     assert PM.constrain(x, None, None, ("batch",)) is x
