@@ -140,6 +140,29 @@ Phases (any failure raises and exits non-zero):
                the model-FLOP share of the bf16 peak, peak memory against the
                prediction, the optimizer update's own time; then ``train()``
                for 3 steps on ``make_data_iter``.
+ 16. lm_serve_moe — the MoE family (qwen3-moe-30b-a3b: d=2048, GQA 32/4,
+               qk-norm, 128 experts top 8 of width 768, vocab 151936) at 16
+               of its 48 layers (the float32 weights of 48 do not fit the
+               card) and the MLA + MoE family (deepseek-v2-lite-16b: d=2048,
+               16 heads, MLA rank 512 with rope 64 / nope 128 / v 128, 64
+               experts top 6 of width 1408 + 2 shared, vocab 102400) at all
+               27 layers, random float32 weights from the seed, bf16
+               compute: greedy ``ServeEngine.generate`` of 32 tokens after
+               4 prompts of 16 with no host sync in it and two calls
+               bit-equal (the combine adds in expert order), prefill and
+               decode-step times (CUDA events; the step also as a CUDA-graph
+               replay), tokens/s, peak memory; teacher forcing at capacity
+               factor 64 in bf16 and float32 compute at phase 13's
+               tolerances; each family's tokens through phase 14's scenario
+               (17 or 18 bits a token; exact at flip 0);
+ 17. lm_train_moe — both families at full width and 2 layers, remat "full",
+               AdamW, on ``SyntheticLM`` batches of 2 x 4096: 5
+               ``make_train_step`` steps of a fixed batch (the step-0 loss,
+               aux terms included, equal to a no-grad forward's; one host
+               sync a step; finite losses and positive aux losses), step
+               time (median of steps 1-4), tokens/s, the model-FLOP share of
+               the active parameters, peak memory; then ``train()`` for 2
+               steps on ``make_data_iter``.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2179,8 +2202,21 @@ def _ops_per_call(fn) -> int:
     return len(rec.ops)
 
 
+def _paper_model():
+    """``tools/paper_model.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "paper_model.py"
+    spec = importlib.util.spec_from_file_location("paper_model_tool", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_paper(smi):
-    """Phase 12: ACS without and with the custom instruction on the card."""
+    """Phase 12: the paper's cycle model (Tables III-V), then ACS without and
+    with the custom instruction on the card."""
     import torch
 
     from repro_torch.core import ConvCode, acs_step, acs_step_unfused, paper_expansion_calls
@@ -2190,6 +2226,13 @@ def phase_paper(smi):
     if calls != 19:
         _fail(f"paper_expansion_calls(12) = {calls}, the paper counts 19")
     print(f"[paper] paper_expansion_calls(12) = {calls} (the paper's count, 4-state K=3)")
+    tables = _paper_model().run()
+    print(f"[paper] the paper's cycle model (tools/paper_model.py): Table III {tables['table3']}; "
+          f"Table IV {tables['table4']}; Table V {tables['table5']}; Fig. 4 improvement % "
+          f"{tables['fig4_improvement_pct']}; equal to the published tables: "
+          f"{tables['matches_paper']}")
+    if not all(tables["matches_paper"].values()):
+        _fail(f"paper: the cycle model disagrees with the published tables {tables}")
     gen = torch.Generator(device="cuda").manual_seed(12)
     out = {}
     for label, K, polys in PAPER_CODES:
@@ -2240,6 +2283,8 @@ def phase_paper(smi):
               f"{PAPER_CHECK_T} steps; unfused / texpand step time "
               f"{row['acs_step_unfused']['ms_per_step'] / row['texpand']['ms_per_step']!r}")
         out[label] = row
+    out["cycle_model"] = {k: tables[k] for k in ("table3", "table4", "table5",
+                                                  "fig4_improvement_pct")}
     return out
 
 
@@ -2280,12 +2325,13 @@ LM_LOSS_RTOL = 1e-6
 LM_TRAIN_PEAK_PREDICTED = (58e9, 64e9)
 
 
-def _lm_forward_check(model, params, toks, dtype):
+def _lm_forward_check(model, params, toks, dtype, cache_dtype=None):
     """Teacher forcing at full width in ``dtype`` compute: prefill(S) then
-    decode(token S) against a full forward over S+1 tokens, position S.
-    Returns (max |diff|, argmax rows equal, rows whose argmax differs with
-    the full forward's logit at the decode's argmax below its max, top-2
-    margins of the full forward)."""
+    decode(token S) against a full forward over S+1 tokens, position S (the
+    caches in ``cache_dtype``, None: the served bf16).  Returns (max |diff|,
+    logits beyond the tolerance in all and by row, argmax rows equal, rows
+    whose argmax differs with the full forward's logit at the decode's
+    argmax below its max, top-2 margins of the full forward)."""
     import dataclasses
 
     import torch
@@ -2303,6 +2349,11 @@ def _lm_forward_check(model, params, toks, dtype):
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps, compute_dtype=cm.dtype_of(dtype))
     full = tf.lm_head(params, cfg, x)[:, S].float()
     caches = m.init_cache(B, S1)
+    if cache_dtype is not None:
+        from repro_torch.train.tree import tree_map
+
+        cdt = getattr(torch, cache_dtype)
+        caches = tree_map(lambda t: t.to(cdt) if t.is_floating_point() else t, caches)
     _, caches = m.prefill(params, {"tokens": toks[:, :S]}, caches)
     dec, _ = m.decode_step(params, toks[:, S:], torch.full((B,), S, dtype=torch.int32,
                                                          device=toks.device), caches)
@@ -2311,11 +2362,12 @@ def _lm_forward_check(model, params, toks, dtype):
         _fail(f"lm_serve {dtype}: bad logits {tuple(dec.shape)} or non-finite values")
     atol, rtol = LM_TF_TOL[dtype]
     diff = (dec - full).abs()
-    over = (diff > atol + rtol * full.abs()).sum().item()
+    over_by_row = (diff > atol + rtol * full.abs()).sum(-1).tolist()
     arg_d, arg_f = dec.argmax(-1), full.argmax(-1)
     top2 = full.topk(2, dim=-1).values
     below = (full.max(-1).values - full.gather(1, arg_d[:, None])[:, 0]).tolist()
-    return {"max_abs_diff": diff.max().item(), "over_tolerance": over,
+    return {"max_abs_diff": diff.max().item(), "over_tolerance": sum(over_by_row),
+            "over_by_row": over_by_row,
             "argmax_equal": (arg_d == arg_f).tolist(), "decode_argmax_below_max": below,
             "top2_margin": (top2[:, 0] - top2[:, 1]).tolist(), "atol": atol, "rtol": rtol}
 
@@ -2470,7 +2522,7 @@ def phase_lm_serve(smi, seed):
     return row, tokens
 
 
-def phase_serve_scenario(tokens, smi):
+def phase_serve_scenario(tokens, smi, bits_per_token=18, label="serve_scenario"):
     """Phase 14: the paper's serving scenario on the card: the LM's tokens
     (vocab 151936: 18 bits a token) -> bits -> the K=3 code -> a BSC ->
     the planned decode (#1 and #2)."""
@@ -2481,7 +2533,6 @@ def phase_serve_scenario(tokens, smi):
     from repro_torch.kernels import reset_counts
     from repro_torch.serve import bits_to_tokens, tokens_to_bits
 
-    bits_per_token = 18
     bits = tokens_to_bits(tokens, bits_per_token)
     coded = DECODE_SPEC.encode(bits)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2495,20 +2546,20 @@ def phase_serve_scenario(tokens, smi):
            "launches": launches, "plain": plain, "card": smi}
     for p, res in zip(SCENARIO_FLIPS, results):
         out["ber"][p] = _ber(res.info_bits, bits)
-    print(f"[serve_scenario] {tuple(tokens.shape)} tokens -> {tuple(bits.shape)} bits "
+    print(f"[{label}] {tuple(tokens.shape)} tokens -> {tuple(bits.shape)} bits "
           f"({bits_per_token} a token) -> K=3 -> BSC; backend {out['backend']!r}; BER at flip "
           f"{out['ber']}; launches {launches}, plain calls {plain} ({smi})")
-    print(f"[serve_scenario] {results[0].plan.explain(costs=True)}")
+    print(f"[{label}] {results[0].plan.explain(costs=True)}")
     if any(r.plan.backend != "fused_packed" for r in results):
-        _fail(f"serve_scenario: planned {[r.plan.backend for r in results]}")
+        _fail(f"{label}: planned {[r.plan.backend for r in results]}")
     if launches.get("viterbi_scan_packed", 0) != len(rxs) or launches.get(
             "traceback_packed", 0) != len(rxs) or any(plain.values()):
-        _fail(f"serve_scenario: launches {launches}, plain calls {plain}")
+        _fail(f"{label}: launches {launches}, plain calls {plain}")
     if not torch.equal(results[0].info_bits, bits) or not torch.equal(
             bits_to_tokens(results[0].info_bits, bits_per_token), tokens):
-        _fail("serve_scenario: flip 0 did not recover the bits and tokens exactly")
+        _fail(f"{label}: flip 0 did not recover the bits and tokens exactly")
     if max(out["ber"].values()) > 0.05:
-        _fail(f"serve_scenario: BERs {out['ber']} far above what this code and channel give")
+        _fail(f"{label}: BERs {out['ber']} far above what this code and channel give")
     return out
 
 
@@ -2690,6 +2741,365 @@ def phase_lm_train(smi, seed):
     }
 
 
+#: the MoE and MLA families at full width (src/repro/configs/qwen3_moe_30b_a3b.py,
+#: deepseek_v2_lite_16b.py): serving depth (float32 weights: qwen3-moe's 48
+#: layers, ~120e9 bytes, do not fit the card's 85.0e9, so 16 of them; all 27
+#: of deepseek-v2-lite's, ~64.8e9) and the training depth (2 layers each)
+LM_MOE_ARCHS = (("qwen3_moe_30b_a3b", 16), ("deepseek_v2_lite_16b", 27))
+LM_MOE_TRAIN_LAYERS = 2
+#: train steps on one fixed batch (the first warms, the second is counted by
+#: the sync counter, the median of all after the first is the step time),
+#: then train() steps on make_data_iter
+LM_MOE_TRAIN_STEPS, LM_MOE_LOOP_STEPS = 5, 2
+#: the teacher-forcing check's capacity factor (the reference's own check
+#: raises it: a full pass and a single-token decode drop different tokens at
+#: the published 1.25)
+LM_MOE_TF_CAPACITY = 64.0
+#: the teacher-forcing readings, (compute dtype, cache dtype): phase 13's two
+#: with the served bf16 caches, and float32 compute over float32 caches.
+#: With bf16 caches the decode's activations differ from the full forward's
+#: by a bf16 rounding, enough to flip a router near-tie: one expert for
+#: another moves a logit by O(1) (CPU rehearsal, deepseek's smoke model: row
+#: 0 swaps expert 1 for 7 in layer 1, 1.09 apart; over float32 caches the
+#: same rows are 2.5e-6 apart with equal routes).  So the routes of the
+#: decoded token are recorded in both passes, a row whose route differs in
+#: some layer is reported, and the rows whose routes agree are held to phase
+#: 13's tolerances; over float32 caches no route may differ
+LM_MOE_TF_RUNS = (("bfloat16", None), ("float32", None), ("float32", "float32"))
+#: the readings held, by mixer.  MLA decodes in the absorbed form (W_uk
+#: folded into the query, scores in the compressed space) and prefills in
+#: the expanded form: in bf16 the two round at different points, and the
+#: reference's own gap between them is 1.4375 at smoke size (256 of 2048
+#: logits beyond the bf16 tolerance; float32: 0.0131, none), so MLA's bf16
+#: reading is printed, not held, as the reference's own check holds float32
+LM_MOE_TF_GATED = {"attn": ("bfloat16", "float32"), "mla": ("float32",)}
+
+
+@contextlib.contextmanager
+def _routes_recorded():
+    """Inside, every MoE routing appends the expert ids of its last position,
+    sorted (B, k), to the list it yields."""
+    from repro_torch.models import moe as moe_mod
+
+    calls, orig = [], moe_mod.route
+
+    def record(probs, k):
+        vals, idx = orig(probs, k)
+        calls.append(idx[:, -1].sort(-1).values)
+        return vals, idx
+    moe_mod.route = record
+    try:
+        yield calls
+    finally:
+        moe_mod.route = orig
+
+
+def _bits_per_token(vocab: int) -> int:
+    return max(1, (vocab - 1).bit_length())
+
+
+def _free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _lm_param_count(cfg, params) -> tuple:
+    """(parameters in tensors, param_count()'s total, the leaves param_count()
+    leaves out: the norms' scales, qk-norm's and MLA's kv_norm scales)."""
+    from repro_torch.train.tree import tree_leaves
+
+    n = sum(t.numel() for t in tree_leaves(params))
+    extra = (2 * cfg.n_layers + 1) * cfg.d_model
+    if cfg.qk_norm:
+        extra += 2 * cfg.n_layers * cfg.resolved_head_dim
+    if cfg.mla is not None:
+        extra += cfg.n_layers * cfg.mla.kv_lora_rank
+    return n, cfg.param_count()["total"], extra
+
+
+def phase_lm_serve_moe(smi, seed):
+    """Phase 16: the MoE (qwen3-moe-30b-a3b) and MLA + MoE (deepseek-v2-lite-
+    16b) families served at full width: ``ServeEngine`` greedy generation,
+    no host sync in ``generate``, two ``generate`` calls bit-equal, prefill
+    and decode times (eager and CUDA-graph replay), teacher forcing at
+    capacity factor 64, and the tokens through the serving scenario."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis.op_lint import OpRecorder
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.serve import ServeEngine, cache_bytes
+
+    out = {}
+    for arch, n_layers in LM_MOE_ARCHS:
+        _free_card()
+        live0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = get_arch(arch)
+        published = bundle.model.n_layers
+        bundle = dataclasses.replace(bundle, model=dataclasses.replace(bundle.model,
+                                                                       n_layers=n_layers))
+        model = build(bundle)
+        cfg = model.cfg
+        if model.device.type != "cuda":
+            _fail(f"lm_serve_moe {arch}: model built on {model.device}")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t0 = time.perf_counter()
+        params = model.init(gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params, counted, extra = _lm_param_count(cfg, params)
+        if n_params != counted + extra:
+            _fail(f"lm_serve_moe {arch}: {n_params} parameters, param_count() {counted} + "
+                  f"scales {extra}")
+        held = torch.cuda.memory_allocated() - live0
+        kv_bytes = cache_bytes(model, LM_B, LM_PROMPT + LM_NEW)
+        print(f"[lm_serve_moe] {cfg.name}: {n_layers} of {published} layers, d={cfg.d_model}, "
+              f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV), {cfg.moe.n_experts} experts top "
+              f"{cfg.moe.top_k} (+{cfg.moe.n_shared} shared) of width {cfg.moe.d_expert}, "
+              f"MLA {cfg.mla}, vocab {cfg.vocab}; {n_params} parameters (param_count() "
+              f"{counted!r} + {extra} scales), {held} bytes held (float32), init {init_s!r} s; "
+              f"cache_bytes(model, {LM_B}, {LM_PROMPT + LM_NEW}) = {kv_bytes} ({smi})")
+
+        prompts = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT), generator=gen, device="cuda")
+        engine = ServeEngine(model, params, max_len=LM_PROMPT + LM_NEW)
+        engine.generate(prompts, LM_NEW)  # warm-up
+        torch.cuda.synchronize()
+        first, syncs, sites = _host_syncs(lambda: engine.generate(prompts, LM_NEW))
+        tokens = first["tokens"]
+        again = engine.generate(prompts, LM_NEW)["tokens"]
+        host_tokens = tokens.cpu()
+        print(f"[lm_serve_moe] {cfg.name}: host syncs inside generate {syncs} for {LM_NEW} "
+              f"tokens (sites {sites}); two generate calls bit-equal: "
+              f"{bool(torch.equal(again, tokens))} ({smi})")
+        if syncs != 0:
+            _fail(f"lm_serve_moe {arch}: {syncs} host syncs in generate (sites {sites})")
+        if not torch.equal(again, tokens):
+            _fail(f"lm_serve_moe {arch}: two generate calls differ")
+        if tuple(host_tokens.shape) != (LM_B, LM_NEW) or not (
+                (host_tokens >= 0) & (host_tokens < cfg.vocab)).all():
+            _fail(f"lm_serve_moe {arch}: bad tokens {tuple(host_tokens.shape)}")
+
+        with torch.inference_mode():
+            caches = model.init_cache(LM_B, LM_PROMPT + LM_NEW)
+            batch = {"tokens": prompts}
+            prefill = _event_ms(lambda: model.prefill(params, batch, caches), 1, LM_ROUNDS)
+            tok = tokens[:, :1]
+            pos = torch.full((LM_B,), LM_PROMPT, dtype=torch.int32, device="cuda")
+            step = _event_ms(lambda: model.decode_step(params, tok, pos, caches), 4, LM_ROUNDS)
+            with OpRecorder() as rec:
+                model.decode_step(params, tok, pos, caches)
+            step_ops = len(rec.ops)
+        gen_ms = _event_ms(lambda: engine.generate(prompts, LM_NEW), 1, 3, warmup=0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - live0
+        with torch.inference_mode():
+            step_dev, _ = _graph_ms(lambda: model.decode_step(params, tok, pos, caches), 2)
+        row = {
+            "arch": cfg.name, "layers": n_layers, "published_layers": published,
+            "batch": LM_B, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+            "params_in_tensors": n_params, "param_count_total": counted,
+            "param_count_active": cfg.param_count()["active"], "bytes_held": held,
+            "cache_bytes": kv_bytes, "peak_bytes_above_phase_start": peak,
+            "prefill_ms": statistics.median(prefill), "prefill_rounds": prefill,
+            "decode_ms_per_token": statistics.median(step), "decode_rounds": step,
+            "decode_device_ms": statistics.median(step_dev), "decode_device_rounds": step_dev,
+            "decode_ops": step_ops,
+            "generate_ms": statistics.median(gen_ms), "generate_rounds": gen_ms,
+            "tokens_per_s": LM_B * LM_NEW / (statistics.median(gen_ms) / 1e3),
+            "host_syncs_generate": syncs, "generate_bit_equal": True, "card": smi,
+        }
+        print(f"[lm_serve_moe] {cfg.name}: prefill ({LM_B} x {LM_PROMPT}) {row['prefill_ms']!r} "
+              f"ms (rounds {prefill}); decode {row['decode_ms_per_token']!r} ms a token eager "
+              f"(rounds {step}, {step_ops} dispatched ops a step), "
+              f"{row['decode_device_ms']!r} device-only (CUDA graph replays "
+              f"{step_dev}); generate {LM_NEW} tokens {row['generate_ms']!r} ms = "
+              f"{row['tokens_per_s']!r} tokens/s; peak {peak} bytes above the phase's start "
+              f"({smi})")
+
+        # teacher forcing at capacity factor 64, both compute dtypes
+        tf_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=LM_MOE_TF_CAPACITY))
+        tf_model = Model(cfg=tf_cfg, part=model.part, param_specs=model.param_specs,
+                         device=model.device)
+        toks = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT + 1), generator=gen, device="cuda")
+        gated = LM_MOE_TF_GATED[cfg.pattern[0][0]]
+        L = cfg.n_layers
+        with torch.inference_mode():
+            for dtype, cache_dtype in LM_MOE_TF_RUNS:
+                with _routes_recorded() as routes:  # full forward, prefill, decode
+                    tf = _lm_forward_check(tf_model, params, toks, dtype, cache_dtype)
+                if len(routes) != 3 * L:
+                    _fail(f"lm_serve_moe {arch}: {len(routes)} routings for {L} layers")
+                flips = [(layer, r) for layer in range(L) for r in range(LM_B)
+                         if not torch.equal(routes[layer][r], routes[2 * L + layer][r])]
+                rows = sorted({r for _, r in flips})
+                tf.update(held=dtype in gated, cache_dtype=str(cache_dtype or "bfloat16"),
+                          route_flips=flips,
+                          over_in_rows_with_equal_routes=sum(
+                              n for r, n in enumerate(tf["over_by_row"]) if r not in rows))
+                name = f"teacher_forcing_{dtype}" + ("_fp32_caches" if cache_dtype else "")
+                row[name] = tf
+                print(f"[lm_serve_moe] {cfg.name}: teacher forcing at capacity factor "
+                      f"{LM_MOE_TF_CAPACITY}, {dtype} compute, {tf['cache_dtype']} caches"
+                      f"{'' if tf['held'] else ' (printed, not held: LM_MOE_TF_GATED)'}: "
+                      f"decoded token's routes differ from the full forward's at (layer, row) "
+                      f"{flips}; {tf} ({smi})")
+                if cache_dtype is not None and flips:
+                    _fail(f"lm_serve_moe {arch}: routes differ over float32 caches: {flips}")
+                if not tf["held"]:
+                    continue
+                if tf["over_in_rows_with_equal_routes"]:
+                    _fail(f"lm_serve_moe {arch} {dtype}: {tf['over_in_rows_with_equal_routes']} "
+                          f"logits beyond atol {tf['atol']} + rtol {tf['rtol']} in rows whose "
+                          "routes agree")
+                kept = [r for r in range(LM_B) if r not in rows]
+                if dtype == "float32" and not all(tf["argmax_equal"][r] for r in kept):
+                    _fail(f"lm_serve_moe {arch} float32: argmax differs: {tf}")
+                if max([tf["decode_argmax_below_max"][r] for r in kept], default=0.0) > tf["atol"]:
+                    _fail(f"lm_serve_moe {arch} {dtype}: the decode's argmax is no maximum of "
+                          "the full forward")
+        del engine, caches, params, tf_model, model
+        _free_card()
+        row["scenario"] = phase_serve_scenario(tokens, smi, _bits_per_token(cfg.vocab),
+                                               f"serve_scenario_{arch}")
+        out[arch] = row
+    return out
+
+
+def phase_lm_train_moe(smi, seed):
+    """Phase 17: training of the MoE and MLA + MoE families at full width, 2
+    layers each: ``make_train_step`` on one fixed batch of 2 x 4096 tokens
+    (remat "full", AdamW) and ``train()`` on ``make_data_iter``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.data import SyntheticLM, make_data_iter
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import make_train_step, read_metrics, train
+    from repro_torch.train.tree import tree_map
+
+    out = {}
+    for arch, _ in LM_MOE_ARCHS:
+        _free_card()
+        live0 = torch.cuda.memory_allocated()
+        bundle = get_arch(arch)
+        published = bundle.model.n_layers
+        cfg = dataclasses.replace(bundle.model, n_layers=LM_MOE_TRAIN_LAYERS)
+        part = dataclasses.replace(bundle.partition, remat="full", microbatches=1,
+                                   optimizer="adamw")
+        bundle = dataclasses.replace(bundle, model=cfg, partition=part)
+        model = build(bundle)
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        counts = cfg.param_count()
+        n_params, counted, extra = _lm_param_count(cfg, params)
+        # the parameters a token's products read: the active count (top-k
+        # plus shared experts, the router) and the scales
+        n_active = counts["active"] + extra
+        batch = SyntheticLM(cfg.vocab, LM_TRAIN_S, LM_TRAIN_B, seed=seed)(0)
+        tokens = LM_TRAIN_B * LM_TRAIN_S
+        opt = adamw()
+        state = opt.init(params)
+        with torch.no_grad():  # the step-0 loss's reference: a no-grad forward
+            params_c = tree_map(lambda p: p.to(torch.bfloat16), params)
+            ref_loss = model.train_loss(params_c, batch)[0].item()
+            del params_c
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn = make_train_step(model, opt, cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP,
+                                                            LM_MOE_TRAIN_STEPS))
+
+        def one(i):
+            nonlocal params, state
+            params, state, met = step_fn(params, state, batch, i)
+            return read_metrics(met)
+
+        history, times, syncs, sites = [], [], None, None
+        for i in range(LM_MOE_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 1:
+                met, syncs, sites = _host_syncs(lambda: one(1))
+            else:
+                met = one(i)
+            times.append((time.perf_counter() - t0) * 1e3)
+            history.append(met)
+        peak = torch.cuda.max_memory_allocated() - live0
+        losses = [h["loss"] for h in history]
+        lbs = [h["load_balance_loss"] for h in history]
+        zs = [h["router_z_loss"] for h in history]
+        norms = [h["grad_norm"] for h in history]
+        step_ms = statistics.median(times[1:])
+        m = cfg.mla
+        qk, v = ((m.nope_head_dim + m.rope_head_dim, m.v_head_dim) if m is not None
+                 else (cfg.resolved_head_dim, cfg.resolved_head_dim))
+        # model FLOPs a token: 6 N_active (forward and backward of the
+        # products a token runs: top-k and shared experts, not all E) +
+        # 6 L H (qk + v) S (attention's scores and PV over the sequence)
+        flops_token = 6 * n_active + 6 * cfg.n_layers * cfg.n_heads * (qk + v) * LM_TRAIN_S
+        mfu = flops_token * tokens / (step_ms / 1e3) / BF16_FLOPS_PER_S
+        print(f"[lm_train_moe] {cfg.name}: {LM_MOE_TRAIN_LAYERS} of {published} layers at full "
+              f"width, {n_params} parameters ({n_active} active a token), B={LM_TRAIN_B} x "
+              f"S={LM_TRAIN_S}, remat 'full', AdamW; losses {losses}; load-balance {lbs}; "
+              f"z {zs}; grad norms {norms}; step-0 loss {losses[0]!r} against the no-grad "
+              f"forward's {ref_loss!r}; host syncs in step 1 {syncs} (sites {sites}) ({smi})")
+        print(f"[lm_train_moe] {cfg.name}: step times (ms) {times}; median of steps 1-"
+              f"{LM_MOE_TRAIN_STEPS - 1} {step_ms!r} ms = {tokens / (step_ms / 1e3)!r} tokens/s; "
+              f"model FLOPs (6 N_active + attention) {flops_token * tokens!r} a step = {mfu!r} "
+              f"of the {BF16_FLOPS_PER_S!r} FLOP/s bf16 peak; peak {peak} bytes above the "
+              f"phase's start ({smi})")
+        if abs(losses[0] - ref_loss) > LM_LOSS_RTOL * abs(ref_loss):
+            _fail(f"lm_train_moe {arch}: step-0 loss {losses[0]!r} against the no-grad "
+                  f"forward's {ref_loss!r}")
+        if not all(math.isfinite(x) for x in losses + norms + lbs + zs):
+            _fail(f"lm_train_moe {arch}: non-finite losses {losses}, {lbs}, {zs} or norms")
+        if not (min(lbs) > 0 and min(zs) > 0):
+            _fail(f"lm_train_moe {arch}: aux losses {lbs}, {zs}")
+        if syncs != 1:
+            _fail(f"lm_train_moe {arch}: {syncs} host syncs in a step (sites {sites}), "
+                  "expected 1")
+        del params, state, step_fn
+        _free_card()
+        shape = dataclasses.replace(SHAPES["train_4k"], seq_len=LM_TRAIN_S,
+                                    global_batch=LM_TRAIN_B)
+        t0 = time.perf_counter()
+        report = train(model, make_data_iter(model, shape, seed=seed),
+                       steps=LM_MOE_LOOP_STEPS, lr=LM_TRAIN_LR, warmup=LM_TRAIN_WARMUP,
+                       seed=seed, log_every=1)
+        loop_s = time.perf_counter() - t0
+        loop = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm", "load_balance_loss",
+                                   "router_z_loss")} for h in report["history"]]
+        print(f"[lm_train_moe] {cfg.name}: train() {LM_MOE_LOOP_STEPS} steps on make_data_iter "
+              f"in {loop_s!r} s (init included): {loop}; restarts {report['restarts']} ({smi})")
+        if report["final_step"] != LM_MOE_LOOP_STEPS or report["restarts"] or not all(
+                math.isfinite(h["loss"]) for h in loop):
+            _fail(f"lm_train_moe {arch}: train() report {loop}")
+        del report
+        _free_card()
+        out[arch] = {
+            "arch": cfg.name, "layers": LM_MOE_TRAIN_LAYERS, "published_layers": published,
+            "batch": LM_TRAIN_B, "seq_len": LM_TRAIN_S, "params": n_params,
+            "active_params": n_active, "losses": losses, "load_balance_losses": lbs,
+            "router_z_losses": zs, "grad_norms": norms, "step0_no_grad_loss": ref_loss,
+            "step_ms": step_ms, "step_rounds_ms": times,
+            "tokens_per_s": tokens / (step_ms / 1e3), "model_flops_per_step": flops_token * tokens,
+            "mfu_bf16_active": mfu, "peak_bytes_above_phase_start": peak,
+            "host_syncs_step": syncs, "train_loop": loop, "card": smi,
+        }
+    return out
+
+
 SHAPE_KEYS = ("ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
               "bytes", "operations", "shape", "variant")
 
@@ -2823,8 +3233,13 @@ def main(argv=None) -> int:
     mark("lm_serve, serve_scenario")
     lm_train = phase_lm_train(smi, args.seed)
     mark("lm_train")
+    lm_moe = phase_lm_serve_moe(smi, args.seed)
+    mark("lm_serve_moe")
+    lm_train_moe = phase_lm_train_moe(smi, args.seed)
+    mark("lm_train_moe")
     print(json.dumps({"analysis": analysis, "paper": paper, "lm_serve": lm,
-                      "serve_scenario": scenario, "lm_train": lm_train}))
+                      "serve_scenario": scenario, "lm_train": lm_train,
+                      "lm_serve_moe": lm_moe, "lm_train_moe": lm_train_moe}))
     print(json.dumps({"end_to_end": e2e, "bound_inputs": [
         {k: r[k] for k in ("name", "bytes", "operations", "shape") if k in r} for r in rows]}))
     print(f"[done] wall time {time.perf_counter() - wall0!r} s")

@@ -1,11 +1,14 @@
 """Serving launcher: batched generation + the Viterbi decode path.
 
   python -m repro_torch.launch.serve --arch qwen2_5_3b --smoke --tokens 32
+  python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b --smoke --device cpu
   python -m repro_torch.launch.serve --viterbi --bits 256 --batch 64 --backend fused
   python -m repro_torch.launch.serve --viterbi --backend auto   # planner picks
 
-Runs on the card; ``--device cpu`` runs the CPU (every kernel's plain
-version).  Weights are random, drawn from a seeded generator on the device.
+``--arch`` takes every configuration ``models.build`` serves: the dense
+families, qwen3-moe-30b-a3b (MoE) and deepseek-v2-lite-16b (MLA + MoE);
+jamba, xlstm-350m and seamless-m4t raise naming ROADMAP item 11.  Runs on
+the card; ``--device cpu`` runs the CPU (every kernel's plain version).  Weights are random, drawn from a seeded generator on the device.
 Logs the result as one JSON object (and, with ``--viterbi``, the plan's
 ``explain(costs=True)`` before it).
 """

@@ -2,6 +2,12 @@
 
   python -m repro_torch.launch.train --arch qwen2_5_3b --smoke --steps 20
   python -m repro_torch.launch.train --arch qwen2_5_3b --smoke --device cpu
+  python -m repro_torch.launch.train --arch deepseek_v2_lite_16b --smoke --device cpu
+
+``--arch`` takes every configuration ``models.build`` serves (the dense
+families, the MoE qwen3-moe-30b-a3b and the MLA + MoE deepseek-v2-lite-16b,
+whose losses add the router's aux terms); jamba, xlstm-350m and
+seamless-m4t raise naming ROADMAP item 11.
 
 Runs on the card; ``--device cpu`` runs the CPU.  One process on one
 device: a ``--mesh`` other than ``none`` and ``--distributed`` wait for

@@ -3,11 +3,13 @@
 Params are plain nested dicts of tensors.  Every param is declared first as
 a :class:`ParamSpec` carrying shape, dtype, *logical axis names* and an
 initializer.  The spec tree gives, without any allocation, the tensors'
-shapes and bytes (``spec_leaves``; ``serve.kv_cache.cache_bytes``), and
-``init_params(specs, generator)`` materializes them on the generator's
-device.  The reference's sharding helpers (``resolve_axes``,
-``shardings``, ``logical_sharding``, ``constrain``) need a device mesh,
-which the port does not have yet: they raise naming ROADMAP item 9b.
+shapes and bytes (``spec_leaves``; ``serve.kv_cache.cache_bytes``) and a
+tree of shape-and-dtype stand-ins on the ``meta`` device (``abstract``, the
+reference's ``ShapeDtypeStruct`` tree), and ``init_params(specs,
+generator)`` materializes them on the generator's device.  The reference's
+sharding helpers (``resolve_axes``, ``shardings``, ``logical_sharding``,
+``constrain``) need a device mesh, which the port does not have yet: they
+raise naming ROADMAP item 9b.
 
 Numerics follow the reference's order of rounding: ``dense`` casts kernel
 and input to the compute dtype, multiplies, then adds the bias cast to the
@@ -66,6 +68,20 @@ def spec_leaves(specs) -> List[ParamSpec]:
     if _is_spec(specs):
         return [specs]
     return [leaf for k in sorted(specs) for leaf in spec_leaves(specs[k])]
+
+
+def tree_leaves_with_specs(specs) -> Tuple[List[ParamSpec], Any]:
+    """(leaves, structure) of a spec tree: the leaves in the reference's
+    pytree order, and the spec tree itself as the structure
+    (``train.tree.tree_unflatten(structure, leaves)`` rebuilds a tree of
+    the same keys)."""
+    return spec_leaves(specs), specs
+
+
+def abstract(specs):
+    """The tree of ``meta``-device tensors of each spec's shape and dtype:
+    the reference's ``ShapeDtypeStruct`` tree.  Nothing is allocated."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
 
 
 def dtype_of(name) -> torch.dtype:

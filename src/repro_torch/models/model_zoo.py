@@ -7,11 +7,13 @@ cache), so the reference's parameters carry over key for key
 (``repro_torch.convert.lm_params_from_arrays``).  The model runs on the
 card unless the caller asks for the CPU (``device="cpu"``).
 
-``build`` refuses, before any allocation, the families the port does not
-serve yet (the ``mla``, ``mamba``, ``mlstm``/``slstm`` mixers, the ``moe``
-ffn, the encoder-decoder family: ROADMAP item 11).  The dry-run inputs
-(``input_specs``) wait for item 11 too; the sharding methods and ``mesh=``
-for item 9b.
+Served: the attention and ``mla`` mixers with the ``mlp``, ``moe`` or
+``none`` ffn.  ``build`` refuses, before any allocation, the families the
+port does not serve yet (the ``mamba``, ``mlstm``/``slstm`` mixers and the
+encoder-decoder family: ROADMAP item 11).  ``abstract_params`` and
+``abstract_cache`` give shape-and-dtype trees on the ``meta`` device (no
+allocation); the dry-run inputs (``input_specs``) wait for item 11, the
+sharding methods and ``mesh=`` for item 9b.
 """
 from __future__ import annotations
 
@@ -45,6 +47,10 @@ class Model:
         (a generator of that device)."""
         return cm.init_params(self.param_specs, generator, self.device)
 
+    def abstract_params(self):
+        """The parameters' shapes and dtypes as ``meta`` tensors."""
+        return cm.abstract(self.param_specs)
+
     def param_shardings(self, mesh, rules=None):
         _needs_item("param_shardings", "9b")
 
@@ -52,6 +58,10 @@ class Model:
 
     def cache_specs(self, B: int, S: int):
         return tf.cache_specs(self.cfg, self.part, B, S)
+
+    def abstract_cache(self, B: int, S: int):
+        """The caches' shapes and dtypes as ``meta`` tensors."""
+        return cm.abstract(self.cache_specs(B, S))
 
     def cache_shardings(self, mesh, B: int, S: int, rules=None):
         _needs_item("cache_shardings", "9b")
@@ -93,7 +103,7 @@ def build(bundle: ArchBundle, device=None) -> Model:
     if cfg.family == "encdec":
         _needs_item("the encoder-decoder family", "11")
     for mixer, ffn in cfg.pattern:
-        if mixer not in tf.ATTN_KINDS:
+        if mixer not in tf.SERVED_MIXERS:
             _needs_item(f"the {mixer!r} mixer ({cfg.name})", "11")
         if ffn not in tf.SERVED_FFNS:
             _needs_item(f"the {ffn!r} ffn ({cfg.name})", "11")

@@ -20,10 +20,13 @@ checkpointed in ~sqrt(n) chunks (``remat_scan``).  Checkpoints run only
 while grad is enabled, so inference runs none.
 
 Served here: the attention mixers (``attn``, ``attn_bidir``,
-``attn_local``) with the ``mlp`` or ``none`` ffn.  The ``mla``, ``mamba``,
-``mlstm`` and ``slstm`` mixers and the ``moe`` ffn wait for ROADMAP item
-11; ``model_zoo.build`` refuses them before any allocation.  A device mesh
-waits for item 9b.
+``attn_local``) and ``mla``, with the ``mlp``, ``moe`` or ``none`` ffn.
+The MoE aux losses travel with the activations: each block returns its
+sums as outputs (of its checkpoint, when one runs), and the group loop
+carries their running totals beside ``x``, so a recompute in the backward
+never adds them twice.  The ``mamba``, ``mlstm`` and ``slstm`` mixers wait
+for ROADMAP item 11; ``model_zoo.build`` refuses them before any
+allocation.  A device mesh waits for item 9b.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import common as cm
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (
     _qkv,
     attention_specs,
@@ -49,7 +54,8 @@ from repro_torch.models.attention import (
 from repro_torch.models.mlp import mlp_apply, mlp_specs
 
 ATTN_KINDS = ("attn", "attn_bidir", "attn_local")
-SERVED_FFNS = ("mlp", "none")
+SERVED_MIXERS = ATTN_KINDS + ("mla",)
+SERVED_FFNS = ("mlp", "moe", "none")
 
 
 def _not_ported(what: str):
@@ -65,12 +71,16 @@ def _not_ported(what: str):
 def _mixer_specs(cfg, mixer: str, stack: int):
     if mixer in ATTN_KINDS:
         return attention_specs(cfg, stack)
+    if mixer == "mla":
+        return mla_mod.mla_specs(cfg, stack)
     _not_ported(f"the {mixer!r} mixer")
 
 
 def _ffn_specs(cfg, ffn: str, stack: int):
     if ffn == "mlp":
         return mlp_specs(cfg, stack)
+    if ffn == "moe":
+        return moe_mod.moe_specs(cfg, stack)
     if ffn == "none":
         return None
     _not_ported(f"the {ffn!r} ffn")
@@ -136,6 +146,12 @@ def _mixer_cache_specs(cfg, part, mixer: str, B: int, S: int, stack: int):
         kv = PS((B, W, KV, hd), ("batch", None, "kv_heads", "head_dim"))
         pos = PS((B, W), ("batch", None), dtype=torch.int32)
         return {"k": kv, "v": kv, "pos": pos}
+    if mixer == "mla":
+        m = cfg.mla
+        return {
+            "c_kv": PS((B, S, m.kv_lora_rank), ("batch", seq_ax, "kv_lora")),
+            "k_rope": PS((B, S, m.rope_head_dim), ("batch", seq_ax, "head_dim")),
+        }
     _not_ported(f"the {mixer!r} mixer's cache")
 
 
@@ -167,26 +183,39 @@ def _norm(params, cfg, x):
     return cm.rmsnorm(params, x, cfg.norm_eps, compute_dtype=cm.dtype_of(cfg.compute_dtype))
 
 
-def _ffn(bp, cfg, ffn: str, x):
+def _ffn(bp, cfg, ffn: str, x, mesh=None):
+    """The block's ffn half.  Returns (x, aux): the MoE aux losses, {} for
+    the other ffns."""
+    aux = {}
     if ffn != "none":
         h = _norm(bp["ln2"], cfg, x)
-        y = mlp_apply(bp["ffn"], cfg, h)
+        if ffn == "mlp":
+            y = mlp_apply(bp["ffn"], cfg, h)
+        else:
+            y, aux = moe_mod.moe_apply(bp["ffn"], cfg, h, mesh=mesh)
         if cfg.norm_style == "sandwich":
             y = _norm(bp["ln2_post"], cfg, y)
         x = x + y
-    return x
+    return x, aux
 
 
 def apply_block_full(bp, cfg, part, mixer: str, ffn: str, x, *, positions=None, cache=None,
                      mesh=None, rules=None):
-    """Full-sequence block (prefill).  Returns (x, cache)."""
+    """Full-sequence block (training / prefill).  Returns (x, cache, aux)."""
     h = _norm(bp["ln1"], cfg, x)
-    y, new_cache = self_attention(
-        bp["mixer"], cfg, part, h, kind=mixer, positions=positions, cache=cache, mesh=mesh)
+    if mixer == "mla":
+        if mesh is not None:
+            cm._needs_mesh("apply_block_full(mesh=...)")
+        y, new_cache = mla_mod.mla_attention(bp["mixer"], cfg, part, h, positions=positions,
+                                             cache=cache)
+    else:
+        y, new_cache = self_attention(
+            bp["mixer"], cfg, part, h, kind=mixer, positions=positions, cache=cache, mesh=mesh)
     if cfg.norm_style == "sandwich":
         y = _norm(bp["ln1_post"], cfg, y)
     x = x + y
-    return _ffn(bp, cfg, ffn, x), new_cache
+    x, aux = _ffn(bp, cfg, ffn, x, mesh)
+    return x, new_cache, aux
 
 
 def _local_ring_decode(params, cfg, part, x, *, positions, cache):
@@ -229,10 +258,13 @@ def apply_block_decode(bp, cfg, part, mixer: str, ffn: str, x, *, positions, cac
                        rules=None):
     """Single-token block.  x: (B, 1, d).  Returns (x, cache)."""
     h = _norm(bp["ln1"], cfg, x)
+    if mixer in ("attn_local", "mla") and mesh is not None:
+        cm._needs_mesh("apply_block_decode(mesh=...)")
     if mixer == "attn_local":
-        if mesh is not None:
-            cm._needs_mesh("apply_block_decode(mesh=...)")
         y, new_cache = _local_ring_decode(
+            bp["mixer"], cfg, part, h, positions=positions, cache=cache)
+    elif mixer == "mla":
+        y, new_cache = mla_mod.mla_attention_decode(
             bp["mixer"], cfg, part, h, positions=positions, cache=cache)
     else:
         y, new_cache = self_attention_decode(
@@ -240,7 +272,8 @@ def apply_block_decode(bp, cfg, part, mixer: str, ffn: str, x, *, positions, cac
     if cfg.norm_style == "sandwich":
         y = _norm(bp["ln1_post"], cfg, y)
     x = x + y
-    return _ffn(bp, cfg, ffn, x), new_cache
+    x, _ = _ffn(bp, cfg, ffn, x, mesh)
+    return x, new_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -335,11 +368,16 @@ def run_stack_full(params_blocks, cfg, part, x, *, positions=None, caches=None, 
                    rules=None, collect_aux=True):
     """Run the stacked block groups over a full-sequence input (prefill and
     training), writing the caches in place when given.  Returns (x, caches,
-    aux): the MoE aux-loss sums, zero for the served ffns (``collect_aux``,
-    the reference's keyword, changes nothing here)."""
+    aux): the MoE aux-loss sums over the blocks (float32; zero without an
+    MoE block or with ``collect_aux`` off).
+
+    The sums ride in the group carry ``(x, lb, z)`` and leave each block as
+    outputs of its checkpoint, so the backward's recompute of a block or a
+    chunk of groups never adds them again."""
     policy = _remat_policy(part)
 
-    def group_fn(x, xs):
+    def group_fn(carry, xs):
+        x, lb, z = carry
         gp, gc = xs
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             def block_fn(bp, x, cache, _mixer=mixer, _ffn=ffn):
@@ -348,14 +386,17 @@ def run_stack_full(params_blocks, cfg, part, x, *, positions=None, caches=None, 
 
             # remat at block granularity: the backward recomputes one block's
             # internals at a time
-            x, _ = _checkpointed(block_fn, policy)(
+            x, _, aux = _checkpointed(block_fn, policy)(
                 gp[f"p{i}"], x, None if gc is None else gc[f"p{i}"])
-        return x
+            if aux and collect_aux:
+                lb = lb + aux["load_balance_loss"]
+                z = z + aux["router_z_loss"]
+        return x, lb, z
 
-    x = remat_scan(group_fn, x, (params_blocks, caches), cfg.n_groups, policy,
-                   scan=part.scan_layers)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, caches, {"load_balance_loss": zero, "router_z_loss": zero}
+    x, lb, z = remat_scan(group_fn, (x, zero, zero), (params_blocks, caches), cfg.n_groups,
+                          policy, scan=part.scan_layers)
+    return x, caches, {"load_balance_loss": lb, "router_z_loss": z}
 
 
 def run_stack_decode(params_blocks, cfg, part, x, *, positions, caches, mesh=None, rules=None):
@@ -418,7 +459,9 @@ def softmax_xent(logits, labels, valid=None, z_weight: float = 0.0, mesh=None):
 
 def lm_train_loss(params, cfg, part, batch, mesh=None, rules=None):
     """batch: {"tokens": (B,S), "labels": (B,S)} (+ "patches" for a VLM,
-    "valid" to mask positions).  Returns (loss, metrics)."""
+    "valid" to mask positions).  Returns (loss, metrics): with MoE blocks the
+    loss adds ``aux_loss_weight`` times the load-balance sum and 1e-3 times
+    the z-loss sum; ``metrics["loss"]`` is the plain cross-entropy."""
     if mesh is not None:
         cm._needs_mesh("lm_train_loss(mesh=...)")
     x = embed_tokens(params, cfg, batch["tokens"], batch.get("patches"))
@@ -430,7 +473,11 @@ def lm_train_loss(params, cfg, part, batch, mesh=None, rules=None):
         # patch positions carry no next-token target
         logits = logits[:, cfg.n_prefix_tokens:]
     loss = softmax_xent(logits, batch["labels"], batch.get("valid"))
-    return loss, {"loss": loss, **aux}
+    total = loss
+    if cfg.moe is not None:
+        total = total + cfg.moe.aux_loss_weight * aux["load_balance_loss"] \
+            + 1e-3 * aux["router_z_loss"]
+    return total, {"loss": loss, **aux}
 
 
 # --------------------------------------------------------------------------- #
@@ -445,7 +492,8 @@ def lm_prefill(params, cfg, part, tokens, caches, *, patches=None, mesh=None, ru
     x = embed_tokens(params, cfg, tokens, patches)
     x = cm.constrain(x, mesh, rules, ("batch", None, None))
     x, caches, _ = run_stack_full(
-        params["blocks"], cfg, part, x, caches=caches, mesh=mesh, rules=rules)
+        params["blocks"], cfg, part, x, caches=caches, mesh=mesh, rules=rules,
+        collect_aux=False)
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps,
                    compute_dtype=cm.dtype_of(cfg.compute_dtype))
     logits = lm_head(params, cfg, x[:, -1:])[:, 0]

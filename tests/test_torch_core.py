@@ -229,7 +229,8 @@ def test_import_loads_neither_jax_nor_reference():
         "repro_torch.stream.scheduler, repro_torch.configs, repro_torch.serve, "
         "repro_torch.serve.bits, repro_torch.train, repro_torch.analysis, "
         "repro_torch.analysis.hotpaths, repro_torch.analysis.__main__, "
-        "repro_torch.models, repro_torch.serve.engine, repro_torch.launch.serve, "
+        "repro_torch.models, repro_torch.models.moe, repro_torch.models.mla, "
+        "repro_torch.serve.engine, repro_torch.launch.serve, "
         "repro_torch.train.optimizer, repro_torch.train.train_loop, "
         "repro_torch.train.checkpoint, repro_torch.data, repro_torch.launch.train\n"
         "bad = [k for k in sys.modules if k.startswith('jax') or k == 'repro' "

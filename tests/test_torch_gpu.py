@@ -1129,7 +1129,8 @@ def test_acs_step_unfused_on_card_equals_acs_step_and_cpu(card, K, polys):
 # the LM serving path                                                          #
 # --------------------------------------------------------------------------- #
 
-LM_SERVED = ("qwen2_5_3b", "qwen3_4b", "qwen1_5_110b", "gemma3_12b", "internvl2_26b")
+LM_SERVED = ("qwen2_5_3b", "qwen3_4b", "qwen1_5_110b", "gemma3_12b", "internvl2_26b",
+             "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b")
 #: float32 compute, card against CPU: the products sum in other orders
 #: (prefill); decode reads the bf16 caches, where a value within float32
 #: noise of a bf16 rounding boundary rounds the other way (one bf16 ulp)
@@ -1193,6 +1194,122 @@ def test_lm_on_card_matches_cpu(card, arch):
     assert got["tokens"].device.type == "cuda"
     assert torch.equal(got["tokens"].cpu(), want["tokens"])
     assert torch.equal(got["done"].cpu(), want["done"])
+
+
+#: MoE on the card against the CPU: bf16 compute (the served dtype), products
+#: summed in other orders (``BF16`` of tests/test_torch_models.py)
+LM_MOE_BF16_TOL = dict(rtol=5e-2, atol=1e-1)
+
+
+def _moe_inputs(compute_dtype, zero_router=False, S=64):
+    """(config, CPU params, x) of a smoke MoE layer (qwen3-moe's: 8 experts,
+    top 2) with shared experts, from a seeded CPU generator."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.models import common as cm
+    from repro_torch.models.moe import moe_specs
+
+    cfg = get_smoke_arch("qwen3_moe_30b_a3b").model
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype,
+                              moe=dataclasses.replace(cfg.moe, n_shared=1))
+    gen = torch.Generator().manual_seed(5)
+    params = cm.init_params(moe_specs(cfg, 0), gen)
+    if zero_router:
+        params["router"]["kernel"].zero_()
+    x = torch.randn((2, S, cfg.d_model), generator=gen).to(cm.dtype_of(compute_dtype))
+    return cfg, params, x
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_moe_apply_on_card_matches_cpu_and_repeats_bit_for_bit(card, compute_dtype):
+    """The same routes as the CPU run (at the published capacity factor),
+    the output within the dtype's tolerance, and two runs on the card
+    bit-equal (the combine adds a token's contributions in expert order, no
+    atomics)."""
+    from repro_torch.models.moe import moe_apply, router
+
+    cfg, params, x = _moe_inputs(compute_dtype)
+    want_y, want_aux = moe_apply(params, cfg, x)
+    card_params = _to(params, card)
+    got_y, got_aux = moe_apply(card_params, cfg, x.to(card))
+    again, _ = moe_apply(card_params, cfg, x.to(card))
+    assert torch.equal(got_y, again)
+    *_, want_ids = router(params, cfg, x)
+    *_, got_ids = router(card_params, cfg, x.to(card))
+    assert torch.equal(got_ids.cpu(), want_ids)
+    tol = LM_PREFILL_TOL if compute_dtype == "float32" else LM_MOE_BF16_TOL
+    torch.testing.assert_close(got_y.cpu(), want_y, **tol)
+    for k in want_aux:
+        torch.testing.assert_close(got_aux[k].cpu(), want_aux[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_moe_zero_router_ties_to_the_lowest_experts_on_card(card):
+    """Every probability ties: each token takes experts 0..k-1 on the card,
+    as ``jax.lax.top_k`` orders ties, and the output equals the CPU's."""
+    from repro_torch.models.moe import moe_apply, router
+
+    cfg, params, x = _moe_inputs("float32", zero_router=True)
+    card_params = _to(params, card)
+    *_, ids = router(card_params, cfg, x.to(card))
+    assert (ids.cpu() == torch.arange(cfg.moe.top_k)).all()
+    want, _ = moe_apply(params, cfg, x)
+    got, _ = moe_apply(card_params, cfg, x.to(card))
+    torch.testing.assert_close(got.cpu(), want, **LM_PREFILL_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "deepseek_v2_lite_16b"])
+def test_moe_families_sync_once_a_train_step_and_never_in_generate(card, arch):
+    """The MoE dispatch (sort, cummax, scatter, gather) and MLA make no host
+    sync: a train step (bf16, remat "full") synchronizes only in reading its
+    metrics, and generation nowhere."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.configs import get_smoke_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import make_train_step, read_metrics
+
+    bundle = get_smoke_arch(arch)
+    bundle = dataclasses.replace(bundle, partition=dataclasses.replace(bundle.partition,
+                                                                       remat="full"))
+    model = build(bundle, device=card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    opt = adamw()
+    state = opt.init(params)
+    step = make_train_step(model, opt, cosine_warmup(1e-3, 1, 10))
+    batch = SyntheticLM(model.cfg.vocab, 64, 2, seed=1)(0)
+    params, state, met = step(params, state, batch, 0)  # warm
+    read_metrics(met)
+    engine = ServeEngine(model, params, max_len=24)
+    prompts = torch.randint(1, model.cfg.vocab, (2, 8), device=card)
+    engine.generate(prompts, 4)  # warm
+    torch.cuda.synchronize()
+    counts = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for fn in (lambda: step(params, state, batch, 1),
+                   lambda: read_metrics(step(params, state, batch, 2)[2]),
+                   lambda: engine.generate(prompts, 16)):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+            counts.append(sum("synchronizing" in str(w.message) for w in caught))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert counts == [0, 1, 0], counts
+    a = engine.generate(prompts, 16)["tokens"]
+    assert torch.equal(a, engine.generate(prompts, 16)["tokens"])
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
 """The port's training path held against the reference on identical inputs:
-``train_loss`` (loss and gradients) for the five served smoke architectures,
+``train_loss`` (loss and gradients) for the seven served smoke architectures
+(the MoE families' losses with their aux terms),
 the bf16 step's gradients, remat ``full``/``dots``/``none``, ``softmax_xent``
 with ``valid`` and ``z_weight``, AdamW and Adafactor updates, the schedule
 and clipping, microbatching, an 8-step overfit run's losses, crash ->
@@ -143,13 +144,15 @@ def _bf16_tree(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_loss_grads(arch, compute_dtype, bf16_params):
+def _ref_loss_grads(arch, compute_dtype, bf16_params, with_metrics=False):
     rm = r_build(_with(RCB.get_smoke_arch(arch), compute_dtype))
     params = _ref_params(arch)
     if bf16_params:
         params = _bf16_tree(params)
     fn = jax.jit(jax.value_and_grad(rm.train_loss, has_aux=True))
     (loss, metrics), grads = fn(params, _ref_batch(_np_batch(arch)))
+    if with_metrics:
+        return float(loss), grads, {k: float(v) for k, v in metrics.items()}
     return float(loss), grads
 
 
@@ -169,13 +172,20 @@ def _port_loss_grads(model, params, batch, bf16_params=False):
 
 @pytest.mark.parametrize("arch", SERVED)
 def test_train_loss_and_grads_match_reference_fp32(arch):
-    want_loss, want = _ref_loss_grads(arch, "float32", False)
+    """The loss (for the MoE families the cross-entropy plus the aux
+    terms), its metrics and every gradient leaf."""
+    want_loss, want, want_m = _ref_loss_grads(arch, "float32", False, with_metrics=True)
     pm = p_build(_with(PCB.get_smoke_arch(arch), "float32"), device="cpu")
     loss, metrics, grads = _port_loss_grads(pm, _port_params(arch),
                                             _port_batch(_np_batch(arch)))
     np.testing.assert_allclose(loss.item(), want_loss, rtol=FP32_GRAD)
-    assert set(metrics) == {"loss", "load_balance_loss", "router_z_loss"}
-    assert metrics["load_balance_loss"].item() == 0.0 == metrics["router_z_loss"].item()
+    assert set(metrics) == set(want_m) == {"loss", "load_balance_loss", "router_z_loss"}
+    for k in want_m:
+        np.testing.assert_allclose(metrics[k].item(), want_m[k], rtol=FP32_GRAD, err_msg=k)
+    if pm.cfg.moe is None:
+        assert metrics["load_balance_loss"].item() == 0.0 == metrics["router_z_loss"].item()
+    else:
+        assert loss.item() > metrics["loss"].item() and metrics["router_z_loss"].item() > 0
     want = jax.tree_util.tree_leaves(want)
     assert len(grads) == len(want)
     errs = [_rel(g, w) for g, w in zip(grads, want)]
