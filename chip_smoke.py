@@ -163,6 +163,22 @@ Phases (any failure raises and exits non-zero):
                time (median of steps 1-4), tokens/s, the model-FLOP share of
                the active parameters, peak memory; then ``train()`` for 2
                steps on ``make_data_iter``.
+ 18. lm_serve_recurrent — phase 16's checks for the recurrent families:
+               jamba-v0.1-52b (d=4096, GQA 32/8, Mamba d_state 16 / d_conv 4
+               / expand 2 / chunk 256, 16 experts top 2 of width 14336,
+               vocab 65536) at one 8-layer Jamba block of its 32 (7 Mamba +
+               1 attention, 4 MoE: ~53.2e9 bytes of float32 weights) and
+               xlstm-350m (d=1024, 4 heads, mLSTM:sLSTM 7:1, vocab 50304,
+               tied) at all 24 layers; teacher forcing in float32 held at
+               the reference's own tolerance for these families (atol 0.2,
+               rtol 0.1; jamba at capacity factor 64; xlstm with its bf16
+               rounding of ``h`` taken out, the faithful readings printed:
+               LM_TF_UNROUNDED_RUNS), bf16 printed; the tokens through
+               phase 14's scenario (16 bits a token);
+ 19. lm_train_recurrent — phase 17's checks for jamba (the first two
+               entries of its pattern, ("mamba", "mlp") and ("mamba",
+               "moe")) and xlstm-350m (24 layers) at full width: 3
+               ``make_train_step`` steps, then ``train()`` for 1 step.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2325,10 +2341,11 @@ LM_LOSS_RTOL = 1e-6
 LM_TRAIN_PEAK_PREDICTED = (58e9, 64e9)
 
 
-def _lm_forward_check(model, params, toks, dtype, cache_dtype=None):
+def _lm_forward_check(model, params, toks, dtype, cache_dtype=None, tol=None):
     """Teacher forcing at full width in ``dtype`` compute: prefill(S) then
     decode(token S) against a full forward over S+1 tokens, position S (the
-    caches in ``cache_dtype``, None: the served bf16).  Returns (max |diff|,
+    caches in ``cache_dtype``, None: the served bf16; the tolerance ``tol``
+    (atol, rtol), None: LM_TF_TOL's for ``dtype``).  Returns (max |diff|,
     logits beyond the tolerance in all and by row, argmax rows equal, rows
     whose argmax differs with the full forward's logit at the decode's
     argmax below its max, top-2 margins of the full forward)."""
@@ -2360,7 +2377,7 @@ def _lm_forward_check(model, params, toks, dtype, cache_dtype=None):
     dec = dec.float()
     if dec.shape != full.shape or not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
         _fail(f"lm_serve {dtype}: bad logits {tuple(dec.shape)} or non-finite values")
-    atol, rtol = LM_TF_TOL[dtype]
+    atol, rtol = tol or LM_TF_TOL[dtype]
     diff = (dec - full).abs()
     over_by_row = (diff > atol + rtol * full.abs()).sum(-1).tolist()
     arg_d, arg_f = dec.argmax(-1), full.argmax(-1)
@@ -2766,13 +2783,50 @@ LM_MOE_TF_CAPACITY = 64.0
 #: some layer is reported, and the rows whose routes agree are held to phase
 #: 13's tolerances; over float32 caches no route may differ
 LM_MOE_TF_RUNS = (("bfloat16", None), ("float32", None), ("float32", "float32"))
-#: the readings held, by mixer.  MLA decodes in the absorbed form (W_uk
-#: folded into the query, scores in the compressed space) and prefills in
-#: the expanded form: in bf16 the two round at different points, and the
-#: reference's own gap between them is 1.4375 at smoke size (256 of 2048
-#: logits beyond the bf16 tolerance; float32: 0.0131, none), so MLA's bf16
-#: reading is printed, not held, as the reference's own check holds float32
-LM_MOE_TF_GATED = {"attn": ("bfloat16", "float32"), "mla": ("float32",)}
+#: the readings held, by the pattern's first mixer.  MLA decodes in the
+#: absorbed form (W_uk folded into the query, scores in the compressed space)
+#: and prefills in the expanded form: in bf16 the two round at different
+#: points, and the reference's own gap between them is 1.4375 at smoke size
+#: (256 of 2048 logits beyond the bf16 tolerance; float32: 0.0131, none), so
+#: MLA's bf16 reading is printed, not held, as the reference's own check
+#: holds float32.  The recurrent families (mamba: jamba; mlstm: xlstm) hold
+#: float32 too: the prefill's chunked scans and the decode's step recurrence
+#: round differently, which the reference's own check allows
+LM_MOE_TF_GATED = {"attn": ("bfloat16", "float32"), "mla": ("float32",),
+                   "mamba": ("float32",), "mlstm": ()}
+#: xlstm's readings (first mixer mlstm) are printed, and two more are run and
+#: held: float32 compute over bf16 and float32 caches with the port's bf16
+#: rounding of ``h`` replaced by float32 (``_h_in_float32``).  The reference
+#: rounds the mLSTM chunk's and the sLSTM scan's ``h`` to bf16 in any compute
+#: dtype, so its prefill and full forward carry that rounding and its decode
+#: step (float32 ``h``) does not: at 24 layers the two part by up to 1.27 and
+#: two of four argmaxes differ (on an H100; top-2 margins 0.13 and 0.09),
+#: where without the rounding they agree within 0.19 and every argmax
+#: holds (PERF.md §6).  The held readings check the port's chunkwise prefill
+#: against its step decode; the printed ones show what the rounding costs
+LM_TF_UNROUNDED_RUNS = (("float32", None), ("float32", "float32"))
+#: the recurrent families' teacher-forcing tolerance (atol, rtol): the
+#: reference's own for these families (tests/test_models_smoke.py)
+LM_RECURRENT_TF_TOL = (0.2, 0.1)
+#: the recurrent families at full width (src/repro/configs/jamba_v0_1_52b.py,
+#: arXiv:2403.19887; xlstm_350m.py, arXiv:2405.04517): (arch, serving depth,
+#: training pattern entries).  jamba's stack must be whole 8-layer Jamba
+#: blocks, so it serves one block (7 Mamba + 1 attention layers, 4 of them
+#: MoE: 13.3e9 float32 parameters, ~53.2e9 bytes; 16 layers, ~106e9, do not
+#: fit) and trains the first two entries of its pattern, ("mamba", "mlp") and
+#: ("mamba", "moe"); xlstm-350m serves and trains all 24 layers (None: its
+#: whole pattern)
+LM_RECURRENT_ARCHS = (("jamba_v0_1_52b", 8, 2), ("xlstm_350m", 24, None))
+#: train steps on one fixed batch, then train() steps (xlstm's sLSTM runs
+#: 4096 eager steps a layer, forward, recompute and backward)
+LM_RECURRENT_TRAIN_STEPS, LM_RECURRENT_LOOP_STEPS = 3, 1
+#: predicted peak of the recurrent training runs, bytes above the phase's
+#: start (PERF.md §6): jamba at 2 layers, 3.742e9 parameters: float32
+#: weights and AdamW's moments 44.9e9, bf16 copy and gradients 15.0e9, the
+#: loss's logits (2 x 4096 x 65536: bf16 1.07e9, float32 2.15e9, ~5 alive in
+#: the backward) and a chunk of the scan's (2, 256, 8192, 16) float32
+#: intermediates; xlstm-350m, 4.77e8 parameters: 7.6e9 and its logits
+LM_RECURRENT_PEAK_PREDICTED = {"jamba_v0_1_52b": (66e9, 78e9), "xlstm_350m": (10e9, 20e9)}
 
 
 @contextlib.contextmanager
@@ -2822,12 +2876,47 @@ def _lm_param_count(cfg, params) -> tuple:
     return n, cfg.param_count()["total"], extra
 
 
-def phase_lm_serve_moe(smi, seed):
-    """Phase 16: the MoE (qwen3-moe-30b-a3b) and MLA + MoE (deepseek-v2-lite-
-    16b) families served at full width: ``ServeEngine`` greedy generation,
-    no host sync in ``generate``, two ``generate`` calls bit-equal, prefill
-    and decode times (eager and CUDA-graph replay), teacher forcing at
-    capacity factor 64, and the tokens through the serving scenario."""
+def _recurrent(cfg) -> bool:
+    from repro_torch.models.transformer import RECURRENT
+
+    return any(mixer in RECURRENT for mixer, _ in cfg.pattern)
+
+
+def _describe(cfg) -> str:
+    parts = [f"d={cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} KV), vocab {cfg.vocab}"]
+    if cfg.moe is not None:
+        parts.append(f"{cfg.moe.n_experts} experts top {cfg.moe.top_k} (+{cfg.moe.n_shared} "
+                     f"shared) of width {cfg.moe.d_expert}")
+    for name in ("mla", "ssm", "xlstm"):
+        if getattr(cfg, name) is not None:
+            parts.append(f"{name.upper()} {getattr(cfg, name)}")
+    return ", ".join(parts) + f"; pattern {cfg.pattern}"
+
+
+def _moe_blocks(cfg) -> int:
+    return sum(ffn == "moe" for _, ffn in cfg.pattern) * cfg.n_groups
+
+
+@contextlib.contextmanager
+def _h_in_float32(on: bool):
+    """Inside (when ``on``), the xLSTM mixers keep ``h`` in float32 where
+    the reference rounds it to bf16."""
+    from repro_torch.models import xlstm as xlstm_mod
+
+    orig = xlstm_mod.bf16
+    xlstm_mod.bf16 = xlstm_mod.f32 if on else orig
+    try:
+        yield
+    finally:
+        xlstm_mod.bf16 = orig
+
+
+def _serve_family(arch, n_layers, smi, seed, label):
+    """One family served at full width and ``n_layers`` layers (phases 16
+    and 18): ``ServeEngine`` greedy generation, no host sync in
+    ``generate``, two ``generate`` calls bit-equal, prefill and decode times
+    (eager and CUDA-graph replay), teacher forcing (at capacity factor 64
+    with an MoE ffn), and the tokens through the serving scenario."""
     import dataclasses
 
     import torch
@@ -2835,268 +2924,331 @@ def phase_lm_serve_moe(smi, seed):
     from repro_torch.analysis.op_lint import OpRecorder
     from repro_torch.configs import get_arch
     from repro_torch.models import build
+    from repro_torch.models.common import spec_leaves
     from repro_torch.models.model_zoo import Model
     from repro_torch.serve import ServeEngine, cache_bytes
 
-    out = {}
-    for arch, n_layers in LM_MOE_ARCHS:
-        _free_card()
-        live0 = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        bundle = get_arch(arch)
-        published = bundle.model.n_layers
-        bundle = dataclasses.replace(bundle, model=dataclasses.replace(bundle.model,
-                                                                       n_layers=n_layers))
-        model = build(bundle)
-        cfg = model.cfg
-        if model.device.type != "cuda":
-            _fail(f"lm_serve_moe {arch}: model built on {model.device}")
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        t0 = time.perf_counter()
-        params = model.init(gen)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        n_params, counted, extra = _lm_param_count(cfg, params)
-        if n_params != counted + extra:
-            _fail(f"lm_serve_moe {arch}: {n_params} parameters, param_count() {counted} + "
-                  f"scales {extra}")
-        held = torch.cuda.memory_allocated() - live0
-        kv_bytes = cache_bytes(model, LM_B, LM_PROMPT + LM_NEW)
-        print(f"[lm_serve_moe] {cfg.name}: {n_layers} of {published} layers, d={cfg.d_model}, "
-              f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV), {cfg.moe.n_experts} experts top "
-              f"{cfg.moe.top_k} (+{cfg.moe.n_shared} shared) of width {cfg.moe.d_expert}, "
-              f"MLA {cfg.mla}, vocab {cfg.vocab}; {n_params} parameters (param_count() "
-              f"{counted!r} + {extra} scales), {held} bytes held (float32), init {init_s!r} s; "
-              f"cache_bytes(model, {LM_B}, {LM_PROMPT + LM_NEW}) = {kv_bytes} ({smi})")
+    _free_card()
+    live0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = get_arch(arch)
+    published = bundle.model.n_layers
+    bundle = dataclasses.replace(bundle, model=dataclasses.replace(bundle.model,
+                                                                   n_layers=n_layers))
+    model = build(bundle)
+    cfg = model.cfg
+    if model.device.type != "cuda":
+        _fail(f"{label} {arch}: model built on {model.device}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, counted, extra = _lm_param_count(cfg, params)
+    n_specs = sum(math.prod(s.shape) for s in spec_leaves(model.param_specs))
+    # param_count() is exact for the attention and MLA families (but the
+    # scales); for the recurrent mixers it leaves out biases or approximates
+    if n_params != n_specs or (not _recurrent(cfg) and n_params != counted + extra):
+        _fail(f"{label} {arch}: {n_params} parameters, the specs {n_specs}, param_count() "
+              f"{counted} + scales {extra}")
+    held = torch.cuda.memory_allocated() - live0
+    kv_bytes = cache_bytes(model, LM_B, LM_PROMPT + LM_NEW)
+    print(f"[{label}] {cfg.name}: {n_layers} of {published} layers, {_describe(cfg)}; "
+          f"{n_params} parameters (param_count() {counted!r} + {extra} scales), {held} bytes "
+          f"held (float32), init {init_s!r} s; cache_bytes(model, {LM_B}, "
+          f"{LM_PROMPT + LM_NEW}) = {kv_bytes} ({smi})")
 
-        prompts = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT), generator=gen, device="cuda")
-        engine = ServeEngine(model, params, max_len=LM_PROMPT + LM_NEW)
-        engine.generate(prompts, LM_NEW)  # warm-up
-        torch.cuda.synchronize()
-        first, syncs, sites = _host_syncs(lambda: engine.generate(prompts, LM_NEW))
-        tokens = first["tokens"]
-        again = engine.generate(prompts, LM_NEW)["tokens"]
-        host_tokens = tokens.cpu()
-        print(f"[lm_serve_moe] {cfg.name}: host syncs inside generate {syncs} for {LM_NEW} "
-              f"tokens (sites {sites}); two generate calls bit-equal: "
-              f"{bool(torch.equal(again, tokens))} ({smi})")
-        if syncs != 0:
-            _fail(f"lm_serve_moe {arch}: {syncs} host syncs in generate (sites {sites})")
-        if not torch.equal(again, tokens):
-            _fail(f"lm_serve_moe {arch}: two generate calls differ")
-        if tuple(host_tokens.shape) != (LM_B, LM_NEW) or not (
-                (host_tokens >= 0) & (host_tokens < cfg.vocab)).all():
-            _fail(f"lm_serve_moe {arch}: bad tokens {tuple(host_tokens.shape)}")
+    prompts = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT), generator=gen, device="cuda")
+    engine = ServeEngine(model, params, max_len=LM_PROMPT + LM_NEW)
+    engine.generate(prompts, LM_NEW)  # warm-up
+    torch.cuda.synchronize()
+    first, syncs, sites = _host_syncs(lambda: engine.generate(prompts, LM_NEW))
+    tokens = first["tokens"]
+    again = engine.generate(prompts, LM_NEW)["tokens"]
+    host_tokens = tokens.cpu()
+    print(f"[{label}] {cfg.name}: host syncs inside generate {syncs} for {LM_NEW} "
+          f"tokens (sites {sites}); two generate calls bit-equal: "
+          f"{bool(torch.equal(again, tokens))} ({smi})")
+    if syncs != 0:
+        _fail(f"{label} {arch}: {syncs} host syncs in generate (sites {sites})")
+    if not torch.equal(again, tokens):
+        _fail(f"{label} {arch}: two generate calls differ")
+    if tuple(host_tokens.shape) != (LM_B, LM_NEW) or not (
+            (host_tokens >= 0) & (host_tokens < cfg.vocab)).all():
+        _fail(f"{label} {arch}: bad tokens {tuple(host_tokens.shape)}")
 
-        with torch.inference_mode():
-            caches = model.init_cache(LM_B, LM_PROMPT + LM_NEW)
-            batch = {"tokens": prompts}
-            prefill = _event_ms(lambda: model.prefill(params, batch, caches), 1, LM_ROUNDS)
-            tok = tokens[:, :1]
-            pos = torch.full((LM_B,), LM_PROMPT, dtype=torch.int32, device="cuda")
-            step = _event_ms(lambda: model.decode_step(params, tok, pos, caches), 4, LM_ROUNDS)
-            with OpRecorder() as rec:
-                model.decode_step(params, tok, pos, caches)
-            step_ops = len(rec.ops)
-        gen_ms = _event_ms(lambda: engine.generate(prompts, LM_NEW), 1, 3, warmup=0)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - live0
-        with torch.inference_mode():
-            step_dev, _ = _graph_ms(lambda: model.decode_step(params, tok, pos, caches), 2)
-        row = {
-            "arch": cfg.name, "layers": n_layers, "published_layers": published,
-            "batch": LM_B, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
-            "params_in_tensors": n_params, "param_count_total": counted,
-            "param_count_active": cfg.param_count()["active"], "bytes_held": held,
-            "cache_bytes": kv_bytes, "peak_bytes_above_phase_start": peak,
-            "prefill_ms": statistics.median(prefill), "prefill_rounds": prefill,
-            "decode_ms_per_token": statistics.median(step), "decode_rounds": step,
-            "decode_device_ms": statistics.median(step_dev), "decode_device_rounds": step_dev,
-            "decode_ops": step_ops,
-            "generate_ms": statistics.median(gen_ms), "generate_rounds": gen_ms,
-            "tokens_per_s": LM_B * LM_NEW / (statistics.median(gen_ms) / 1e3),
-            "host_syncs_generate": syncs, "generate_bit_equal": True, "card": smi,
-        }
-        print(f"[lm_serve_moe] {cfg.name}: prefill ({LM_B} x {LM_PROMPT}) {row['prefill_ms']!r} "
-              f"ms (rounds {prefill}); decode {row['decode_ms_per_token']!r} ms a token eager "
-              f"(rounds {step}, {step_ops} dispatched ops a step), "
-              f"{row['decode_device_ms']!r} device-only (CUDA graph replays "
-              f"{step_dev}); generate {LM_NEW} tokens {row['generate_ms']!r} ms = "
-              f"{row['tokens_per_s']!r} tokens/s; peak {peak} bytes above the phase's start "
-              f"({smi})")
+    with torch.inference_mode():
+        caches = model.init_cache(LM_B, LM_PROMPT + LM_NEW)
+        batch = {"tokens": prompts}
+        prefill = _event_ms(lambda: model.prefill(params, batch, caches), 1, LM_ROUNDS)
+        tok = tokens[:, :1]
+        pos = torch.full((LM_B,), LM_PROMPT, dtype=torch.int32, device="cuda")
+        step = _event_ms(lambda: model.decode_step(params, tok, pos, caches), 4, LM_ROUNDS)
+        with OpRecorder() as rec:
+            model.decode_step(params, tok, pos, caches)
+        step_ops = len(rec.ops)
+    gen_ms = _event_ms(lambda: engine.generate(prompts, LM_NEW), 1, 3, warmup=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live0
+    with torch.inference_mode():
+        step_dev, _ = _graph_ms(lambda: model.decode_step(params, tok, pos, caches), 2)
+    row = {
+        "arch": cfg.name, "layers": n_layers, "published_layers": published,
+        "batch": LM_B, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+        "params_in_tensors": n_params, "param_count_total": counted,
+        "param_count_active": cfg.param_count()["active"], "bytes_held": held,
+        "cache_bytes": kv_bytes, "peak_bytes_above_phase_start": peak,
+        "prefill_ms": statistics.median(prefill), "prefill_rounds": prefill,
+        "decode_ms_per_token": statistics.median(step), "decode_rounds": step,
+        "decode_device_ms": statistics.median(step_dev), "decode_device_rounds": step_dev,
+        "decode_ops": step_ops,
+        "generate_ms": statistics.median(gen_ms), "generate_rounds": gen_ms,
+        "tokens_per_s": LM_B * LM_NEW / (statistics.median(gen_ms) / 1e3),
+        "host_syncs_generate": syncs, "generate_bit_equal": True, "card": smi,
+    }
+    print(f"[{label}] {cfg.name}: prefill ({LM_B} x {LM_PROMPT}) {row['prefill_ms']!r} "
+          f"ms (rounds {prefill}); decode {row['decode_ms_per_token']!r} ms a token eager "
+          f"(rounds {step}, {step_ops} dispatched ops a step), "
+          f"{row['decode_device_ms']!r} device-only (CUDA graph replays "
+          f"{step_dev}); generate {LM_NEW} tokens {row['generate_ms']!r} ms = "
+          f"{row['tokens_per_s']!r} tokens/s; peak {peak} bytes above the phase's start "
+          f"({smi})")
 
-        # teacher forcing at capacity factor 64, both compute dtypes
-        tf_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=LM_MOE_TF_CAPACITY))
-        tf_model = Model(cfg=tf_cfg, part=model.part, param_specs=model.param_specs,
-                         device=model.device)
-        toks = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT + 1), generator=gen, device="cuda")
-        gated = LM_MOE_TF_GATED[cfg.pattern[0][0]]
-        L = cfg.n_layers
-        with torch.inference_mode():
-            for dtype, cache_dtype in LM_MOE_TF_RUNS:
-                with _routes_recorded() as routes:  # full forward, prefill, decode
-                    tf = _lm_forward_check(tf_model, params, toks, dtype, cache_dtype)
-                if len(routes) != 3 * L:
-                    _fail(f"lm_serve_moe {arch}: {len(routes)} routings for {L} layers")
-                flips = [(layer, r) for layer in range(L) for r in range(LM_B)
-                         if not torch.equal(routes[layer][r], routes[2 * L + layer][r])]
-                rows = sorted({r for _, r in flips})
-                tf.update(held=dtype in gated, cache_dtype=str(cache_dtype or "bfloat16"),
-                          route_flips=flips,
-                          over_in_rows_with_equal_routes=sum(
-                              n for r, n in enumerate(tf["over_by_row"]) if r not in rows))
-                name = f"teacher_forcing_{dtype}" + ("_fp32_caches" if cache_dtype else "")
-                row[name] = tf
-                print(f"[lm_serve_moe] {cfg.name}: teacher forcing at capacity factor "
-                      f"{LM_MOE_TF_CAPACITY}, {dtype} compute, {tf['cache_dtype']} caches"
-                      f"{'' if tf['held'] else ' (printed, not held: LM_MOE_TF_GATED)'}: "
-                      f"decoded token's routes differ from the full forward's at (layer, row) "
-                      f"{flips}; {tf} ({smi})")
-                if cache_dtype is not None and flips:
-                    _fail(f"lm_serve_moe {arch}: routes differ over float32 caches: {flips}")
-                if not tf["held"]:
-                    continue
-                if tf["over_in_rows_with_equal_routes"]:
-                    _fail(f"lm_serve_moe {arch} {dtype}: {tf['over_in_rows_with_equal_routes']} "
-                          f"logits beyond atol {tf['atol']} + rtol {tf['rtol']} in rows whose "
-                          "routes agree")
-                kept = [r for r in range(LM_B) if r not in rows]
-                if dtype == "float32" and not all(tf["argmax_equal"][r] for r in kept):
-                    _fail(f"lm_serve_moe {arch} float32: argmax differs: {tf}")
-                if max([tf["decode_argmax_below_max"][r] for r in kept], default=0.0) > tf["atol"]:
-                    _fail(f"lm_serve_moe {arch} {dtype}: the decode's argmax is no maximum of "
-                          "the full forward")
-        del engine, caches, params, tf_model, model
-        _free_card()
-        row["scenario"] = phase_serve_scenario(tokens, smi, _bits_per_token(cfg.vocab),
-                                               f"serve_scenario_{arch}")
-        out[arch] = row
-    return out
+    # teacher forcing (an MoE at capacity factor 64), both compute dtypes
+    tf_cfg = cfg if cfg.moe is None else dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=LM_MOE_TF_CAPACITY))
+    tf_model = Model(cfg=tf_cfg, part=model.part, param_specs=model.param_specs,
+                     device=model.device)
+    toks = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT + 1), generator=gen, device="cuda")
+    gated = LM_MOE_TF_GATED[cfg.pattern[0][0]]
+    L = _moe_blocks(cfg)
+    runs = [(dtype, cache_dtype, False) for dtype, cache_dtype in LM_MOE_TF_RUNS]
+    if cfg.xlstm is not None:
+        runs += [(dtype, cache_dtype, True) for dtype, cache_dtype in LM_TF_UNROUNDED_RUNS]
+    with torch.inference_mode():
+        for dtype, cache_dtype, unrounded in runs:
+            held = unrounded or dtype in gated
+            tol = LM_RECURRENT_TF_TOL if _recurrent(cfg) and held else None
+            # full forward, prefill, decode
+            with _routes_recorded() as routes, _h_in_float32(unrounded):
+                tf = _lm_forward_check(tf_model, params, toks, dtype, cache_dtype, tol)
+            if len(routes) != 3 * L:
+                _fail(f"{label} {arch}: {len(routes)} routings for {L} MoE layers")
+            flips = [(layer, r) for layer in range(L) for r in range(LM_B)
+                     if not torch.equal(routes[layer][r], routes[2 * L + layer][r])]
+            rows = sorted({r for _, r in flips})
+            tf.update(held=held, cache_dtype=str(cache_dtype or "bfloat16"),
+                      h_in_float32=unrounded, route_flips=flips,
+                      over_in_rows_with_equal_routes=sum(
+                          n for r, n in enumerate(tf["over_by_row"]) if r not in rows))
+            name = (f"teacher_forcing_{dtype}" + ("_fp32_caches" if cache_dtype else "")
+                    + ("_h_fp32" if unrounded else ""))
+            row[name] = tf
+            print(f"[{label}] {cfg.name}: teacher forcing"
+                  f"{f' at capacity factor {LM_MOE_TF_CAPACITY}' if cfg.moe else ''}, "
+                  f"{dtype} compute, {tf['cache_dtype']} caches"
+                  f"{', h kept in float32' if unrounded else ''}"
+                  f"{'' if tf['held'] else ' (printed, not held: LM_MOE_TF_GATED)'}: "
+                  f"decoded token's routes differ from the full forward's at (layer, row) "
+                  f"{flips}; {tf} ({smi})")
+            if cache_dtype is not None and flips:
+                _fail(f"{label} {arch}: routes differ over float32 caches: {flips}")
+            if not tf["held"]:
+                continue
+            if tf["over_in_rows_with_equal_routes"]:
+                _fail(f"{label} {arch} {dtype}: {tf['over_in_rows_with_equal_routes']} "
+                      f"logits beyond atol {tf['atol']} + rtol {tf['rtol']} in rows whose "
+                      "routes agree")
+            kept = [r for r in range(LM_B) if r not in rows]
+            if dtype == "float32" and not all(tf["argmax_equal"][r] for r in kept):
+                _fail(f"{label} {arch} float32: argmax differs: {tf}")
+            if max([tf["decode_argmax_below_max"][r] for r in kept], default=0.0) > tf["atol"]:
+                _fail(f"{label} {arch} {dtype}: the decode's argmax is no maximum of "
+                      "the full forward")
+    del engine, caches, params, tf_model, model
+    _free_card()
+    row["scenario"] = phase_serve_scenario(tokens, smi, _bits_per_token(cfg.vocab),
+                                           f"serve_scenario_{arch}")
+    return row
 
 
-def phase_lm_train_moe(smi, seed):
-    """Phase 17: training of the MoE and MLA + MoE families at full width, 2
-    layers each: ``make_train_step`` on one fixed batch of 2 x 4096 tokens
-    (remat "full", AdamW) and ``train()`` on ``make_data_iter``."""
+def phase_lm_serve_moe(smi, seed):
+    """Phase 16: the MoE (qwen3-moe-30b-a3b) and MLA + MoE (deepseek-v2-lite-
+    16b) families served at full width (``_serve_family``)."""
+    return {arch: _serve_family(arch, n_layers, smi, seed, "lm_serve_moe")
+            for arch, n_layers in LM_MOE_ARCHS}
+
+
+def phase_lm_serve_recurrent(smi, seed):
+    """Phase 18: the Mamba + attention + MoE (jamba-v0.1-52b, one 8-layer
+    Jamba block) and mLSTM + sLSTM (xlstm-350m, 24 layers) families served
+    at full width (``_serve_family``)."""
+    return {arch: _serve_family(arch, n_layers, smi, seed, "lm_serve_recurrent")
+            for arch, n_layers, _ in LM_RECURRENT_ARCHS}
+
+
+def _train_family(bundle, smi, seed, label, steps, loop_steps, peak_predicted=None):
+    """``make_train_step`` on one fixed batch of LM_TRAIN_B x LM_TRAIN_S
+    tokens (remat "full", AdamW) of ``bundle`` at full width (phases 17 and
+    19), then ``train()`` on ``make_data_iter``."""
     import dataclasses
 
     import torch
 
-    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.configs import SHAPES
     from repro_torch.data import SyntheticLM, make_data_iter
     from repro_torch.models import build
     from repro_torch.train.optimizer import adamw, cosine_warmup
     from repro_torch.train.train_loop import make_train_step, read_metrics, train
     from repro_torch.train.tree import tree_map
 
+    _free_card()
+    live0 = torch.cuda.memory_allocated()
+    cfg = bundle.model
+    model = build(bundle)
+    arch = cfg.name
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    counts = cfg.param_count()
+    n_params, _, _ = _lm_param_count(cfg, params)
+    # the parameters a token's products read: the active count (top-k plus
+    # shared experts, the router), corrected by what param_count() leaves out
+    # of the total (the scales; the recurrent mixers' biases)
+    n_active = counts["active"] + (n_params - counts["total"])
+    batch = SyntheticLM(cfg.vocab, LM_TRAIN_S, LM_TRAIN_B, seed=seed)(0)
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    opt = adamw()
+    state = opt.init(params)
+    with torch.no_grad():  # the step-0 loss's reference: a no-grad forward
+        params_c = tree_map(lambda p: p.to(torch.bfloat16), params)
+        ref_loss = model.train_loss(params_c, batch)[0].item()
+        del params_c
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(model, opt, cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP, steps))
+
+    def one(i):
+        nonlocal params, state
+        params, state, met = step_fn(params, state, batch, i)
+        return read_metrics(met)
+
+    history, times, syncs, sites = [], [], None, None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:
+            met, syncs, sites = _host_syncs(lambda: one(1))
+        else:
+            met = one(i)
+        times.append((time.perf_counter() - t0) * 1e3)
+        history.append(met)
+    peak = torch.cuda.max_memory_allocated() - live0
+    losses = [h["loss"] for h in history]
+    lbs = [h["load_balance_loss"] for h in history]
+    zs = [h["router_z_loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    step_ms = statistics.median(times[1:])
+    m = cfg.mla
+    qk, v = ((m.nope_head_dim + m.rope_head_dim, m.v_head_dim) if m is not None
+             else (cfg.resolved_head_dim, cfg.resolved_head_dim))
+    n_attn = sum(mixer in ("attn", "mla") for mixer, _ in cfg.pattern) * cfg.n_groups
+    # model FLOPs a token: 6 N_active (forward and backward of the products
+    # a token runs: top-k and shared experts, not all E) + 6 L_attn H (qk +
+    # v) S (attention's scores and PV over the sequence); the recurrences'
+    # own element-wise work is left out
+    flops_token = 6 * n_active + 6 * n_attn * cfg.n_heads * (qk + v) * LM_TRAIN_S
+    mfu = flops_token * tokens / (step_ms / 1e3) / BF16_FLOPS_PER_S
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers ({cfg.pattern}) at full width, "
+          f"{n_params} parameters ({n_active} active a token), B={LM_TRAIN_B} x "
+          f"S={LM_TRAIN_S}, remat 'full', AdamW; losses {losses}; load-balance {lbs}; "
+          f"z {zs}; grad norms {norms}; step-0 loss {losses[0]!r} against the no-grad "
+          f"forward's {ref_loss!r}; host syncs in step 1 {syncs} (sites {sites}) ({smi})")
+    print(f"[{label}] {cfg.name}: step times (ms) {times}; median of steps 1-"
+          f"{steps - 1} {step_ms!r} ms = {tokens / (step_ms / 1e3)!r} tokens/s; "
+          f"model FLOPs (6 N_active + attention) {flops_token * tokens!r} a step = {mfu!r} "
+          f"of the {BF16_FLOPS_PER_S!r} FLOP/s bf16 peak; peak {peak} bytes above the "
+          f"phase's start (predicted {peak_predicted}) ({smi})")
+    if abs(losses[0] - ref_loss) > LM_LOSS_RTOL * abs(ref_loss):
+        _fail(f"{label} {arch}: step-0 loss {losses[0]!r} against the no-grad "
+              f"forward's {ref_loss!r}")
+    if not all(math.isfinite(x) for x in losses + norms + lbs + zs):
+        _fail(f"{label} {arch}: non-finite losses {losses}, {lbs}, {zs} or norms")
+    if cfg.moe is not None and not (min(lbs) > 0 and min(zs) > 0):
+        _fail(f"{label} {arch}: aux losses {lbs}, {zs}")
+    if syncs != 1:
+        _fail(f"{label} {arch}: {syncs} host syncs in a step (sites {sites}), expected 1")
+    del params, state, step_fn
+    _free_card()
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=LM_TRAIN_S,
+                                global_batch=LM_TRAIN_B)
+    t0 = time.perf_counter()
+    report = train(model, make_data_iter(model, shape, seed=seed),
+                   steps=loop_steps, lr=LM_TRAIN_LR, warmup=LM_TRAIN_WARMUP,
+                   seed=seed, log_every=1)
+    loop_s = time.perf_counter() - t0
+    loop = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm", "load_balance_loss",
+                               "router_z_loss")} for h in report["history"]]
+    print(f"[{label}] {cfg.name}: train() {loop_steps} steps on make_data_iter "
+          f"in {loop_s!r} s (init included): {loop}; restarts {report['restarts']} ({smi})")
+    if report["final_step"] != loop_steps or report["restarts"] or not all(
+            math.isfinite(h["loss"]) for h in loop):
+        _fail(f"{label} {arch}: train() report {loop}")
+    del report
+    _free_card()
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "pattern": cfg.pattern,
+        "batch": LM_TRAIN_B, "seq_len": LM_TRAIN_S, "params": n_params,
+        "active_params": n_active, "losses": losses, "load_balance_losses": lbs,
+        "router_z_losses": zs, "grad_norms": norms, "step0_no_grad_loss": ref_loss,
+        "step_ms": step_ms, "step_rounds_ms": times,
+        "tokens_per_s": tokens / (step_ms / 1e3), "model_flops_per_step": flops_token * tokens,
+        "mfu_bf16_active": mfu, "peak_bytes_above_phase_start": peak,
+        "peak_predicted": peak_predicted,
+        "host_syncs_step": syncs, "train_loop": loop, "card": smi,
+    }
+
+
+def _train_bundle(arch, n_layers=None, entries=None):
+    """``arch`` at full width with remat "full", AdamW and no microbatches,
+    cut to ``n_layers`` layers or to the first ``entries`` of its pattern
+    (one group of them)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    bundle = get_arch(arch)
+    cfg = bundle.model
+    if entries is not None:
+        cfg = dataclasses.replace(cfg, n_layers=entries, pattern=cfg.pattern[:entries])
+    elif n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    part = dataclasses.replace(bundle.partition, remat="full", microbatches=1,
+                               optimizer="adamw")
+    return dataclasses.replace(bundle, model=cfg, partition=part), bundle.model.n_layers
+
+
+def phase_lm_train_moe(smi, seed):
+    """Phase 17: training of the MoE and MLA + MoE families at full width, 2
+    layers each (``_train_family``)."""
     out = {}
     for arch, _ in LM_MOE_ARCHS:
-        _free_card()
-        live0 = torch.cuda.memory_allocated()
-        bundle = get_arch(arch)
-        published = bundle.model.n_layers
-        cfg = dataclasses.replace(bundle.model, n_layers=LM_MOE_TRAIN_LAYERS)
-        part = dataclasses.replace(bundle.partition, remat="full", microbatches=1,
-                                   optimizer="adamw")
-        bundle = dataclasses.replace(bundle, model=cfg, partition=part)
-        model = build(bundle)
-        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
-        counts = cfg.param_count()
-        n_params, counted, extra = _lm_param_count(cfg, params)
-        # the parameters a token's products read: the active count (top-k
-        # plus shared experts, the router) and the scales
-        n_active = counts["active"] + extra
-        batch = SyntheticLM(cfg.vocab, LM_TRAIN_S, LM_TRAIN_B, seed=seed)(0)
-        tokens = LM_TRAIN_B * LM_TRAIN_S
-        opt = adamw()
-        state = opt.init(params)
-        with torch.no_grad():  # the step-0 loss's reference: a no-grad forward
-            params_c = tree_map(lambda p: p.to(torch.bfloat16), params)
-            ref_loss = model.train_loss(params_c, batch)[0].item()
-            del params_c
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        step_fn = make_train_step(model, opt, cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP,
-                                                            LM_MOE_TRAIN_STEPS))
+        bundle, published = _train_bundle(arch, n_layers=LM_MOE_TRAIN_LAYERS)
+        out[arch] = _train_family(bundle, smi, seed, "lm_train_moe", LM_MOE_TRAIN_STEPS,
+                                  LM_MOE_LOOP_STEPS)
+        out[arch]["published_layers"] = published
+    return out
 
-        def one(i):
-            nonlocal params, state
-            params, state, met = step_fn(params, state, batch, i)
-            return read_metrics(met)
 
-        history, times, syncs, sites = [], [], None, None
-        for i in range(LM_MOE_TRAIN_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if i == 1:
-                met, syncs, sites = _host_syncs(lambda: one(1))
-            else:
-                met = one(i)
-            times.append((time.perf_counter() - t0) * 1e3)
-            history.append(met)
-        peak = torch.cuda.max_memory_allocated() - live0
-        losses = [h["loss"] for h in history]
-        lbs = [h["load_balance_loss"] for h in history]
-        zs = [h["router_z_loss"] for h in history]
-        norms = [h["grad_norm"] for h in history]
-        step_ms = statistics.median(times[1:])
-        m = cfg.mla
-        qk, v = ((m.nope_head_dim + m.rope_head_dim, m.v_head_dim) if m is not None
-                 else (cfg.resolved_head_dim, cfg.resolved_head_dim))
-        # model FLOPs a token: 6 N_active (forward and backward of the
-        # products a token runs: top-k and shared experts, not all E) +
-        # 6 L H (qk + v) S (attention's scores and PV over the sequence)
-        flops_token = 6 * n_active + 6 * cfg.n_layers * cfg.n_heads * (qk + v) * LM_TRAIN_S
-        mfu = flops_token * tokens / (step_ms / 1e3) / BF16_FLOPS_PER_S
-        print(f"[lm_train_moe] {cfg.name}: {LM_MOE_TRAIN_LAYERS} of {published} layers at full "
-              f"width, {n_params} parameters ({n_active} active a token), B={LM_TRAIN_B} x "
-              f"S={LM_TRAIN_S}, remat 'full', AdamW; losses {losses}; load-balance {lbs}; "
-              f"z {zs}; grad norms {norms}; step-0 loss {losses[0]!r} against the no-grad "
-              f"forward's {ref_loss!r}; host syncs in step 1 {syncs} (sites {sites}) ({smi})")
-        print(f"[lm_train_moe] {cfg.name}: step times (ms) {times}; median of steps 1-"
-              f"{LM_MOE_TRAIN_STEPS - 1} {step_ms!r} ms = {tokens / (step_ms / 1e3)!r} tokens/s; "
-              f"model FLOPs (6 N_active + attention) {flops_token * tokens!r} a step = {mfu!r} "
-              f"of the {BF16_FLOPS_PER_S!r} FLOP/s bf16 peak; peak {peak} bytes above the "
-              f"phase's start ({smi})")
-        if abs(losses[0] - ref_loss) > LM_LOSS_RTOL * abs(ref_loss):
-            _fail(f"lm_train_moe {arch}: step-0 loss {losses[0]!r} against the no-grad "
-                  f"forward's {ref_loss!r}")
-        if not all(math.isfinite(x) for x in losses + norms + lbs + zs):
-            _fail(f"lm_train_moe {arch}: non-finite losses {losses}, {lbs}, {zs} or norms")
-        if not (min(lbs) > 0 and min(zs) > 0):
-            _fail(f"lm_train_moe {arch}: aux losses {lbs}, {zs}")
-        if syncs != 1:
-            _fail(f"lm_train_moe {arch}: {syncs} host syncs in a step (sites {sites}), "
-                  "expected 1")
-        del params, state, step_fn
-        _free_card()
-        shape = dataclasses.replace(SHAPES["train_4k"], seq_len=LM_TRAIN_S,
-                                    global_batch=LM_TRAIN_B)
-        t0 = time.perf_counter()
-        report = train(model, make_data_iter(model, shape, seed=seed),
-                       steps=LM_MOE_LOOP_STEPS, lr=LM_TRAIN_LR, warmup=LM_TRAIN_WARMUP,
-                       seed=seed, log_every=1)
-        loop_s = time.perf_counter() - t0
-        loop = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm", "load_balance_loss",
-                                   "router_z_loss")} for h in report["history"]]
-        print(f"[lm_train_moe] {cfg.name}: train() {LM_MOE_LOOP_STEPS} steps on make_data_iter "
-              f"in {loop_s!r} s (init included): {loop}; restarts {report['restarts']} ({smi})")
-        if report["final_step"] != LM_MOE_LOOP_STEPS or report["restarts"] or not all(
-                math.isfinite(h["loss"]) for h in loop):
-            _fail(f"lm_train_moe {arch}: train() report {loop}")
-        del report
-        _free_card()
-        out[arch] = {
-            "arch": cfg.name, "layers": LM_MOE_TRAIN_LAYERS, "published_layers": published,
-            "batch": LM_TRAIN_B, "seq_len": LM_TRAIN_S, "params": n_params,
-            "active_params": n_active, "losses": losses, "load_balance_losses": lbs,
-            "router_z_losses": zs, "grad_norms": norms, "step0_no_grad_loss": ref_loss,
-            "step_ms": step_ms, "step_rounds_ms": times,
-            "tokens_per_s": tokens / (step_ms / 1e3), "model_flops_per_step": flops_token * tokens,
-            "mfu_bf16_active": mfu, "peak_bytes_above_phase_start": peak,
-            "host_syncs_step": syncs, "train_loop": loop, "card": smi,
-        }
+def phase_lm_train_recurrent(smi, seed):
+    """Phase 19: training of jamba-v0.1-52b (the first two entries of its
+    pattern) and xlstm-350m (all 24 layers) at full width
+    (``_train_family``)."""
+    out = {}
+    for arch, _, entries in LM_RECURRENT_ARCHS:
+        bundle, published = _train_bundle(arch, entries=entries)
+        out[arch] = _train_family(bundle, smi, seed, "lm_train_recurrent",
+                                  LM_RECURRENT_TRAIN_STEPS, LM_RECURRENT_LOOP_STEPS,
+                                  LM_RECURRENT_PEAK_PREDICTED[arch])
+        out[arch]["published_layers"] = published
     return out
 
 
@@ -3237,9 +3389,15 @@ def main(argv=None) -> int:
     mark("lm_serve_moe")
     lm_train_moe = phase_lm_train_moe(smi, args.seed)
     mark("lm_train_moe")
+    lm_recurrent = phase_lm_serve_recurrent(smi, args.seed)
+    mark("lm_serve_recurrent")
+    lm_train_recurrent = phase_lm_train_recurrent(smi, args.seed)
+    mark("lm_train_recurrent")
     print(json.dumps({"analysis": analysis, "paper": paper, "lm_serve": lm,
                       "serve_scenario": scenario, "lm_train": lm_train,
-                      "lm_serve_moe": lm_moe, "lm_train_moe": lm_train_moe}))
+                      "lm_serve_moe": lm_moe, "lm_train_moe": lm_train_moe,
+                      "lm_serve_recurrent": lm_recurrent,
+                      "lm_train_recurrent": lm_train_recurrent}))
     print(json.dumps({"end_to_end": e2e, "bound_inputs": [
         {k: r[k] for k in ("name", "bytes", "operations", "shape") if k in r} for r in rows]}))
     print(f"[done] wall time {time.perf_counter() - wall0!r} s")

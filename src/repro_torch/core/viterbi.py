@@ -114,24 +114,30 @@ def _interleave(even: torch.Tensor, odd: torch.Tensor, axis: int) -> torch.Tenso
     return out
 
 
-def _associative_scan(fn: Callable, elems: torch.Tensor, axis: int = 0) -> torch.Tensor:
+def _associative_scan(fn: Callable, elems, axis: int = 0):
     """Inclusive scan of ``elems`` along ``axis`` with the associative
-    ``fn(a, b)`` — jax.lax.associative_scan's recursion for one tensor, so
-    every prefix is combined in the reference's association order (float
-    sums are not associative; the soft metrics depend on it): combine
-    adjacent pairs, scan them recursively (the odd prefixes), combine each
-    odd prefix with the next element (the even prefixes), interleave.
-    ``fn`` may be called on empty slices (two elements leave an empty even
-    combine)."""
-    n = elems.shape[axis]
+    ``fn(a, b)`` — jax.lax.associative_scan's recursion, so every prefix is
+    combined in the reference's association order (float sums are not
+    associative; the soft metrics depend on it): combine adjacent pairs,
+    scan them recursively (the odd prefixes), combine each odd prefix with
+    the next element (the even prefixes), interleave.  ``elems`` is one
+    tensor, or a tuple of tensors scanned together (``fn`` then takes and
+    returns tuples, as the reference's pytree form).  ``fn`` may be called
+    on empty slices (two elements leave an empty even combine)."""
+    if isinstance(elems, torch.Tensor):
+        return _associative_scan(lambda a, b: (fn(a[0], b[0]),), (elems,), axis)[0]
+    n = elems[0].shape[axis]
     if n < 2:
         return elems
-    reduced = fn(_slice(elems, axis, 0, -1, 2), _slice(elems, axis, 1, None, 2))
+
+    def cut(xs, *bounds):
+        return tuple(_slice(x, axis, *bounds) for x in xs)
+
+    reduced = fn(cut(elems, 0, -1, 2), cut(elems, 1, None, 2))
     odd = _associative_scan(fn, reduced, axis)
-    rest = _slice(elems, axis, 2, None, 2)
-    even = fn(_slice(odd, axis, 0, -1) if n % 2 == 0 else odd, rest)
-    even = torch.cat([_slice(elems, axis, 0, 1), even], dim=axis)
-    return _interleave(even, odd, axis)
+    even = fn(cut(odd, 0, -1) if n % 2 == 0 else odd, cut(elems, 2, None, 2))
+    return tuple(_interleave(torch.cat([_slice(e, axis, 0, 1), ev], dim=axis), od, axis)
+                 for e, ev, od in zip(elems, even, odd))
 
 
 def _identity_rows(S: int, device) -> torch.Tensor:

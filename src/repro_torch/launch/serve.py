@@ -2,13 +2,16 @@
 
   python -m repro_torch.launch.serve --arch qwen2_5_3b --smoke --tokens 32
   python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch xlstm_350m --smoke --device cpu
   python -m repro_torch.launch.serve --viterbi --bits 256 --batch 64 --backend fused
   python -m repro_torch.launch.serve --viterbi --backend auto   # planner picks
 
 ``--arch`` takes every configuration ``models.build`` serves: the dense
-families, qwen3-moe-30b-a3b (MoE) and deepseek-v2-lite-16b (MLA + MoE);
-jamba, xlstm-350m and seamless-m4t raise naming ROADMAP item 11.  Runs on
-the card; ``--device cpu`` runs the CPU (every kernel's plain version).  Weights are random, drawn from a seeded generator on the device.
+families, qwen3-moe-30b-a3b (MoE), deepseek-v2-lite-16b (MLA + MoE),
+jamba-v0.1-52b (Mamba + attention + MoE) and xlstm-350m (mLSTM + sLSTM);
+seamless-m4t raises naming ROADMAP item 11.  Runs on the card; ``--device
+cpu`` runs the CPU (every kernel's plain version).  Weights are random,
+drawn from a seeded generator on the device.
 Logs the result as one JSON object (and, with ``--viterbi``, the plan's
 ``explain(costs=True)`` before it).
 """

@@ -7,10 +7,10 @@ cache), so the reference's parameters carry over key for key
 (``repro_torch.convert.lm_params_from_arrays``).  The model runs on the
 card unless the caller asks for the CPU (``device="cpu"``).
 
-Served: the attention and ``mla`` mixers with the ``mlp``, ``moe`` or
-``none`` ffn.  ``build`` refuses, before any allocation, the families the
-port does not serve yet (the ``mamba``, ``mlstm``/``slstm`` mixers and the
-encoder-decoder family: ROADMAP item 11).  ``abstract_params`` and
+Served: the attention, ``mla`` and recurrent (``mamba``, ``mlstm``,
+``slstm``) mixers with the ``mlp``, ``moe`` or ``none`` ffn.  ``build``
+refuses, before any allocation, the family the port does not serve yet
+(the encoder-decoder family: ROADMAP item 11).  ``abstract_params`` and
 ``abstract_cache`` give shape-and-dtype trees on the ``meta`` device (no
 allocation); the dry-run inputs (``input_specs``) wait for item 11, the
 sharding methods and ``mesh=`` for item 9b.

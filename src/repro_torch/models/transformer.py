@@ -20,13 +20,15 @@ checkpointed in ~sqrt(n) chunks (``remat_scan``).  Checkpoints run only
 while grad is enabled, so inference runs none.
 
 Served here: the attention mixers (``attn``, ``attn_bidir``,
-``attn_local``) and ``mla``, with the ``mlp``, ``moe`` or ``none`` ffn.
-The MoE aux losses travel with the activations: each block returns its
-sums as outputs (of its checkpoint, when one runs), and the group loop
-carries their running totals beside ``x``, so a recompute in the backward
-never adds them twice.  The ``mamba``, ``mlstm`` and ``slstm`` mixers wait
-for ROADMAP item 11; ``model_zoo.build`` refuses them before any
-allocation.  A device mesh waits for item 9b.
+``attn_local``), ``mla`` and the recurrent ``mamba``, ``mlstm`` and
+``slstm``, with the ``mlp``, ``moe`` or ``none`` ffn.  A recurrent mixer's
+cache is its state (``ssm``/``conv``; ``C``/``n``/``m``/``conv``;
+``state``: ``c``/``n``/``h``/``m``, one level deeper), written in place as
+the attention caches are.  The MoE aux losses travel with the activations:
+each block returns its sums as outputs (of its checkpoint, when one runs),
+and the group loop carries their running totals beside ``x``, so a
+recompute in the backward never adds them twice.  A device mesh waits for
+item 9b.
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ from torch.utils.checkpoint import (
 from repro_torch.models import common as cm
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (
     _qkv,
     attention_specs,
@@ -54,7 +58,13 @@ from repro_torch.models.attention import (
 from repro_torch.models.mlp import mlp_apply, mlp_specs
 
 ATTN_KINDS = ("attn", "attn_bidir", "attn_local")
-SERVED_MIXERS = ATTN_KINDS + ("mla",)
+#: the recurrent mixers' (specs, full-sequence, single-token) functions
+RECURRENT = {
+    "mamba": (ssm_mod.ssm_specs, ssm_mod.ssm_apply, ssm_mod.ssm_decode),
+    "mlstm": (xlstm_mod.mlstm_specs, xlstm_mod.mlstm_apply, xlstm_mod.mlstm_decode),
+    "slstm": (xlstm_mod.slstm_specs, xlstm_mod.slstm_apply, xlstm_mod.slstm_decode),
+}
+SERVED_MIXERS = ATTN_KINDS + ("mla",) + tuple(RECURRENT)
 SERVED_FFNS = ("mlp", "moe", "none")
 
 
@@ -73,6 +83,8 @@ def _mixer_specs(cfg, mixer: str, stack: int):
         return attention_specs(cfg, stack)
     if mixer == "mla":
         return mla_mod.mla_specs(cfg, stack)
+    if mixer in RECURRENT:
+        return RECURRENT[mixer][0](cfg, stack)
     _not_ported(f"the {mixer!r} mixer")
 
 
@@ -152,6 +164,28 @@ def _mixer_cache_specs(cfg, part, mixer: str, B: int, S: int, stack: int):
             "c_kv": PS((B, S, m.kv_lora_rank), ("batch", seq_ax, "kv_lora")),
             "k_rope": PS((B, S, m.rope_head_dim), ("batch", seq_ax, "head_dim")),
         }
+    f32 = torch.float32
+    if mixer == "mamba":
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        return {
+            "ssm": PS((B, d_in, s.d_state), ("batch", "dinner", "dstate"), f32),
+            "conv": PS((B, s.d_conv - 1, d_in), ("batch", None, "dinner")),
+        }
+    if mixer == "mlstm":
+        x = cfg.xlstm
+        d_in = int(x.mlstm_proj_factor * cfg.d_model)
+        H = cfg.n_heads
+        dh = d_in // H
+        return {
+            "C": PS((B, H, dh, dh), ("batch", "heads", None, None), f32),
+            "n": PS((B, H, dh), ("batch", "heads", None), f32),
+            "m": PS((B, H), ("batch", "heads"), f32),
+            "conv": PS((B, x.conv_kernel - 1, d_in), ("batch", None, "dinner")),
+        }
+    if mixer == "slstm":
+        st = {k: PS((B, cfg.d_model), ("batch", "dinner"), f32) for k in ("c", "n", "h", "m")}
+        return {"state": st}
     _not_ported(f"the {mixer!r} mixer's cache")
 
 
@@ -164,13 +198,19 @@ def cache_specs(cfg, part, B: int, S: int) -> Dict[str, Any]:
 
 
 def init_cache(cfg, part, B: int, S: int, device):
-    """Zero caches on ``device`` (an ``attn_local`` ring's pos at -1)."""
+    """Zero caches on ``device`` (an ``attn_local`` ring's pos at -1, the
+    mLSTM's ``m`` and the sLSTM's ``state.m`` at -1e30)."""
     specs = cache_specs(cfg, part, B, S)
     caches = cm.map_specs(
         lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), specs)
     for i, (mixer, _) in enumerate(cfg.pattern):
+        c = caches[f"p{i}"]
         if mixer == "attn_local":
-            caches[f"p{i}"]["pos"].fill_(-1)
+            c["pos"].fill_(-1)
+        elif mixer == "mlstm":
+            c["m"].fill_(xlstm_mod.M_INIT)
+        elif mixer == "slstm":
+            c["state"]["m"].fill_(xlstm_mod.M_INIT)
     return caches
 
 
@@ -203,11 +243,13 @@ def apply_block_full(bp, cfg, part, mixer: str, ffn: str, x, *, positions=None, 
                      mesh=None, rules=None):
     """Full-sequence block (training / prefill).  Returns (x, cache, aux)."""
     h = _norm(bp["ln1"], cfg, x)
+    if (mixer == "mla" or mixer in RECURRENT) and mesh is not None:
+        cm._needs_mesh("apply_block_full(mesh=...)")
     if mixer == "mla":
-        if mesh is not None:
-            cm._needs_mesh("apply_block_full(mesh=...)")
         y, new_cache = mla_mod.mla_attention(bp["mixer"], cfg, part, h, positions=positions,
                                              cache=cache)
+    elif mixer in RECURRENT:
+        y, new_cache = RECURRENT[mixer][1](bp["mixer"], cfg, h, cache=cache)
     else:
         y, new_cache = self_attention(
             bp["mixer"], cfg, part, h, kind=mixer, positions=positions, cache=cache, mesh=mesh)
@@ -258,9 +300,11 @@ def apply_block_decode(bp, cfg, part, mixer: str, ffn: str, x, *, positions, cac
                        rules=None):
     """Single-token block.  x: (B, 1, d).  Returns (x, cache)."""
     h = _norm(bp["ln1"], cfg, x)
-    if mixer in ("attn_local", "mla") and mesh is not None:
+    if (mixer in ("attn_local", "mla") or mixer in RECURRENT) and mesh is not None:
         cm._needs_mesh("apply_block_decode(mesh=...)")
-    if mixer == "attn_local":
+    if mixer in RECURRENT:
+        y, new_cache = RECURRENT[mixer][2](bp["mixer"], cfg, h, cache=cache)
+    elif mixer == "attn_local":
         y, new_cache = _local_ring_decode(
             bp["mixer"], cfg, part, h, positions=positions, cache=cache)
     elif mixer == "mla":

@@ -6,7 +6,8 @@ backend) against the same decodes on the CPU; the scheduler's one
 synchronizing call a tick; the analysis layer's hot-path catalog and
 sanitizer on the card; the paper's unfused ACS step; the LM's serving and
 training paths (a train step against its CPU run, its one host sync,
-crash -> restore -> resume, the launchers).
+crash -> restore -> resume, the launchers), with the MoE, MLA and
+recurrent (Mamba, xLSTM) families.
 
 Every test here is marked ``gpu`` and takes the ``card`` fixture, which
 skips inside the test when no CUDA device is present (so every worker
@@ -1400,13 +1401,13 @@ LM_TRAIN_NORM_RTOL = 1e-2
 LM_TRAIN_LEAF_TOL = 1e-2
 
 
-def _smoke_trainer(device, compute_dtype="float32", **part):
+def _smoke_trainer(device, compute_dtype="float32", arch="qwen2_5_3b", **part):
     import dataclasses
 
     from repro_torch.configs import get_smoke_arch
     from repro_torch.models import build
 
-    bundle = get_smoke_arch("qwen2_5_3b")
+    bundle = get_smoke_arch(arch)
     bundle = dataclasses.replace(
         bundle, model=dataclasses.replace(bundle.model, compute_dtype=compute_dtype),
         partition=dataclasses.replace(bundle.partition, **part))
@@ -1420,6 +1421,13 @@ def _rel_l2(a, b) -> float:
 
 @pytest.mark.gpu
 def test_lm_train_step_on_card_matches_cpu(card):
+    _train_steps_match(card, "qwen2_5_3b")
+
+
+def _train_steps_on_card_match_cpu(card, arch, steps=2):
+    """``steps`` AdamW steps (float32 compute, remat "full") of ``arch``'s
+    smoke model on the card and on the CPU from the same weights and batch:
+    (the card's metrics and params-and-state leaves, the CPU's)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.train.optimizer import adamw, cosine_warmup
     from repro_torch.train.train_loop import make_train_step, read_metrics
@@ -1427,25 +1435,33 @@ def test_lm_train_step_on_card_matches_cpu(card):
 
     runs = {}
     for dev in ("cpu", card):
-        model = _smoke_trainer(dev, remat="full")
-        params = _smoke_trainer("cpu").init(torch.Generator().manual_seed(0))
+        model = _smoke_trainer(dev, arch=arch, remat="full")
+        params = _smoke_trainer("cpu", arch=arch).init(torch.Generator().manual_seed(0))
         params = tree_map(lambda p: p.to(dev), params)
         opt = adamw()
         state = opt.init(params)
         step = make_train_step(model, opt, cosine_warmup(1e-3, 0, 10))
         batch = SyntheticLM(model.cfg.vocab, 64, 2, seed=1, device=str(dev))(0)
         mets = []
-        for i in range(2):
+        for i in range(steps):
             params, state, met = step(params, state, batch, i)
             mets.append(read_metrics(met))
-        runs[torch.device(dev).type] = (mets, tree_leaves((params, state)))
-    (want_m, want), (got_m, got) = runs["cpu"], runs["cuda"]
-    assert all(t.device.type == "cuda" for t in got)
+        runs[torch.device(dev).type] = (mets, params, state)
+    assert all(t.device.type == "cuda" for t in tree_leaves(runs["cuda"][1:]))
+    return runs["cuda"], runs["cpu"]
+
+
+def _train_steps_match(card, arch):
+    from repro_torch.train.tree import tree_leaves
+
+    (got_m, *got), (want_m, *want) = _train_steps_on_card_match_cpu(card, arch)
     for g, w in zip(got_m, want_m):
-        np.testing.assert_allclose(g["loss"], w["loss"], rtol=LM_TRAIN_LOSS_RTOL)
-        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], rtol=LM_TRAIN_NORM_RTOL)
+        runs = f"card {got_m}, cpu {want_m}"
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=LM_TRAIN_LOSS_RTOL, err_msg=runs)
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], rtol=LM_TRAIN_NORM_RTOL,
+                                   err_msg=runs)
         assert g["lr"] == w["lr"]
-    errs = [_rel_l2(g, w) for g, w in zip(got, want)]
+    errs = [_rel_l2(g, w) for g, w in zip(tree_leaves(got), tree_leaves(want))]
     assert max(errs) < LM_TRAIN_LEAF_TOL, errs
 
 
@@ -1550,3 +1566,92 @@ def test_train_launcher_runs_on_the_card_by_default(card):
     assert proc.returncode == 0, proc.stderr
     assert "training qwen2.5-smoke on cuda" in proc.stdout
     assert '"steps": 3' in proc.stdout
+
+
+# --------------------------------------------------------------------------- #
+# the recurrent families (jamba: Mamba + attention + MoE; xlstm)               #
+# --------------------------------------------------------------------------- #
+
+LM_RECURRENT = ("jamba_v0_1_52b", "xlstm_350m")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_RECURRENT)
+def test_recurrent_families_sync_once_a_train_step_and_never_in_generate(card, arch):
+    """The selective scan, the chunkwise mLSTM and the sLSTM loop make no
+    host sync: a train step (bf16, remat "full") synchronizes only in
+    reading its metrics, generation nowhere, and two generations are
+    bit-equal."""
+    test_moe_families_sync_once_a_train_step_and_never_in_generate(card, arch)
+
+
+#: xlstm's float32 forward rounds ``h`` to bf16 (the reference's rounding),
+#: so one ``h`` element may round the other way on the card: its loss by
+#: 2^-7 and its gradients, read through AdamW's first moment (0.1 times the
+#: clipped gradient after one step), by 3e-2 relative L2 a leaf — the CPU
+#: suite's tolerances against the reference (tests/test_torch_recurrent.py).
+#: Only one step: AdamW's first update moves every weight by +-lr, so a
+#: near-zero gradient element of the other sign moves a zero-initialized
+#: bias leaf by 2 lr (CPU, the port against the reference: 0.12 relative L2)
+LM_XLSTM_LOSS_RTOL, LM_XLSTM_GRAD_TOL = 2 ** -7, 3e-2
+
+
+@pytest.mark.gpu
+def test_recurrent_train_steps_on_card_match_cpu_jamba(card):
+    _train_steps_match(card, "jamba_v0_1_52b")
+
+
+@pytest.mark.gpu
+def test_recurrent_train_step_on_card_matches_cpu_xlstm(card):
+    from repro_torch.train.tree import tree_leaves
+
+    (got_m, _, got), (want_m, _, want) = _train_steps_on_card_match_cpu(card, "xlstm_350m", 1)
+    runs = f"card {got_m}, cpu {want_m}"
+    np.testing.assert_allclose(got_m[0]["loss"], want_m[0]["loss"], rtol=LM_XLSTM_LOSS_RTOL,
+                               err_msg=runs)
+    np.testing.assert_allclose(got_m[0]["grad_norm"], want_m[0]["grad_norm"],
+                               rtol=LM_XLSTM_GRAD_TOL, err_msg=runs)
+    errs = [_rel_l2(g, w) for g, w in zip(tree_leaves(got["mu"]), tree_leaves(want["mu"]))]
+    assert max(errs) < LM_XLSTM_GRAD_TOL, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_RECURRENT)
+def test_recurrent_decode_step_replays_in_a_cuda_graph(card, arch):
+    """The mixers write their new states into the cache tensors they are
+    given, in place, so a decode step captured in a CUDA graph replays: two
+    replays give the logits and caches of two eager steps from the same
+    caches (float32 compute, LM_PREFILL_TOL)."""
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    _, _, model, params = _lm_models(arch, card)
+    B, P = 2, 8
+    prompts = torch.randint(1, model.cfg.vocab, (B, P), device=card)
+    with torch.inference_mode():
+        start = model.init_cache(B, P + 4)
+        model.prefill(params, {"tokens": prompts}, start)
+        tok = prompts[:, -1:].clone()
+        pos = torch.full((B,), P, dtype=torch.int32, device=card)
+        eager, want = tree_map(torch.clone, start), []
+        for i in range(2):
+            want.append(model.decode_step(params, tok, pos + i, eager)[0].clone())
+        caches, step_pos = tree_map(torch.clone, start), pos.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm the libraries outside the capture
+            model.decode_step(params, tok, step_pos, caches)
+        torch.cuda.current_stream().wait_stream(side)
+        tree_map(lambda c, s: c.copy_(s), caches, start)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, _ = model.decode_step(params, tok, step_pos, caches)
+        got = []
+        for i in range(2):
+            step_pos.copy_(pos + i)
+            graph.replay()
+            got.append(logits.clone())
+        torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **LM_PREFILL_TOL)
+    for g, w in zip(tree_leaves(caches), tree_leaves(eager)):
+        torch.testing.assert_close(g.float(), w.float(), **LM_PREFILL_TOL)

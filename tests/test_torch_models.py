@@ -74,10 +74,13 @@ BF16 = dict(rtol=5e-2, atol=1e-1)
 
 SERVED = ("qwen2_5_3b", "qwen3_4b", "qwen1_5_110b", "gemma3_12b", "internvl2_26b",
           "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b")
-REFUSED = ("jamba_v0_1_52b", "xlstm_350m", "seamless_m4t_large_v2")
-#: the families of ROADMAP item 11: the two built since the MoE and MLA port
-#: (their dry-run inputs still wait), then the three still refused
-ITEM_11 = ("qwen3_moe_30b_a3b", "deepseek_v2_lite_16b") + REFUSED
+REFUSED = ("seamless_m4t_large_v2",)
+#: the families of ROADMAP item 11: the four built since the MoE, MLA and
+#: recurrent ports (their dry-run inputs still wait; jamba and xlstm are held
+#: against the reference in test_torch_recurrent.py), then the one still
+#: refused
+ITEM_11 = ("qwen3_moe_30b_a3b", "deepseek_v2_lite_16b", "jamba_v0_1_52b",
+           "xlstm_350m") + REFUSED
 B, S = 2, 16  # gemma3's smoke window is 16: its ring wraps from the first decode step
 NEW = 12  # tokens generated; the caches hold S + NEW
 
@@ -438,10 +441,12 @@ def test_lm_to_viterbi_pipeline_matches_reference():
 
 
 @pytest.mark.parametrize("arch", ["qwen2_5_3b", "gemma3_12b", "internvl2_26b",
-                                  "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b"])
+                                  "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b",
+                                  "jamba_v0_1_52b", "xlstm_350m"])
 def test_cache_bytes_equal_reference(arch):
     """Full width (no allocation): the attention caches, gemma3's rings at
-    S past the window, MLA's compressed cache."""
+    S past the window, MLA's compressed cache, the recurrent states (which
+    do not grow with S)."""
     rm, pm = r_build(RCB.get_arch(arch)), p_build(PCB.get_arch(arch), device="cpu")
     for Bc, Sc in ((4, 48), (2, 4096)):
         assert cache_bytes(pm, Bc, Sc) == r_cache_bytes(rm, Bc, Sc) > 0
@@ -449,8 +454,8 @@ def test_cache_bytes_equal_reference(arch):
 
 @pytest.mark.parametrize("arch", ITEM_11)
 def test_refused_families_raise_naming_item_11(arch):
-    """What of item 11 still waits for each of its families: jamba, xlstm
-    and seamless are refused before any allocation; the MoE and MLA families
+    """What of item 11 still waits for each of its families: seamless is
+    refused before any allocation; the MoE, MLA and recurrent families
     build, and their dry-run inputs (``input_specs``) raise."""
     if arch in REFUSED:
         with pytest.raises(NotImplementedError, match="item 11"):
