@@ -177,8 +177,27 @@ Phases (any failure raises and exits non-zero):
                phase 14's scenario (16 bits a token);
  19. lm_train_recurrent — phase 17's checks for jamba (the first two
                entries of its pattern, ("mamba", "mlp") and ("mamba",
-               "moe")) and xlstm-350m (24 layers) at full width: 3
+               "moe")) and xlstm-350m (8 of 24 layers) at full width: 3
                ``make_train_step`` steps, then ``train()`` for 1 step.
+ 20. lm_serve_encdec — the encoder-decoder family (seamless-m4t-large-v2:
+               24 + 24 layers, d=1024, 16 heads of 64, d_ff 8192, vocab
+               256256, untied; 2,035,935,232 random float32 parameters, bf16
+               compute) at full width through ``Model.prefill`` and
+               ``decode_step``: B=4 utterances of 1024 bf16 frames, prompts of
+               16, 32 greedy tokens, caches of 1024 rows (805,306,368 B); no
+               host sync in the decode loop, two runs bit-equal, prefill time
+               (encoder, cross K/V, decoder prefill) and decode-step time
+               (eager and CUDA-graph replay), ops a step, tokens/s beside the
+               step's byte bound, peak memory; teacher forcing in float32
+               (atol 2e-2 + rtol 2e-2, the same argmax; bf16 printed); the
+               tokens through phase 14's scenario (18 bits a token);
+ 21. lm_train_encdec — the same model trained (remat "full", AdamW) on
+               ``SyntheticLM`` batches of 2 x 4096 frames (1024 decoder
+               tokens): 5 ``make_train_step`` steps on a fixed batch (the
+               step-0 loss equal to a no-grad forward's, finite losses and
+               norms, one host sync a step), step time, frames/s and decoder
+               tokens/s, the model-FLOP share, peak memory against a
+               prediction; then ``train()`` for 2 steps.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -2374,10 +2393,17 @@ def _lm_forward_check(model, params, toks, dtype, cache_dtype=None, tol=None):
     _, caches = m.prefill(params, {"tokens": toks[:, :S]}, caches)
     dec, _ = m.decode_step(params, toks[:, S:], torch.full((B,), S, dtype=torch.int32,
                                                          device=toks.device), caches)
-    dec = dec.float()
+    return _tf_stats(f"lm_serve {dtype}", dec, full, *(tol or LM_TF_TOL[dtype]))
+
+
+def _tf_stats(label, dec, full, atol, rtol):
+    """Teacher forcing's readings: the decode's logits ``dec`` against the
+    full forward's ``full`` (B, V) (see ``_lm_forward_check``)."""
+    import torch
+
+    dec, full = dec.float(), full.float()
     if dec.shape != full.shape or not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
-        _fail(f"lm_serve {dtype}: bad logits {tuple(dec.shape)} or non-finite values")
-    atol, rtol = tol or LM_TF_TOL[dtype]
+        _fail(f"{label}: bad logits {tuple(dec.shape)} or non-finite values")
     diff = (dec - full).abs()
     over_by_row = (diff > atol + rtol * full.abs()).sum(-1).tolist()
     arg_d, arg_f = dec.argmax(-1), full.argmax(-1)
@@ -2397,6 +2423,31 @@ def _host_syncs(fn) -> tuple:
     with sanitized(transfer_guard=None, debug_nans=False) as rep:
         out = fn()
     return out, rep.host_syncs, dict(rep.sync_sites)
+
+
+def _train_steps(step_fn, params, state, batch, steps) -> tuple:
+    """``steps`` calls of the train step ``step_fn`` on one batch (it updates
+    ``params`` and ``state`` in place), each timed on the host clock to its
+    metrics' read-back: (metrics a step, step times in ms, and step 1's host
+    syncs and their sites — a steady step's one sync is that read-back)."""
+    import torch
+
+    from repro_torch.train.train_loop import read_metrics
+
+    history, times, syncs, sites = [], [], None, None
+    for i in range(steps):
+        def one(i=i):
+            return read_metrics(step_fn(params, state, batch, i)[2])
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:
+            met, syncs, sites = _host_syncs(one)
+        else:
+            met = one()
+        times.append((time.perf_counter() - t0) * 1e3)
+        history.append(met)
+    return history, times, syncs, sites
 
 
 def phase_lm_serve(smi, seed):
@@ -2633,7 +2684,7 @@ def phase_lm_train(smi, seed):
     from repro_torch.models import common as cm
     from repro_torch.models import transformer as tf
     from repro_torch.train.optimizer import adamw, cosine_warmup
-    from repro_torch.train.train_loop import make_train_step, read_metrics, train
+    from repro_torch.train.train_loop import make_train_step, train
     from repro_torch.train.tree import tree_leaves, tree_map
 
     gc.collect()
@@ -2673,22 +2724,7 @@ def phase_lm_train(smi, seed):
     torch.cuda.reset_peak_memory_stats()
     step_fn = make_train_step(model, opt, cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP,
                                                         LM_TRAIN_STEPS))
-
-    def one(i):
-        nonlocal params, state
-        params, state, met = step_fn(params, state, batch, i)
-        return read_metrics(met)
-
-    history, times, syncs, sites = [], [], None, None
-    for i in range(LM_TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if i == 1:  # the one sync a steady step makes: the metrics' read-back
-            met, syncs, sites = _host_syncs(lambda: one(1))
-        else:
-            met = one(i)
-        times.append((time.perf_counter() - t0) * 1e3)
-        history.append(met)
+    history, times, syncs, sites = _train_steps(step_fn, params, state, batch, LM_TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated() - live0
     losses = [h["loss"] for h in history]
     norms = [h["grad_norm"] for h in history]
@@ -2820,13 +2856,18 @@ LM_RECURRENT_ARCHS = (("jamba_v0_1_52b", 8, 2), ("xlstm_350m", 24, None))
 #: train steps on one fixed batch, then train() steps (xlstm's sLSTM runs
 #: 4096 eager steps a layer, forward, recompute and backward)
 LM_RECURRENT_TRAIN_STEPS, LM_RECURRENT_LOOP_STEPS = 3, 1
+#: training depth cut for the script's wall (PERF.md §4): xlstm-350m trains
+#: one group of its pattern, 8 of 24 layers (7 mLSTM + 1 sLSTM); at 24 its
+#: sLSTM loops took ~190 s of the script (42.0 s a step)
+LM_RECURRENT_TRAIN_LAYERS = {"xlstm_350m": 8}
 #: predicted peak of the recurrent training runs, bytes above the phase's
 #: start (PERF.md §6): jamba at 2 layers, 3.742e9 parameters: float32
 #: weights and AdamW's moments 44.9e9, bf16 copy and gradients 15.0e9, the
 #: loss's logits (2 x 4096 x 65536: bf16 1.07e9, float32 2.15e9, ~5 alive in
 #: the backward) and a chunk of the scan's (2, 256, 8192, 16) float32
-#: intermediates; xlstm-350m, 4.77e8 parameters: 7.6e9 and its logits
-LM_RECURRENT_PEAK_PREDICTED = {"jamba_v0_1_52b": (66e9, 78e9), "xlstm_350m": (10e9, 20e9)}
+#: intermediates; xlstm-350m at 8 layers, 1.93e8 parameters: 3.1e9 and its
+#: logits (2 x 4096 x 50304: float32 1.65e9, ~5 alive)
+LM_RECURRENT_PEAK_PREDICTED = {"jamba_v0_1_52b": (66e9, 78e9), "xlstm_350m": (6e9, 14e9)}
 
 
 @contextlib.contextmanager
@@ -3099,7 +3140,7 @@ def _train_family(bundle, smi, seed, label, steps, loop_steps, peak_predicted=No
     from repro_torch.data import SyntheticLM, make_data_iter
     from repro_torch.models import build
     from repro_torch.train.optimizer import adamw, cosine_warmup
-    from repro_torch.train.train_loop import make_train_step, read_metrics, train
+    from repro_torch.train.train_loop import make_train_step, train
     from repro_torch.train.tree import tree_map
 
     _free_card()
@@ -3125,22 +3166,7 @@ def _train_family(bundle, smi, seed, label, steps, loop_steps, peak_predicted=No
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_fn = make_train_step(model, opt, cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP, steps))
-
-    def one(i):
-        nonlocal params, state
-        params, state, met = step_fn(params, state, batch, i)
-        return read_metrics(met)
-
-    history, times, syncs, sites = [], [], None, None
-    for i in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if i == 1:
-            met, syncs, sites = _host_syncs(lambda: one(1))
-        else:
-            met = one(i)
-        times.append((time.perf_counter() - t0) * 1e3)
-        history.append(met)
+    history, times, syncs, sites = _train_steps(step_fn, params, state, batch, steps)
     peak = torch.cuda.max_memory_allocated() - live0
     losses = [h["loss"] for h in history]
     lbs = [h["load_balance_loss"] for h in history]
@@ -3240,16 +3266,364 @@ def phase_lm_train_moe(smi, seed):
 
 def phase_lm_train_recurrent(smi, seed):
     """Phase 19: training of jamba-v0.1-52b (the first two entries of its
-    pattern) and xlstm-350m (all 24 layers) at full width
+    pattern) and xlstm-350m (8 of its 24 layers) at full width
     (``_train_family``)."""
     out = {}
     for arch, _, entries in LM_RECURRENT_ARCHS:
-        bundle, published = _train_bundle(arch, entries=entries)
+        bundle, published = _train_bundle(arch, LM_RECURRENT_TRAIN_LAYERS.get(arch), entries)
         out[arch] = _train_family(bundle, smi, seed, "lm_train_recurrent",
                                   LM_RECURRENT_TRAIN_STEPS, LM_RECURRENT_LOOP_STEPS,
                                   LM_RECURRENT_PEAK_PREDICTED[arch])
         out[arch]["published_layers"] = published
     return out
+
+
+#: the encoder-decoder family at full width (src/repro/configs/seamless_m4t_large_v2.py,
+#: arXiv:2308.11596): 24 + 24 layers, d=1024, 16 heads of 64, d_ff 8192,
+#: vocab 256256, untied; nothing cut: 2,035,935,232 float32 parameters
+#: (8.14e9 B).  Served: LM_B utterances of ENCDEC_FRAMES bf16 frames, decoder
+#: prompts of LM_PROMPT tokens, LM_NEW greedy tokens through ``Model.prefill``
+#: and ``decode_step`` (``ServeEngine`` prefills from tokens alone and refuses
+#: the family), caches of ENCDEC_FRAMES rows (the cross cache exactly the
+#: frames: 805,306,368 B at B=4).  Trained: ``SyntheticLM`` batches of
+#: LM_TRAIN_B x LM_TRAIN_S frames, LM_TRAIN_S // dec_ratio decoder tokens
+ENCDEC_ARCH, ENCDEC_FRAMES, ENCDEC_PARAMS = "seamless_m4t_large_v2", 1024, 2_035_935_232
+#: teacher forcing in float32 compute (atol, rtol): the decode reads the cross
+#: K/V from the bf16 cross cache where the full pass computes them in
+#: float32, so the two part by more than phase 13's float32 tolerance (the
+#: reference's own gap at smoke size: 0.0134); tests/test_models_smoke.py's
+#: tolerance for dense models.  bf16 compute is printed
+ENCDEC_TF_TOL = (2e-2, 2e-2)
+#: train steps on one fixed batch, then train() steps
+ENCDEC_TRAIN_STEPS, ENCDEC_LOOP_STEPS = 5, 2
+#: predicted peaks, bytes above the phase's start (PERF.md §6).
+#: Serving: the float32 weights (8.14e9), the caches (0.81e9), the prefill's
+#: transients (the stacked bf16 cross K/V 0.4e9, the head's bf16 cast 0.5e9,
+#: score blocks).  Training: the float32 weights and AdamW's moments
+#: (24.4e9), the bf16 copy and gradients (8.1e9), the loss's logits (2 x 1024
+#: x 256256: bf16 1.05e9, float32 2.1e9, ~5 alive in the backward) and the
+#: encoder's float32 score blocks (2 x 16 x 2048 x 2048: 0.54e9 each)
+ENCDEC_SERVE_PEAK_PREDICTED = (9.3e9, 10.5e9)
+ENCDEC_TRAIN_PEAK_PREDICTED = (42e9, 50e9)
+
+
+def _encdec_start(model, params, frames, prompts):
+    """Prefill (encoder, cross K/V, decoder prompt) into fresh caches of
+    ENCDEC_FRAMES rows: (the first greedy token (B, 1), caches)."""
+    import torch
+
+    caches = model.init_cache(prompts.shape[0], ENCDEC_FRAMES)
+    logits, caches = model.prefill(params, {"frames": frames, "tokens": prompts}, caches)
+    return logits.argmax(-1).to(torch.int32)[:, None], caches
+
+
+def _encdec_loop(model, params, tok, caches, start, n_new):
+    """``n_new - 1`` greedy decode steps after ``tok`` at position ``start``,
+    the tokens kept on the card: (B, n_new) int32."""
+    import torch
+
+    out = [tok]
+    pos = torch.full((tok.shape[0],), start, dtype=torch.int32, device=tok.device)
+    for _ in range(n_new - 1):
+        logits, caches = model.decode_step(params, tok, pos, caches)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        out.append(tok)
+        pos = pos + 1
+    return torch.cat(out, dim=1)
+
+
+def _encdec_generate(model, params, frames, prompts, n_new):
+    tok, caches = _encdec_start(model, params, frames, prompts)
+    return _encdec_loop(model, params, tok, caches, prompts.shape[1], n_new)
+
+
+def _encdec_forward_check(model, params, frames, toks, dtype):
+    """Teacher forcing in ``dtype`` compute: prefill(frames, S tokens) +
+    decode(token S) against the full decoder pass over S + 1 tokens,
+    position S (the served bf16 caches of ENCDEC_FRAMES rows)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model_zoo import Model
+
+    cfg = dataclasses.replace(model.cfg, compute_dtype=dtype)
+    m = Model(cfg=cfg, part=model.part, param_specs=model.param_specs, device=model.device)
+    B, S1 = toks.shape
+    S = S1 - 1
+    x, _ = ed.decoder_forward(params, cfg, m.part, toks,
+                              ed.encode_frames(params, cfg, m.part, frames))
+    full = tf.lm_head(params, cfg, x)[:, S]
+    del x
+    caches = m.init_cache(B, ENCDEC_FRAMES)
+    _, caches = m.prefill(params, {"frames": frames, "tokens": toks[:, :S]}, caches)
+    dec, _ = m.decode_step(params, toks[:, S:], torch.full((B,), S, dtype=torch.int32,
+                                                         device=toks.device), caches)
+    return _tf_stats(f"lm_serve_encdec {dtype}", dec, full, *ENCDEC_TF_TOL)
+
+
+def _encdec_parts(params) -> dict:
+    """Parameters by part: the encoder side (frontend projection, encoder,
+    its norm), the decoder side (embedding table, decoder, final norm) and
+    the untied head."""
+    from repro_torch.train.tree import tree_leaves
+
+    def n(*keys):
+        return sum(t.numel() for k in keys for t in tree_leaves(params[k]))
+
+    return {"encoder": n("frontend_proj", "encoder", "enc_norm"),
+            "decoder": n("decoder", "final_norm"), "embed": n("embed"), "head": n("lm_head")}
+
+
+def phase_lm_serve_encdec(smi, seed):
+    """Phase 20: seamless-m4t-large-v2 served at full width on the card
+    through ``Model.prefill`` and ``decode_step``: parameters, cache bytes,
+    host syncs in the decode loop, two runs bit-equal, prefill (and its
+    encoder, cross-K/V and decoder parts) and decode-step times (eager and
+    CUDA-graph replay), teacher forcing, and the tokens through the serving
+    scenario."""
+    import torch
+
+    from repro_torch.analysis.op_lint import OpRecorder
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build
+    from repro_torch.models import encdec as ed
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.serve import cache_bytes
+    from repro_torch.train.tree import tree_leaves
+
+    _free_card()
+    live0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(get_arch(ENCDEC_ARCH))
+    cfg, part = model.cfg, model.part
+    if model.device.type != "cuda":
+        _fail(f"lm_serve_encdec: model built on {model.device}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_specs = sum(math.prod(s.shape) for s in spec_leaves(model.param_specs))
+    parts = _encdec_parts(params)
+    if not n_params == n_specs == ENCDEC_PARAMS:
+        _fail(f"lm_serve_encdec: {n_params} parameters, the specs {n_specs}, expected "
+              f"{ENCDEC_PARAMS}")
+    held = torch.cuda.memory_allocated() - live0
+    kv_bytes = cache_bytes(model, LM_B, ENCDEC_FRAMES)
+    print(f"[lm_serve_encdec] {cfg.name}: {cfg.enc_layers} + {cfg.n_layers} layers, "
+          f"d={cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, frames of {cfg.frontend_dim}; {n_params} parameters {parts} "
+          f"(param_count() {cfg.param_count()['total']!r}), {held} bytes held (float32), init "
+          f"{init_s!r} s; cache_bytes(model, {LM_B}, {ENCDEC_FRAMES}) = {kv_bytes} ({smi})")
+
+    frames = torch.randn((LM_B, ENCDEC_FRAMES, cfg.frontend_dim), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT), generator=gen, device="cuda")
+    with torch.inference_mode():
+        _encdec_generate(model, params, frames, prompts, LM_NEW)  # warm-up
+        torch.cuda.synchronize()
+        (tok0, caches), pre_syncs, pre_sites = _host_syncs(
+            lambda: _encdec_start(model, params, frames, prompts))
+        tokens, syncs, sites = _host_syncs(
+            lambda: _encdec_loop(model, params, tok0, caches, LM_PROMPT, LM_NEW))
+        again = _encdec_generate(model, params, frames, prompts, LM_NEW)
+    host_tokens = tokens.cpu()
+    print(f"[lm_serve_encdec] host syncs: prefill {pre_syncs} (sites {pre_sites}), the "
+          f"{LM_NEW - 1} decode steps {syncs} (sites {sites}); two runs bit-equal: "
+          f"{bool(torch.equal(again, tokens))} ({smi})")
+    if syncs != 0:
+        _fail(f"lm_serve_encdec: {syncs} host syncs in the decode loop (sites {sites})")
+    if not torch.equal(again, tokens):
+        _fail("lm_serve_encdec: two runs differ")
+    if tuple(host_tokens.shape) != (LM_B, LM_NEW) or not (
+            (host_tokens >= 0) & (host_tokens < cfg.vocab)).all():
+        _fail(f"lm_serve_encdec: bad tokens {tuple(host_tokens.shape)}")
+
+    with torch.inference_mode():
+        batch = {"frames": frames, "tokens": prompts}
+        prefill = _event_ms(lambda: model.prefill(params, batch, caches), 1, LM_ROUNDS)
+        enc_ms = _event_ms(lambda: ed.encode_frames(params, cfg, part, frames), 1, LM_ROUNDS)
+        enc_out = ed.encode_frames(params, cfg, part, frames)
+        cross_ms = _event_ms(lambda: ed.encode_cross_kv(params, cfg, enc_out), 1, LM_ROUNDS)
+        dec_ms = _event_ms(lambda: ed.decoder_forward(params, cfg, part, prompts, enc_out,
+                                                      self_caches=caches["self"]), 1, LM_ROUNDS)
+        del enc_out
+        with OpRecorder() as rec:
+            model.prefill(params, batch, caches)
+        prefill_ops = len(rec.ops)
+        tok = tokens[:, :1]
+        pos = torch.full((LM_B,), LM_PROMPT, dtype=torch.int32, device="cuda")
+        step = _event_ms(lambda: model.decode_step(params, tok, pos, caches), 4, LM_ROUNDS)
+        with OpRecorder() as rec:
+            model.decode_step(params, tok, pos, caches)
+        step_ops = len(rec.ops)
+        gen_ms = _event_ms(lambda: _encdec_generate(model, params, frames, prompts, LM_NEW), 1,
+                           3, warmup=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live0
+    with torch.inference_mode():
+        step_dev, _ = _graph_ms(lambda: model.decode_step(params, tok, pos, caches), 2)
+    # the step's bytes as written: each decoder-side product's float32 kernel
+    # read (4 B), its bf16 copy written and read (4 B), and every cache row
+    # read once (the self and cross caches: the masked decode reads all
+    # ENCDEC_FRAMES rows); the floor reads each float32 kernel once
+    read = parts["decoder"] + parts["head"]
+    step_bytes = 8 * read + kv_bytes
+    row = {
+        "arch": cfg.name, "layers": [cfg.enc_layers, cfg.n_layers], "batch": LM_B,
+        "frames": ENCDEC_FRAMES, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+        "params_in_tensors": n_params, "params_by_part": parts, "bytes_held": held,
+        "cache_bytes": kv_bytes, "peak_bytes_above_phase_start": peak,
+        "peak_predicted": ENCDEC_SERVE_PEAK_PREDICTED,
+        "prefill_ms": statistics.median(prefill), "prefill_rounds": prefill,
+        "encoder_ms": statistics.median(enc_ms), "cross_kv_ms": statistics.median(cross_ms),
+        "decoder_prefill_ms": statistics.median(dec_ms), "prefill_ops": prefill_ops,
+        "decode_ms_per_token": statistics.median(step), "decode_rounds": step,
+        "decode_device_ms": statistics.median(step_dev), "decode_device_rounds": step_dev,
+        "decode_ops": step_ops,
+        "generate_ms": statistics.median(gen_ms), "generate_rounds": gen_ms,
+        "tokens_per_s": LM_B * LM_NEW / (statistics.median(gen_ms) / 1e3),
+        "step_bytes_as_written": step_bytes, "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "fp32_read_once_bound_ms": (4 * read + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+        "host_syncs_prefill": pre_syncs, "host_syncs_decode_loop": syncs,
+        "bit_equal": True, "card": smi,
+    }
+    print(f"[lm_serve_encdec] prefill ({LM_B} x {ENCDEC_FRAMES} frames, {LM_PROMPT} tokens) "
+          f"{row['prefill_ms']!r} ms (rounds {prefill}, {prefill_ops} dispatched ops): encoder "
+          f"{row['encoder_ms']!r}, cross K/V {row['cross_kv_ms']!r}, decoder prefill "
+          f"{row['decoder_prefill_ms']!r}; decode {row['decode_ms_per_token']!r} ms a token "
+          f"eager (rounds {step}, {step_ops} dispatched ops a step), "
+          f"{row['decode_device_ms']!r} device-only (CUDA graph replays {step_dev}); step "
+          f"bound as written {row['step_bound_ms']!r} ms ({step_bytes} bytes), float32 read "
+          f"once {row['fp32_read_once_bound_ms']!r}; {LM_NEW} tokens {row['generate_ms']!r} ms "
+          f"= {row['tokens_per_s']!r} tokens/s; peak {peak} bytes above the phase's start "
+          f"(predicted {ENCDEC_SERVE_PEAK_PREDICTED}) ({smi})")
+
+    toks = torch.randint(0, cfg.vocab, (LM_B, LM_PROMPT + 1), generator=gen, device="cuda")
+    with torch.inference_mode():
+        for dtype in ("bfloat16", "float32"):
+            tf = _encdec_forward_check(model, params, frames, toks, dtype)
+            tf["held"] = dtype == "float32"
+            row[f"teacher_forcing_{dtype}"] = tf
+            print(f"[lm_serve_encdec] teacher forcing, {dtype} compute, bf16 caches"
+                  f"{'' if tf['held'] else ' (printed, not held)'}: {tf} ({smi})")
+    tf = row["teacher_forcing_float32"]
+    if tf["over_tolerance"] or not all(tf["argmax_equal"]):
+        _fail(f"lm_serve_encdec float32: {tf['over_tolerance']} logits beyond atol "
+              f"{tf['atol']} + rtol {tf['rtol']}, argmax equal {tf['argmax_equal']}")
+    del caches, params, model
+    _free_card()
+    row["scenario"] = phase_serve_scenario(tokens, smi, _bits_per_token(cfg.vocab),
+                                           f"serve_scenario_{ENCDEC_ARCH}")
+    return row
+
+
+def phase_lm_train_encdec(smi, seed):
+    """Phase 21: seamless-m4t-large-v2 trained at full width (remat "full",
+    AdamW) on ``SyntheticLM`` batches of LM_TRAIN_B x LM_TRAIN_S frames:
+    ENCDEC_TRAIN_STEPS ``make_train_step`` steps on one fixed batch, then
+    ``train()`` on ``make_data_iter``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import make_data_iter
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import make_train_step, train
+    from repro_torch.train.tree import tree_map
+
+    _free_card()
+    live0 = torch.cuda.memory_allocated()
+    bundle, _ = _train_bundle(ENCDEC_ARCH)
+    model = build(bundle)
+    cfg = model.cfg
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    parts = _encdec_parts(params)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=LM_TRAIN_S, global_batch=LM_TRAIN_B)
+    batch = make_data_iter(model, shape, seed=seed)(0)
+    B, S_enc, S_dec = LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_S // cfg.dec_ratio
+    if tuple(batch["frames"].shape) != (B, S_enc, cfg.frontend_dim) or tuple(
+            batch["tokens"].shape) != (B, S_dec):
+        _fail(f"lm_train_encdec: batch {({k: tuple(v.shape) for k, v in batch.items()})}")
+    opt = adamw()
+    state = opt.init(params)
+    with torch.no_grad():  # the step-0 loss's reference: a no-grad forward
+        params_c = tree_map(lambda p: p.to(torch.bfloat16), params)
+        ref_loss = model.train_loss(params_c, batch)[0].item()
+        del params_c
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(model, opt, cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP,
+                                                        ENCDEC_TRAIN_STEPS))
+    history, times, syncs, sites = _train_steps(step_fn, params, state, batch,
+                                                ENCDEC_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() - live0
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    step_ms = statistics.median(times[1:])
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    # model FLOPs a step: 6 N_enc a frame and 6 (N_dec + N_head) a decoder
+    # token (forward and backward of every product; the embedding is a
+    # gather), plus attention's scores and PV, forward and backward: 12 H hd
+    # a (query, key) pair, the encoder's S_enc^2 and the decoder's S_dec^2
+    # (self) and S_dec S_enc (cross) a layer.  The reference's
+    # roofline.model_flops counts 6 param_count()['active'] a decoder token
+    # (encoder frames folded in): printed beside it, not the same count
+    flops = (6 * parts["encoder"] * B * S_enc + 6 * (parts["decoder"] + parts["head"]) * B * S_dec
+             + 12 * H * hd * B * (cfg.enc_layers * S_enc ** 2
+                                  + cfg.n_layers * (S_dec ** 2 + S_dec * S_enc)))
+    ref_count = 6 * cfg.param_count()["active"] * B * S_dec
+    mfu = flops / (step_ms / 1e3) / BF16_FLOPS_PER_S
+    print(f"[lm_train_encdec] {cfg.name}: {cfg.enc_layers} + {cfg.n_layers} layers at full "
+          f"width, {parts}, B={B} x {S_enc} frames / {S_dec} decoder tokens, remat "
+          f"{bundle.partition.remat!r}, AdamW; losses {losses}; grad norms {norms}; step-0 "
+          f"loss {losses[0]!r} against the no-grad forward's {ref_loss!r}; host syncs in "
+          f"step 1 {syncs} (sites {sites}) ({smi})")
+    print(f"[lm_train_encdec] step times (ms) {times}; median of steps 1-"
+          f"{ENCDEC_TRAIN_STEPS - 1} {step_ms!r} ms = {B * S_enc / (step_ms / 1e3)!r} frames/s "
+          f"and {B * S_dec / (step_ms / 1e3)!r} decoder tokens/s; model FLOPs {flops!r} a step "
+          f"= {mfu!r} of the {BF16_FLOPS_PER_S!r} FLOP/s bf16 peak (the reference's "
+          f"6 N_active D_dec count: {ref_count!r}); peak {peak} bytes above the phase's start "
+          f"(predicted {ENCDEC_TRAIN_PEAK_PREDICTED}) ({smi})")
+    if abs(losses[0] - ref_loss) > LM_LOSS_RTOL * abs(ref_loss):
+        _fail(f"lm_train_encdec: step-0 loss {losses[0]!r} against the no-grad forward's "
+              f"{ref_loss!r}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        _fail(f"lm_train_encdec: non-finite losses {losses} or grad norms {norms}")
+    if syncs != 1:
+        _fail(f"lm_train_encdec: {syncs} host syncs in a step (sites {sites}), expected 1")
+    del params, state, step_fn, batch
+    _free_card()
+    t0 = time.perf_counter()
+    report = train(model, make_data_iter(model, shape, seed=seed), steps=ENCDEC_LOOP_STEPS,
+                   lr=LM_TRAIN_LR, warmup=LM_TRAIN_WARMUP, seed=seed, log_every=1)
+    loop_s = time.perf_counter() - t0
+    loop = [{k: h[k] for k in ("step", "time_s", "loss", "grad_norm")} for h in report["history"]]
+    print(f"[lm_train_encdec] train() {ENCDEC_LOOP_STEPS} steps on make_data_iter in "
+          f"{loop_s!r} s (init included): {loop}; restarts {report['restarts']} ({smi})")
+    if report["final_step"] != ENCDEC_LOOP_STEPS or report["restarts"] or not all(
+            math.isfinite(h["loss"]) for h in loop):
+        _fail(f"lm_train_encdec: train() report {loop}")
+    del report
+    _free_card()
+    return {
+        "arch": cfg.name, "layers": [cfg.enc_layers, cfg.n_layers], "batch": B,
+        "frames": S_enc, "decoder_tokens": S_dec, "params": sum(parts.values()),
+        "params_by_part": parts, "losses": losses, "grad_norms": norms,
+        "step0_no_grad_loss": ref_loss, "step_ms": step_ms, "step_rounds_ms": times,
+        "frames_per_s": B * S_enc / (step_ms / 1e3),
+        "decoder_tokens_per_s": B * S_dec / (step_ms / 1e3),
+        "model_flops_per_step": flops, "reference_model_flops_count": ref_count,
+        "mfu_bf16": mfu, "peak_bytes_above_phase_start": peak,
+        "peak_predicted": ENCDEC_TRAIN_PEAK_PREDICTED, "host_syncs_step": syncs,
+        "train_loop": loop, "card": smi,
+    }
 
 
 SHAPE_KEYS = ("ms", "device_ms", "launches", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -3393,11 +3767,16 @@ def main(argv=None) -> int:
     mark("lm_serve_recurrent")
     lm_train_recurrent = phase_lm_train_recurrent(smi, args.seed)
     mark("lm_train_recurrent")
+    lm_encdec = phase_lm_serve_encdec(smi, args.seed)
+    mark("lm_serve_encdec")
+    lm_train_encdec = phase_lm_train_encdec(smi, args.seed)
+    mark("lm_train_encdec")
     print(json.dumps({"analysis": analysis, "paper": paper, "lm_serve": lm,
                       "serve_scenario": scenario, "lm_train": lm_train,
                       "lm_serve_moe": lm_moe, "lm_train_moe": lm_train_moe,
                       "lm_serve_recurrent": lm_recurrent,
-                      "lm_train_recurrent": lm_train_recurrent}))
+                      "lm_train_recurrent": lm_train_recurrent,
+                      "lm_serve_encdec": lm_encdec, "lm_train_encdec": lm_train_encdec}))
     print(json.dumps({"end_to_end": e2e, "bound_inputs": [
         {k: r[k] for k in ("name", "bytes", "operations", "shape") if k in r} for r in rows]}))
     print(f"[done] wall time {time.perf_counter() - wall0!r} s")

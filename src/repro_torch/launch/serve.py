@@ -6,11 +6,13 @@
   python -m repro_torch.launch.serve --viterbi --bits 256 --batch 64 --backend fused
   python -m repro_torch.launch.serve --viterbi --backend auto   # planner picks
 
-``--arch`` takes every configuration ``models.build`` serves: the dense
-families, qwen3-moe-30b-a3b (MoE), deepseek-v2-lite-16b (MLA + MoE),
-jamba-v0.1-52b (Mamba + attention + MoE) and xlstm-350m (mLSTM + sLSTM);
-seamless-m4t raises naming ROADMAP item 11.  Runs on the card; ``--device
-cpu`` runs the CPU (every kernel's plain version).  Weights are random,
+``--arch`` takes the decoder-only configurations ``models.build`` serves:
+the dense families, qwen3-moe-30b-a3b (MoE), deepseek-v2-lite-16b (MLA +
+MoE), jamba-v0.1-52b (Mamba + attention + MoE) and xlstm-350m (mLSTM +
+sLSTM).  seamless-m4t (encoder-decoder) builds, but ``ServeEngine``
+refuses it with ``ValueError``: its prefill needs the encoder's frames, so
+it is served through ``Model.prefill`` and ``Model.decode_step``.  Runs on
+the card; ``--device cpu`` runs the CPU (every kernel's plain version).  Weights are random,
 drawn from a seeded generator on the device.
 Logs the result as one JSON object (and, with ``--viterbi``, the plan's
 ``explain(costs=True)`` before it).

@@ -4,12 +4,13 @@
   python -m repro_torch.launch.train --arch qwen2_5_3b --smoke --device cpu
   python -m repro_torch.launch.train --arch deepseek_v2_lite_16b --smoke --device cpu
   python -m repro_torch.launch.train --arch jamba_v0_1_52b --smoke --device cpu --steps 2
+  python -m repro_torch.launch.train --arch seamless_m4t_large_v2 --smoke --device cpu --steps 3
 
-``--arch`` takes every configuration ``models.build`` serves (the dense
-families, the MoE qwen3-moe-30b-a3b, the MLA + MoE deepseek-v2-lite-16b and
-the Mamba + attention + MoE jamba-v0.1-52b, whose losses add the router's
-aux terms, and the mLSTM + sLSTM xlstm-350m); seamless-m4t raises naming
-ROADMAP item 11.
+``--arch`` takes every configuration of the repo (the dense families, the
+MoE qwen3-moe-30b-a3b, the MLA + MoE deepseek-v2-lite-16b and the Mamba +
+attention + MoE jamba-v0.1-52b, whose losses add the router's aux terms,
+the mLSTM + sLSTM xlstm-350m, and the encoder-decoder seamless-m4t, whose
+batches carry ``frames``: seq_len frames, seq_len // dec_ratio tokens).
 
 Runs on the card; ``--device cpu`` runs the CPU.  One process on one
 device: a ``--mesh`` other than ``none`` and ``--distributed`` wait for

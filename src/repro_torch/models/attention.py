@@ -17,9 +17,9 @@ rounded there before the softcap and the cast to float32; the mask value is
 
 Caches are written in place: prefill copies K (after RoPE) and V into the
 cache in its dtype, a decode step writes each row's entry at its position.
-The reference's seq-sharded ``flash_decode_sharded`` waits for a device
-mesh (ROADMAP item 9b); ``cross_attention`` / ``cross_kv`` wait for the
-encoder-decoder family (item 11).
+``cross_attention`` / ``cross_kv`` serve the encoder-decoder family
+(``models/encdec.py``).  The reference's seq-sharded
+``flash_decode_sharded`` waits for a device mesh (ROADMAP item 9b).
 """
 from __future__ import annotations
 
@@ -303,13 +303,43 @@ def _scatter_cache(cache, new, pos):
     return cache
 
 
-def cross_attention(params, cfg, part, x, *, enc_kv, decode=False, mesh=None):
-    raise NotImplementedError(
-        "cross_attention belongs to the encoder-decoder family, which repro_torch "
-        "does not port yet (ROADMAP.md queue 1, item 11)")
+def cross_attention(
+    params, cfg, part, x, *,
+    enc_kv: Dict[str, torch.Tensor],  # precomputed {"k","v"}: (B, S_enc, KV, hd)
+    decode: bool = False,
+    mesh=None,
+) -> torch.Tensor:
+    """Cross-attention against (precomputed) encoder K/V.  No RoPE.
+
+    ``decode``: one query token (x: (B, 1, d)) attends over every row of
+    ``enc_kv``, the zero rows of a cross cache longer than the encoder's
+    frames included (the reference's ``hi = S_enc``)."""
+    if mesh is not None:
+        cm._needs_mesh("cross_attention(mesh=...)")
+    cd = cm.dtype_of(cfg.compute_dtype)
+    q = cm.dense(params["wq"], x, "...d,dhk->...hk", cd)
+    if cfg.qk_norm:
+        q = cm.headwise_rmsnorm(params["qknorm"]["q_scale"], q, cfg.norm_eps)
+    k, v = enc_kv["k"].to(cd), enc_kv["v"].to(cd)
+    if decode:
+        B, S_enc = x.shape[0], k.shape[1]
+        lo = torch.zeros((B,), dtype=torch.int32, device=x.device)
+        hi = torch.full((B,), S_enc, dtype=torch.int32, device=x.device)
+        out = _masked_decode(q[:, 0], k, v, lo, hi, cfg.logit_softcap)[:, None]
+    else:
+        out = chunked_attention(
+            q, k, v, causal=False,
+            chunk_q=part.attn_chunk_q, chunk_kv=part.attn_chunk_kv,
+            softcap=cfg.logit_softcap,
+        )
+    return cm.dense(params["wo"], out, "...hk,hkd->...d", cd)
 
 
-def cross_kv(params, cfg, enc_out):
-    raise NotImplementedError(
-        "cross_kv belongs to the encoder-decoder family, which repro_torch "
-        "does not port yet (ROADMAP.md queue 1, item 11)")
+def cross_kv(params, cfg, enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Cross-attention K/V from encoder outputs, in the compute dtype."""
+    cd = cm.dtype_of(cfg.compute_dtype)
+    k = cm.dense(params["wk"], enc_out, "...d,dhk->...hk", cd)
+    v = cm.dense(params["wv"], enc_out, "...d,dhk->...hk", cd)
+    if cfg.qk_norm:
+        k = cm.headwise_rmsnorm(params["qknorm"]["k_scale"], k, cfg.norm_eps)
+    return {"k": k, "v": v}

@@ -7,13 +7,13 @@ cache), so the reference's parameters carry over key for key
 (``repro_torch.convert.lm_params_from_arrays``).  The model runs on the
 card unless the caller asks for the CPU (``device="cpu"``).
 
-Served: the attention, ``mla`` and recurrent (``mamba``, ``mlstm``,
-``slstm``) mixers with the ``mlp``, ``moe`` or ``none`` ffn.  ``build``
-refuses, before any allocation, the family the port does not serve yet
-(the encoder-decoder family: ROADMAP item 11).  ``abstract_params`` and
-``abstract_cache`` give shape-and-dtype trees on the ``meta`` device (no
-allocation); the dry-run inputs (``input_specs``) wait for item 11, the
-sharding methods and ``mesh=`` for item 9b.
+Served: every configuration of the repo — the decoder-only LMs (the
+attention, ``mla`` and recurrent ``mamba``, ``mlstm``, ``slstm`` mixers
+with the ``mlp``, ``moe`` or ``none`` ffn) and the encoder-decoder family
+(``models/encdec.py``: seamless-m4t; its batches carry ``frames``).
+``abstract_params``, ``abstract_cache`` and the dry-run inputs
+(``input_specs``) give shape-and-dtype trees on the ``meta`` device (no
+allocation); the sharding methods and ``mesh=`` wait for item 9b.
 """
 from __future__ import annotations
 
@@ -22,15 +22,11 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ArchBundle, ModelConfig, PartitionConfig
+from repro_torch.configs.base import ArchBundle, ModelConfig, PartitionConfig, ShapeConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
-
-
-def _needs_item(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, item {item})")
 
 
 @dataclasses.dataclass
@@ -52,11 +48,13 @@ class Model:
         return cm.abstract(self.param_specs)
 
     def param_shardings(self, mesh, rules=None):
-        _needs_item("param_shardings", "9b")
+        cm._needs_mesh("param_shardings")
 
     # ---------------- caches ---------------- #
 
     def cache_specs(self, B: int, S: int):
+        if self.cfg.family == "encdec":
+            return ed.encdec_cache_specs(self.cfg, self.part, B, S)
         return tf.cache_specs(self.cfg, self.part, B, S)
 
     def abstract_cache(self, B: int, S: int):
@@ -64,48 +62,81 @@ class Model:
         return cm.abstract(self.cache_specs(B, S))
 
     def cache_shardings(self, mesh, B: int, S: int, rules=None):
-        _needs_item("cache_shardings", "9b")
+        cm._needs_mesh("cache_shardings")
 
     def init_cache(self, B: int, S: int):
+        if self.cfg.family == "encdec":
+            return cm.map_specs(
+                lambda s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
+                self.cache_specs(B, S))
         return tf.init_cache(self.cfg, self.part, B, S, self.device)
 
     # ---------------- steps ---------------- #
 
     def train_loss(self, params, batch, mesh=None, rules=None):
-        """batch: {"tokens", "labels"} (+ "patches" for a VLM).  Returns
-        (loss, metrics), differentiable with respect to ``params``."""
+        """batch: {"tokens", "labels"} (+ "patches" for a VLM, "frames" for
+        the encoder-decoder family).  Returns (loss, metrics),
+        differentiable with respect to ``params``."""
+        if self.cfg.family == "encdec":
+            return ed.encdec_train_loss(params, self.cfg, self.part, batch, mesh, rules)
         return tf.lm_train_loss(params, self.cfg, self.part, batch, mesh=mesh, rules=rules)
 
     def prefill(self, params, batch, caches, mesh=None, rules=None):
-        """batch: {"tokens": (B, S)} (+ "patches" for a VLM).  Writes the
-        caches in place; returns (last logits (B, V), caches)."""
+        """batch: {"tokens": (B, S)} (+ "patches" for a VLM, "frames" for
+        the encoder-decoder family).  Writes the caches in place; returns
+        (last logits (B, V), caches)."""
+        if self.cfg.family == "encdec":
+            return ed.encdec_prefill(params, self.cfg, self.part, batch, caches,
+                                     mesh=mesh, rules=rules)
         return tf.lm_prefill(params, self.cfg, self.part, batch["tokens"], caches,
                              patches=batch.get("patches"), mesh=mesh, rules=rules)
 
     def decode_step(self, params, tokens, positions, caches, mesh=None, rules=None):
         """tokens: (B, 1); positions: (B,).  Updates the caches in place;
         returns (logits (B, V), caches)."""
+        if self.cfg.family == "encdec":
+            return ed.encdec_decode_step(params, self.cfg, self.part, tokens, positions,
+                                         caches, mesh=mesh, rules=rules)
         return tf.lm_decode_step(params, self.cfg, self.part, tokens, positions, caches,
                                  mesh=mesh, rules=rules)
 
     # ---------------- dry-run inputs ---------------- #
 
-    def input_specs(self, shape):
-        _needs_item("input_specs (the dry run)", "11")
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """``meta``-tensor stand-ins for every model input of the step kind
+        (the reference's ``ShapeDtypeStruct`` tree; the modality frontend is
+        a stub: precomputed frame or patch embeddings are inputs)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def spec(dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        def stub(n):  # (B, n, frontend_dim) precomputed embeddings
+            return spec((B, n, cfg.frontend_dim), torch.bfloat16)
+
+        if shape.kind == "decode":  # one new token against a cache of S
+            return {"tokens": spec((B, 1)), "positions": spec((B,)),
+                    "caches": self.abstract_cache(B, S)}
+        if cfg.family == "encdec":
+            batch = {"frames": stub(S), "tokens": spec((B, S // cfg.dec_ratio))}
+        elif cfg.modality == "vision":
+            batch = {"tokens": spec((B, S - cfg.n_prefix_tokens)),
+                     "patches": stub(cfg.n_prefix_tokens)}
+        else:
+            batch = {"tokens": spec((B, S))}
+        if shape.kind == "train":
+            batch["labels"] = spec(tuple(batch["tokens"].shape))
+            return {"batch": batch}
+        return {"batch": batch, "caches": self.abstract_cache(B, S)}
 
     def batch_shardings(self, mesh, tree, rules=None):
-        _needs_item("batch_shardings", "9b")
+        cm._needs_mesh("batch_shardings")
 
 
 def build(bundle: ArchBundle, device=None) -> Model:
     """The served model of ``bundle`` on ``device`` (None: the card)."""
     cfg, part = bundle.model, bundle.partition
-    if cfg.family == "encdec":
-        _needs_item("the encoder-decoder family", "11")
-    for mixer, ffn in cfg.pattern:
-        if mixer not in tf.SERVED_MIXERS:
-            _needs_item(f"the {mixer!r} mixer ({cfg.name})", "11")
-        if ffn not in tf.SERVED_FFNS:
-            _needs_item(f"the {ffn!r} ffn ({cfg.name})", "11")
+    specs = ed.encdec_specs(cfg, part) if cfg.family == "encdec" else tf.lm_specs(cfg, part)
     dev = resolve_device("cuda" if device is None else device)
-    return Model(cfg=cfg, part=part, param_specs=tf.lm_specs(cfg, part), device=dev)
+    return Model(cfg=cfg, part=part, param_specs=specs, device=dev)

@@ -64,13 +64,6 @@ RECURRENT = {
     "mlstm": (xlstm_mod.mlstm_specs, xlstm_mod.mlstm_apply, xlstm_mod.mlstm_decode),
     "slstm": (xlstm_mod.slstm_specs, xlstm_mod.slstm_apply, xlstm_mod.slstm_decode),
 }
-SERVED_MIXERS = ATTN_KINDS + ("mla",) + tuple(RECURRENT)
-SERVED_FFNS = ("mlp", "moe", "none")
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, item 11)")
 
 
 # --------------------------------------------------------------------------- #
@@ -85,7 +78,7 @@ def _mixer_specs(cfg, mixer: str, stack: int):
         return mla_mod.mla_specs(cfg, stack)
     if mixer in RECURRENT:
         return RECURRENT[mixer][0](cfg, stack)
-    _not_ported(f"the {mixer!r} mixer")
+    raise ValueError(f"unknown mixer {mixer}")
 
 
 def _ffn_specs(cfg, ffn: str, stack: int):
@@ -95,10 +88,12 @@ def _ffn_specs(cfg, ffn: str, stack: int):
         return moe_mod.moe_specs(cfg, stack)
     if ffn == "none":
         return None
-    _not_ported(f"the {ffn!r} ffn")
+    raise ValueError(f"unknown ffn {ffn}")
 
 
-def block_specs(cfg, mixer: str, ffn: str, stack: int):
+def block_specs(cfg, mixer: str, ffn: str, stack: int, cross: bool = False):
+    """One block position's specs; ``cross`` adds a cross-attention
+    (``ln_cross``, ``cross``) after the mixer."""
     style = "rms"
     p: Dict[str, Any] = {
         "ln1": cm.norm_spec(cfg.d_model, stack=stack, style=style),
@@ -106,6 +101,9 @@ def block_specs(cfg, mixer: str, ffn: str, stack: int):
     }
     if cfg.norm_style == "sandwich":
         p["ln1_post"] = cm.norm_spec(cfg.d_model, stack=stack, style=style)
+    if cross:
+        p["ln_cross"] = cm.norm_spec(cfg.d_model, stack=stack, style=style)
+        p["cross"] = attention_specs(cfg, stack)
     f = _ffn_specs(cfg, ffn, stack)
     if f is not None:
         p["ln2"] = cm.norm_spec(cfg.d_model, stack=stack, style=style)
@@ -186,7 +184,7 @@ def _mixer_cache_specs(cfg, part, mixer: str, B: int, S: int, stack: int):
     if mixer == "slstm":
         st = {k: PS((B, cfg.d_model), ("batch", "dinner"), f32) for k in ("c", "n", "h", "m")}
         return {"state": st}
-    _not_ported(f"the {mixer!r} mixer's cache")
+    raise ValueError(mixer)
 
 
 def cache_specs(cfg, part, B: int, S: int) -> Dict[str, Any]:

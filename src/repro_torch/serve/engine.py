@@ -11,6 +11,12 @@ generator on the model's device seeded from ``seed`` (Gumbel-max, as
 ``jax.random.categorical`` samples): the sampled tokens are not the
 reference's for the same seed; greedy tokens are.  ``mesh=`` (a sharded
 engine) waits for ROADMAP item 9b.
+
+The engine prefills from tokens alone, so it refuses the encoder-decoder
+family (whose prefill needs the encoder's ``frames``) with ``ValueError``
+before any allocation; that family is served through ``Model.prefill``
+and ``Model.decode_step``.  (The reference's engine fails there with
+``KeyError: 'frames'``.)
 """
 from __future__ import annotations
 
@@ -34,6 +40,11 @@ class ServeEngine:
             raise NotImplementedError(
                 "ServeEngine(mesh=...) is not ported to repro_torch yet "
                 "(ROADMAP.md queue 1, item 9b)")
+        if self.model.cfg.family == "encdec":
+            raise ValueError(
+                f"ServeEngine prefills from tokens alone; {self.model.cfg.name} (encoder-"
+                "decoder) needs the encoder's frames: serve it through Model.prefill and "
+                "Model.decode_step")
 
     def _sample(self, logits, gen: torch.Generator):
         if self.temperature <= 0.0:

@@ -6,8 +6,8 @@ backend) against the same decodes on the CPU; the scheduler's one
 synchronizing call a tick; the analysis layer's hot-path catalog and
 sanitizer on the card; the paper's unfused ACS step; the LM's serving and
 training paths (a train step against its CPU run, its one host sync,
-crash -> restore -> resume, the launchers), with the MoE, MLA and
-recurrent (Mamba, xLSTM) families.
+crash -> restore -> resume, the launchers), with the MoE, MLA,
+recurrent (Mamba, xLSTM) and encoder-decoder (seamless-m4t) families.
 
 Every test here is marked ``gpu`` and takes the ``card`` fixture, which
 skips inside the test when no CUDA device is present (so every worker
@@ -1655,3 +1655,115 @@ def test_recurrent_decode_step_replays_in_a_cuda_graph(card, arch):
         torch.testing.assert_close(g, w, **LM_PREFILL_TOL)
     for g, w in zip(tree_leaves(caches), tree_leaves(eager)):
         torch.testing.assert_close(g.float(), w.float(), **LM_PREFILL_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# the encoder-decoder family (seamless-m4t)                                    #
+# --------------------------------------------------------------------------- #
+
+LM_ENCDEC = "seamless_m4t_large_v2"
+
+
+def _encdec_batch(cfg, gen, S_enc, S_dec, device="cpu"):
+    """bf16 frames and decoder tokens of the smoke config, from ``gen``."""
+    frames = torch.randn((2, S_enc, cfg.frontend_dim), generator=gen).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (2, S_dec), generator=gen)
+    return {"frames": frames.to(device), "tokens": tokens.to(device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_len", [16, 32])
+def test_encdec_on_card_matches_cpu(card, cache_len):
+    """seamless's smoke model (float32 compute): prefill logits and both
+    caches, then three decode steps' logits, on the card against the CPU,
+    with a cross cache as long as the 16 frames and one twice as long (the
+    decode attends over the zero rows too, on both devices)."""
+    from repro_torch.train.tree import tree_leaves
+
+    cpu_model, params, card_model, card_params = _lm_models(LM_ENCDEC, card)
+    cfg = cpu_model.cfg
+    gen = torch.Generator().manual_seed(1)
+    batch = _encdec_batch(cfg, gen, 16, 8)
+    steps = torch.randint(0, cfg.vocab, (2, 3), generator=gen)
+    with torch.inference_mode():
+        c_cpu, c_card = cpu_model.init_cache(2, cache_len), card_model.init_cache(2, cache_len)
+        want, c_cpu = cpu_model.prefill(params, batch, c_cpu)
+        got, c_card = card_model.prefill(card_params, {k: v.to(card) for k, v in batch.items()},
+                                         c_card)
+        torch.testing.assert_close(got.cpu(), want, **LM_PREFILL_TOL)
+        for g, w in zip(tree_leaves(c_card), tree_leaves(c_cpu)):
+            torch.testing.assert_close(g.cpu().float(), w.float(), **LM_DECODE_TOL)
+        for i in range(3):
+            pos = torch.full((2,), 8 + i, dtype=torch.int32)
+            want, c_cpu = cpu_model.decode_step(params, steps[:, i:i + 1], pos, c_cpu)
+            got, c_card = card_model.decode_step(card_params, steps[:, i:i + 1].to(card),
+                                                 pos.to(card), c_card)
+            torch.testing.assert_close(got.cpu(), want, **LM_DECODE_TOL)
+
+
+@pytest.mark.gpu
+def test_encdec_train_loss_and_grads_on_card_match_cpu(card):
+    """``train_loss`` of seamless's smoke model (float32 compute, remat
+    "full") and its gradients on the card against the CPU: the loss by
+    LM_TRAIN_LOSS_RTOL, each gradient leaf by LM_TRAIN_LEAF_TOL (relative
+    L2)."""
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cpu_params = _smoke_trainer("cpu", arch=LM_ENCDEC).init(torch.Generator().manual_seed(0))
+    batch = _encdec_batch(_smoke_trainer("cpu", arch=LM_ENCDEC).cfg,
+                          torch.Generator().manual_seed(2), 32, 8)
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    runs = {}
+    for dev in ("cpu", card):
+        model = _smoke_trainer(dev, arch=LM_ENCDEC, remat="full")
+        params = tree_map(lambda p: p.detach().to(dev).requires_grad_(), cpu_params)
+        loss, _ = model.train_loss(params, {k: v.to(dev) for k, v in batch.items()})
+        runs[torch.device(dev).type] = (loss.item(),
+                                        torch.autograd.grad(loss, tree_leaves(params)))
+    (got, got_g), (want, want_g) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(got, want, rtol=LM_TRAIN_LOSS_RTOL)
+    assert all(g.device.type == "cuda" for g in got_g)
+    errs = [_rel_l2(g, w) for g, w in zip(got_g, want_g)]
+    assert max(errs) < LM_TRAIN_LEAF_TOL, errs
+
+
+@pytest.mark.gpu
+def test_encdec_decode_loop_makes_no_host_sync(card):
+    """Greedy decoding of seamless's smoke model (bf16) through
+    ``Model.prefill`` and ``decode_step``, the tokens fed back on the card:
+    the loop of decode steps synchronizes nowhere
+    (``set_sync_debug_mode("warn")``) and two runs are bit-equal."""
+    import warnings
+
+    _, _, model, params = _lm_models(LM_ENCDEC, card, "bfloat16")
+    batch = _encdec_batch(model.cfg, torch.Generator().manual_seed(3), 16, 8, card)
+
+    def run(syncs=None):
+        with torch.inference_mode():
+            caches = model.init_cache(2, 32)
+            logits, caches = model.prefill(params, batch, caches)
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            pos = torch.full((2,), 8, dtype=torch.int32, device=card)
+            out = [tok]
+            torch.cuda.synchronize()
+            if syncs is not None:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    for _ in range(12):
+                        logits, caches = model.decode_step(params, tok, pos, caches)
+                        tok = logits.argmax(-1).to(torch.int32)[:, None]
+                        out.append(tok)
+                        pos = pos + 1
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if syncs is not None:
+                syncs.extend(str(w.message) for w in caught if "synchronizing" in str(w.message))
+            return torch.cat(out, dim=1)
+
+    run()  # warm
+    syncs = []
+    first = run(syncs)
+    assert syncs == [], syncs
+    assert torch.equal(first, run())

@@ -62,6 +62,7 @@ from repro_torch.convert import lm_params_from_arrays
 from repro_torch.decode import DecodeContext, DecodeRequest, decode
 from repro_torch.models import build as p_build
 from repro_torch.serve import ServeEngine, bits_to_tokens, cache_bytes, tokens_to_bits
+from repro_torch.train.tree import tree_leaves
 
 torch.set_num_threads(1)
 
@@ -74,13 +75,12 @@ BF16 = dict(rtol=5e-2, atol=1e-1)
 
 SERVED = ("qwen2_5_3b", "qwen3_4b", "qwen1_5_110b", "gemma3_12b", "internvl2_26b",
           "qwen3_moe_30b_a3b", "deepseek_v2_lite_16b")
-REFUSED = ("seamless_m4t_large_v2",)
-#: the families of ROADMAP item 11: the four built since the MoE, MLA and
-#: recurrent ports (their dry-run inputs still wait; jamba and xlstm are held
-#: against the reference in test_torch_recurrent.py), then the one still
-#: refused
+#: the families of ROADMAP item 11, all built now: the MoE, MLA and
+#: recurrent ones (jamba and xlstm are held against the reference in
+#: test_torch_recurrent.py) and the encoder-decoder seamless
+#: (test_torch_encdec.py)
 ITEM_11 = ("qwen3_moe_30b_a3b", "deepseek_v2_lite_16b", "jamba_v0_1_52b",
-           "xlstm_350m") + REFUSED
+           "xlstm_350m", "seamless_m4t_large_v2")
 B, S = 2, 16  # gemma3's smoke window is 16: its ring wraps from the first decode step
 NEW = 12  # tokens generated; the caches hold S + NEW
 
@@ -452,18 +452,24 @@ def test_cache_bytes_equal_reference(arch):
         assert cache_bytes(pm, Bc, Sc) == r_cache_bytes(rm, Bc, Sc) > 0
 
 
+def _input_leaves(port_tree, ref_tree):
+    """(shape, dtype name) of each leaf of a port tree of ``meta`` tensors
+    and of the reference's ``ShapeDtypeStruct`` tree, in pytree order."""
+    got = tree_leaves(port_tree)
+    assert all(t.device.type == "meta" for t in got)
+    return ([(tuple(t.shape), str(t.dtype).replace("torch.", "")) for t in got],
+            [(tuple(t.shape), str(t.dtype)) for t in jax.tree_util.tree_leaves(ref_tree)])
+
+
 @pytest.mark.parametrize("arch", ITEM_11)
 def test_refused_families_raise_naming_item_11(arch):
-    """What of item 11 still waits for each of its families: seamless is
-    refused before any allocation; the MoE, MLA and recurrent families
-    build, and their dry-run inputs (``input_specs``) raise."""
-    if arch in REFUSED:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            p_build(PCB.get_smoke_arch(arch), device="cpu")
-        return
-    model = p_build(PCB.get_smoke_arch(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.input_specs(PCB.SHAPES["decode_32k"])
+    """Item 11's families, once refused, all build (seamless since the
+    encoder-decoder port), and their dry-run inputs (``input_specs``, no
+    allocation) equal the reference's for the smoke config's prefill."""
+    rm, pm = r_build(RCB.get_smoke_arch(arch)), p_build(PCB.get_smoke_arch(arch), device="cpu")
+    got, want = _input_leaves(pm.input_specs(PCB.SHAPES["prefill_32k"]),
+                              rm.input_specs(RCB.SHAPES["prefill_32k"]))
+    assert got == want and len(got) > 1
 
 
 MESH_CALLS = {
@@ -486,12 +492,13 @@ def test_mesh_raises_naming_item_9b(call):
 
 
 def test_training_waits_for_item_11():
-    """Training is ported (``tests/test_torch_train.py``); of item 11's LM
-    pieces the dry run's ``input_specs`` still waits, and training on a mesh
-    waits for item 9b."""
-    _, _, _, _, pm, pp = _pair("qwen2_5_3b", "float32")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pm.input_specs(None)
+    """Training is ported (``tests/test_torch_train.py``) and so are item
+    11's dry-run inputs (``input_specs`` of a train step equals the
+    reference's); training on a mesh waits for item 9b."""
+    rm, _, _, _, pm, pp = _pair("qwen2_5_3b", "float32")
+    got, want = _input_leaves(pm.input_specs(PCB.SHAPES["train_4k"]),
+                              rm.input_specs(RCB.SHAPES["train_4k"]))
+    assert got == want == [((256, 4096), "int32")] * 2
     for call in (lambda: pm.train_loss(pp, {}, mesh=object()),
                  lambda: PT.softmax_xent(None, None, mesh=object())):
         with pytest.raises(NotImplementedError, match="item 9b"):

@@ -280,9 +280,11 @@ def _shape_dtype(leaf):
     return tuple(leaf.shape), str(leaf.dtype).replace("torch.", "")
 
 
-#: every configuration ``build`` accepts (the LM configs but seamless)
+#: every configuration ``build`` accepts (all ten, seamless since the
+#: encoder-decoder port)
 BUILDABLE = ("deepseek_v2_lite_16b", "gemma3_12b", "internvl2_26b", "jamba_v0_1_52b",
-             "qwen1_5_110b", "qwen2_5_3b", "qwen3_4b", "qwen3_moe_30b_a3b", "xlstm_350m")
+             "qwen1_5_110b", "qwen2_5_3b", "qwen3_4b", "qwen3_moe_30b_a3b",
+             "seamless_m4t_large_v2", "xlstm_350m")
 
 
 def test_every_buildable_config_is_the_served_set():
