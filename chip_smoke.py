@@ -62,6 +62,27 @@ Phases (any failure raises and exits non-zero):
                on their own).  Counters prove the windowed scan, the
                (min,+) product, the carried unpacked scan and the packed
                traceback ran and no plain version did;
+ 8b. seqparallel — the sequence-parallel route, picked by the planner from a
+               mesh alone (``decode(DecodeRequest(...), ctx=DecodeContext(
+               mesh=...))``): (a) the NASA frame of phase 3 over a (1, 2)
+               (data, model) mesh of two cells on cuda:0 (2 shards of 515
+               steps), bits (and the hard metric) equal to phase 3's
+               planned decode, the soft metric within rtol 1e-5, bits and
+               metrics equal to ``parallel`` at chunk 515 exactly; (b) the
+               long stream of phase 8 over 1 and 6 ``model`` shards on
+               cuda:0, bits and metric equal to its planned decode; (c) the
+               windowed scan, the (min,+) product, the carried re-scan and
+               the packed traceback launched, no plain call; then each of
+               (a)'s and (b)'s decodes again with ``capture=`` (equal to the
+               path's), every launch in it held exactly against its plain
+               version on the card on the same operands (#4 each shard's
+               matrices, #11 each fold step, #7/#3 each re-scan, #2 the
+               walk); (d) the card
+               against a CPU mesh (the plain versions) at K=3 and K=7, B=4:
+               T=1030 over 2 shards (the unpacked re-scan), T=1152 over 2
+               and 6 (the packed one), bits and metrics equal; (e) CUDA-event
+               times (median of 5 rounds) of (a) and (b) beside
+               ``parallel`` at the same chunk and the planned decode;
   9. parity  — each kernel against its plain PyTorch version on the card,
                exactly (words, selects, metrics, bits, entry states, alphas,
                LLRs, (min,+) products), at K=3, 7, 11 (13 for the short-block
@@ -1817,6 +1838,233 @@ def phase_parallel(gen, tiled):
           f"bits and metric equal the planned ({planned.plan.backend}, P="
           f"{planned.plan.ctx.tiles}) decode's, BER={ber!r} (planned {planned_ber!r})")
     return launches, dict(out, spec_b=spec_b, rx_b=rx_b)
+
+
+#: phase 8b: the NASA frame over 2 shards of one card (515 steps a shard),
+#: the long stream over 1 and 6 (65538 and 10923 steps a shard)
+SEQ_NASA_SHARDS, SEQ_LONG_SHARDS = 2, (1, 6)
+#: (K, T, shards) of the card-against-CPU cases, B=4: 515 steps a shard
+#: re-scan into selects (#7), 576 and 192 into whole packed words (#3)
+SEQ_CPU_CASES = ((3, 1030, 2), (3, 1152, 2), (3, 1152, 6),
+                 (7, 1030, 2), (7, 1152, 2), (7, 1152, 6))
+SEQ_KERNELS = ("viterbi_scan_packed_window", "minplus_matmul", "traceback_packed")
+
+
+def _seq_check(label, res, n):
+    if res.plan.backend != "seqparallel" or res.diagnostics != {
+            "backend": "seqparallel", "mesh_axis": "model", "mesh_size": n}:
+        _fail(f"seqparallel {label}: planned {res.plan.backend!r}, {res.diagnostics}")
+
+
+def _same_decode(label, got, want, metric_rtol=0.0):
+    """Fail unless two decodes give the same bits, and metrics equal (or
+    within ``metric_rtol``); returns the largest metric difference."""
+    import torch
+
+    if not torch.equal(got.bits, want.bits.to(got.bits.device)):
+        _fail(f"{label}: {int((got.bits.cpu() != want.bits.cpu()).sum())} bits differ")
+    a, b = got.path_metric.cpu(), want.path_metric.cpu()
+    ok = torch.equal(a, b) if metric_rtol == 0.0 else torch.allclose(a, b, rtol=metric_rtol,
+                                                                     atol=0)
+    if not ok:
+        _fail(f"{label}: metrics differ by up to {float((a - b).abs().max())!r}")
+    return float((a - b).abs().max())
+
+
+def _seq_against_plain(label, spec, rx, mesh, res):
+    """Each kernel of one ``seqparallel`` decode against its plain version
+    on the card, on exactly the operands the decode gave it: a decode with
+    ``capture=`` that must equal the path's decode ``res``, then #4 on every
+    shard's matrix pass, #11 at every step of every fold, #7 or #3 on every
+    shard's re-scan and #2 on the stitched words, each required equal.  The
+    plain versions are lane-parallel, so the shards' lanes run in one call.
+    Returns {kernel: the launches held}."""
+    import torch
+
+    from repro_torch.core.trellis import NEG_UNREACHABLE
+    from repro_torch.kernels import minplus, survivors, viterbi_scan
+    from repro_torch.parallel.collectives import viterbi_decode_seqparallel
+
+    cap = {}
+    bits, metric = viterbi_decode_seqparallel(spec, spec.branch_metrics(rx), mesh, capture=cap)
+    if not (torch.equal(bits, res.bits) and torch.equal(metric, res.path_metric)):
+        _fail(f"seqparallel {label}: the captured decode differs from the path's")
+
+    def same(what, got, want):
+        if not torch.equal(got, want):
+            _fail(f"seqparallel {label}: {what} differs from its plain version on the same "
+                  f"operands ({int((got != want).sum())} of {got.numel()} elements)")
+
+    def lanes(tensors, dim=0):
+        home = tensors[0].device
+        return torch.cat([t.to(home) for t in tensors], dim=dim)
+
+    held = {}
+    code, *_ = cap["pass1"][0]
+    # #4: (code, pm0, data, b0, b1, rb, lo, hi) a shard; the lane rows join
+    cols = list(zip(*cap["pass1"]))
+    want, _ = viterbi_scan.viterbi_scan_packed_window_plain(
+        code, lanes(cols[1]), lanes(cols[2]), *(c[0] for c in cols[3:6]), lanes(cols[6]),
+        lanes(cols[7]))
+    same("the shards' transfer matrices (viterbi_scan_packed_window)",
+         lanes([m.reshape(-1, code.n_states) for m in cap["mats"]]), want)
+    held["viterbi_scan_packed_window"] = len(cols[1])
+    del cols, want
+    # #11: every step of every fold, from the kernel's own previous step
+    held["minplus_matmul"] = 0
+    for dev, stack in cap["gathered"].items():
+        excl, total = cap["folds"][dev]
+        for k in range(len(stack)):
+            out = excl[k + 1] if k + 1 < len(stack) else total
+            same(f"fold step {k} on {dev} (minplus_matmul)", out,
+                 minplus.minplus_matmul_plain(excl[k], stack[k], NEG_UNREACHABLE))
+            held["minplus_matmul"] += 1
+    # #3 (code, entry, chunk, b0, b1, rb) or #7 (code, entry, chunk) a shard
+    cols = list(zip(*cap["rescan"]))
+    if len(cols) == 6:
+        name, plain = "viterbi_scan_packed_carry", viterbi_scan.viterbi_scan_packed_carry_plain
+    else:
+        name, plain = "viterbi_scan_carry", viterbi_scan.viterbi_scan_carry_plain
+    _, want = plain(code, lanes(cols[1]), lanes(cols[2]), *(c[0] for c in cols[3:]))
+    same(f"the shards' re-scans ({name})", lanes(cap["pieces"], dim=1), want)
+    held[name] = len(cols[1])
+    del cols, want
+    # #2 on the stitched words
+    same("the walk (traceback_packed)", bits, survivors.traceback_packed_plain(*cap["walk"]))
+    held["traceback_packed"] = 1
+    del cap
+    return held
+
+
+def phase_seqparallel(tiled, parallel, smi):
+    """Phase 8b: ``seqparallel`` picked by the planner from a mesh, through
+    ``decode(DecodeRequest(...), ctx=DecodeContext(mesh=...))``."""
+    import torch
+
+    from repro_torch.core import ConvCode
+    from repro_torch.decode import CodecSpec, DecodeContext, DecodeRequest, decode
+    from repro_torch.kernels import launch_counts, plain_counts, reset_counts
+    from repro_torch.launch.mesh import make_mesh
+
+    card = torch.device("cuda", 0)
+
+    def mesh(n, axes=("model",)):
+        return make_mesh((1,) * (len(axes) - 1) + (n,), axes, devices=[card] * n)
+
+    nasa_ctx = DecodeContext(mesh=mesh(SEQ_NASA_SHARDS, ("data", "model")))
+    long_rq = DecodeRequest(parallel["spec_b"], received=parallel["rx_b"])
+    long_ctx = {n: DecodeContext(mesh=mesh(n)) for n in SEQ_LONG_SHARDS}
+    nasa_rq = {name: DecodeRequest(tiled[name]["spec"], received=tiled[name]["rx"])
+               for name in ("hard", "soft")}
+
+    # (a), (b) and (c): the main path between a zeroing and a read
+    torch.cuda.synchronize()
+    reset_counts()
+    results = {name: decode(rq, ctx=nasa_ctx) for name, rq in nasa_rq.items()}
+    results.update({f"long_{n}": decode(long_rq, ctx=ctx) for n, ctx in long_ctx.items()})
+    torch.cuda.synchronize()
+    launches, plain = _counts()
+    print(f"[seqparallel] launches {launches} plain calls {plain}")
+    rescans = launches.get("viterbi_scan_carry", 0) + launches.get("viterbi_scan_packed_carry", 0)
+    if any(launches.get(k, 0) < 1 for k in SEQ_KERNELS) or not rescans or any(plain.values()):
+        _fail(f"seqparallel: launches {launches}, plain calls {plain}")
+
+    out = {"launches": launches}
+    C = tiled["hard"]["spec"].n_steps(NASA_INFO) // SEQ_NASA_SHARDS
+    for name in ("hard", "soft"):
+        res = results[name]
+        _seq_check(f"NASA {name}", res, SEQ_NASA_SHARDS)
+        if not torch.isfinite(res.path_metric).all():
+            _fail(f"seqparallel NASA {name}: non-finite metrics")
+        # phase 3's planned decode; soft: bm tables vs in-kernel metrics
+        # round the sums differently (phase 8's tolerance)
+        d_planned = _same_decode(f"seqparallel NASA {name} vs the planned decode", res,
+                                 tiled[name]["planned"], 0.0 if name == "hard" else 1e-5)
+        # the same transfer matrices; with two shards the fold and the tree
+        # coincide, so ``parallel`` at chunk T/2 is equal exactly
+        par = decode(nasa_rq[name], backend="parallel", ctx=DecodeContext(chunk=C))
+        _same_decode(f"seqparallel NASA {name} vs parallel chunk={C}", res, par)
+        ber = _ber(res.info_bits, tiled[name]["bits"])
+        out[f"nasa_{name}"] = dict(ber=ber, max_metric_diff_planned=d_planned)
+        print(f"[seqparallel] NASA frame {name}: B={NASA_B} T={C * SEQ_NASA_SHARDS} over "
+              f"{SEQ_NASA_SHARDS} shards of {C} steps on {card}: bits equal the planned "
+              f"({tiled[name]['planned'].plan.backend}) decode's (max |metric diff| "
+              f"{d_planned!r}) and parallel chunk={C}'s exactly, BER={ber!r}")
+        del par
+    planned = parallel["long_planned"]
+    T_long = parallel["spec_b"].n_steps(LONG_INFO)
+    for n in SEQ_LONG_SHARDS:
+        res = results[f"long_{n}"]
+        _seq_check(f"long stream over {n}", res, n)
+        if not (torch.equal(res.bits, planned["bits"])
+                and torch.equal(res.path_metric, planned["metric"])):
+            _fail(f"seqparallel long stream over {n} shards: bits or metric differ from the "
+                  "planned decode")
+        print(f"[seqparallel] long stream K=3 T={T_long} over {n} shard(s) of {T_long // n} "
+              f"steps: bits and metric equal the planned (tiled, P={planned['tiles']}) decode's")
+
+    # each kernel against its plain version on exactly the operands the
+    # path gives it (after the counters were read: not the path's launches)
+    t0 = time.perf_counter()
+    plain_held = {}
+    for label, rq, ctx, key in (
+            [(f"NASA {name}", rq, nasa_ctx, name) for name, rq in nasa_rq.items()]
+            + [(f"long stream over {n}", long_rq, long_ctx[n], f"long_{n}")
+               for n in SEQ_LONG_SHARDS]):
+        plain_held[label] = _seq_against_plain(label, rq.spec, rq.received, ctx.mesh,
+                                               results[key])
+        print(f"[seqparallel] {label}: every launch equals its plain version on the card on "
+              f"the same operands, exactly: {plain_held[label]}")
+    out["plain_held"] = plain_held
+    print(f"[seqparallel] the plain checks took {time.perf_counter() - t0!r} s")
+    del results
+
+    # (d) the card against a CPU mesh (the plain versions), B=4
+    cpu_gen = torch.Generator().manual_seed(8)
+    for K, T, n in SEQ_CPU_CASES:
+        code = ConvCode(K, (0b111, 0b101) if K == 3 else (0o171, 0o133))
+        spec = CodecSpec(code=code, metric="hard" if K == 3 else "soft")
+        info = torch.randint(0, 2, (4, T - spec.n_flush), generator=cpu_gen)
+        rx = (spec.channel(cpu_gen, spec.encode(info), flip_prob=0.03) if K == 3 else
+              spec.channel(cpu_gen, spec.encode(info), snr_db=2.0))
+        bm = spec.branch_metrics(rx)  # one table for both: the kernels against the plain
+        cpu_mesh = make_mesh((n,), ("model",), devices=["cpu"] * n)
+        reset_counts()
+        want = decode(DecodeRequest(spec, bm_tables=bm), ctx=DecodeContext(device="cpu",
+                                                                           mesh=cpu_mesh))
+        cpu_plain = dict(plain_counts)
+        reset_counts()
+        got = decode(DecodeRequest(spec, bm_tables=bm.to(card)), ctx=DecodeContext(mesh=mesh(n)))
+        torch.cuda.synchronize()
+        rescan = "viterbi_scan_packed_carry" if (T // n) % 32 == 0 else "viterbi_scan_carry"
+        if (launch_counts[rescan] != n or any(plain_counts.values()) or not cpu_plain.get(rescan)
+                or any(launch_counts.get(k, 0) < 1 for k in SEQ_KERNELS)):
+            _fail(f"seqparallel K={K} T={T} n={n}: card launches {dict(launch_counts)}, "
+                  f"plain {dict(plain_counts)}; CPU plain {cpu_plain}")
+        _seq_check(f"K={K} T={T} n={n}", got, n)
+        _same_decode(f"seqparallel K={K} T={T} n={n}, card vs CPU mesh", got, want)
+        print(f"[seqparallel] K={K} {spec.metric} B=4 T={T} over {n} shards of {T // n} steps "
+              f"({rescan}): card equals the CPU mesh (bits, metrics)")
+
+    # (e) times: CUDA events, median of 5 rounds, beside parallel at the
+    # same chunk and the planned decode
+    times = {}
+    cases = [(f"nasa_{name}", rq, nasa_ctx, C) for name, rq in nasa_rq.items()]
+    cases += [(f"long_{n}", long_rq, ctx, T_long // n) for n, ctx in long_ctx.items()]
+    for label, rq, ctx, chunk in cases:
+        row = {}
+        for route, fn in (
+                ("seqparallel", lambda rq=rq, ctx=ctx: decode(rq, ctx=ctx)),
+                (f"parallel_chunk_{chunk}", lambda rq=rq, c=chunk: decode(
+                    rq, backend="parallel", ctx=DecodeContext(chunk=c))),
+                ("planned", lambda rq=rq: decode(rq))):
+            rounds = _event_ms(fn, 1, rounds=5, warmup=1)
+            row[route] = dict(ms=statistics.median(rounds), rounds=rounds)
+            print(f"[timing] seqparallel phase {label} {route}: rounds {rounds} median "
+                  f"{statistics.median(rounds)!r} ms ({smi})")
+        times[label] = row
+    out["times"] = times
+    return out
 
 
 def phase_timing_walk_long(parallel):
@@ -3670,7 +3918,8 @@ def main(argv=None) -> int:
     texpand_launches, texpand_tables = phase_texpand(inputs, results)
     siso_launches, siso = phase_siso(gen)
     parallel_launches, parallel = phase_parallel(gen, tiled)
-    mark("fused, texpand, siso, parallel")
+    seqparallel = phase_seqparallel(tiled, parallel, smi)
+    mark("fused, texpand, siso, parallel, seqparallel")
     feats, weights, errs = phase_parity(gen, inputs["hard"], hard_spec)
     phase_parity_seeded(gen)
     phase_parity_wide(gen)
@@ -3730,7 +3979,7 @@ def main(argv=None) -> int:
     e2e = {"decode_short": e2e, "tiled_nasa_frame": tiled_e2e, "stream_64k": stream["e2e"],
            "scheduler_64k": sched["e2e"],
            "fused_texpand_siso": siso_e2e, "parallel": parallel_e2e,
-           "parallel_launches": parallel_launches,
+           "parallel_launches": parallel_launches, "seqparallel": seqparallel,
            "ber": {"tiled_hard": tiled["hard"]["ber"], "tiled_soft": tiled["soft"]["ber"],
                    "stream": stream["ber"],
                    "siso": {k: siso[k]["ber"] for k in ("bcjr", "turbo", "lte6144")},

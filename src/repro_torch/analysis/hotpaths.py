@@ -2,18 +2,20 @@
 sanitizer check, one entry per registered decoder.
 
   * the block backends (sequential / parallel / fused / fused_packed /
-    tiled / bcjr) run their registry entry on a small seeded workload at
-    the reference's catalog shapes (B=2, T=64; ``tiled`` at T=128, with 4
-    tiles pinned so its windowed kernels run; ``bcjr`` at N=64);
+    tiled / seqparallel / bcjr) run their registry entry on a small seeded
+    workload at the reference's catalog shapes (B=2, T=64; ``tiled`` at
+    T=128, with 4 tiles pinned so its windowed kernels run; ``seqparallel``
+    on a unit ``data`` mesh of the device, as the reference's entry;
+    ``bcjr`` at N=64);
   * ``streaming`` covers the stream tick: one steady ``StreamScheduler``
     tick (``fused_packed`` on raw symbols, chunk 32), the loop behind
     sessions and the scheduler;
   * ``turbo``'s Python loop carries host-side early-exit bookkeeping, so its
     entry is one turbo iteration (two SISO passes + extrinsic exchange),
     where its device time goes;
-  * ``seqparallel`` and ``sharded_stream`` are not ported (ROADMAP item
-    9b): their entry checks that the registry entry raises
-    ``NotImplementedError`` naming 9b — kept, not silently dropped.
+  * ``sharded_stream`` is not ported (ROADMAP item 9b): its entry checks
+    that the registry entry raises ``NotImplementedError`` naming 9b —
+    kept, not silently dropped.
 
 Each contract states the path's host-sync bound with the lines that sync
 (found by reading the code: the blocking copies and scalar reads one call
@@ -96,6 +98,19 @@ def _block_builder(backend: str, B: int = 2, T: int = 64, **ctx_kw) -> Builder:
             return res.bits, res.path_metric
 
         return fn, (bm,)
+
+    return build
+
+
+def _seqparallel_builder(B: int = 2, T: int = 64) -> Builder:
+    """The registry entry over a unit ``data`` mesh of the device, sharded
+    along ``data`` (the reference's catalog entry): one shard of T steps."""
+
+    def build(device):
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh((1,), ("data",), devices=[device])
+        return _block_builder("seqparallel", B, T, mesh=mesh, mesh_axis="data")(device)
 
     return build
 
@@ -223,9 +238,15 @@ def hot_path_catalog() -> Tuple[HotPath, ...]:
         ),
         HotPath(
             name="seqparallel", backend="seqparallel",
-            contract=_contract("seqparallel"),
-            build=_not_ported_builder("seqparallel"), not_ported="9b",
-            summary="sequence-parallel decode across a mesh (not ported)",
+            # no host sync at any shard count: each shard is one whole
+            # chunk, so its window bounds are filled on the device; a shard
+            # of 64 steps re-scans into whole packed words
+            contract=_contract(
+                "seqparallel", **block,
+                kernels=("viterbi_scan_packed_window", "minplus_matmul",
+                         "viterbi_scan_packed_carry", "traceback_packed")),
+            build=_seqparallel_builder(),
+            summary="sequence-parallel decode over a unit data mesh",
         ),
         HotPath(
             name="stream_tick", backend="streaming",

@@ -63,9 +63,6 @@ RULES: Dict[str, str] = {
 #: registry names exempt from RPR004's card-test leg, each with the reason
 #: (the parity-grid leg still applies to them)
 CARD_TEST_EXEMPT: Dict[str, str] = {
-    "seqparallel": "mesh-required and not ported: its entry raises "
-                   "NotImplementedError naming ROADMAP item 9b; the CPU grid "
-                   "and the hot-path catalog check that it raises",
     "sharded_stream": "mesh-required and not ported: its entry raises "
                       "NotImplementedError naming ROADMAP item 9b; the CPU "
                       "grid and the hot-path catalog check that it raises",

@@ -58,23 +58,34 @@ def viterbi_decode(
     code: ConvCode,
     bm_tables: torch.Tensor,
     terminated: bool = True,
+    normalize: bool = False,
+    unroll: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential-scan Viterbi decoder (the faithful baseline).
 
     Args:
       bm_tables: (B, T, n_symbols) float32 branch-metric tables (minimize).
       terminated: trellis ends in state 0 (flush bits appended at encode).
+      normalize: subtract each step's per-row minimum from the new path
+        metrics (bounds metric growth on very long streams); the returned
+        metric is then the normalized one, as the reference's.
+      unroll: the reference's scan unroll factor, an int >= 1.  It changes
+        nothing here: the loop below is Python, there is no scan to unroll.
 
     Returns:
       bits: (B, T) decoded input bits (including flush bits if terminated).
       metric: (B,) the winning path metric.
     """
+    if isinstance(unroll, bool) or not isinstance(unroll, int) or unroll < 1:
+        raise ValueError(f"unroll must be an int >= 1, got {unroll!r}")
     B, T, _ = bm_tables.shape
     bm_tables = bm_tables.to(torch.float32)
     pm = _initial_pm(code, (B,), bm_tables.device)
     bps = []
     for t in range(T):
         pm, bp = acs_step(code, pm, bm_tables[:, t])
+        if normalize:
+            pm = pm - pm.amin(dim=-1, keepdim=True)
         bps.append(bp)
     if terminated:
         final_state = torch.zeros((B,), dtype=torch.int32, device=pm.device)

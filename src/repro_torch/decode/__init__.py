@@ -19,6 +19,14 @@ Quickstart::
     rx = spec.channel(gen, coded, flip_prob=0.02)
     res = decode(DecodeRequest(spec, received=rx))  # runs on the card
     res.info_bits, res.path_metric, res.plan.explain()
+
+A long block over a device mesh plans ``seqparallel`` (the time axis split
+across the mesh's ``model`` shards)::
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 2), ("data", "model"))     # two visible cards
+    res = decode(DecodeRequest(spec, received=rx), ctx=DecodeContext(mesh=mesh))
 """
 from repro_torch.decode import backends as _backends  # noqa: F401  (registers the backends)
 from repro_torch.decode.planner import LONG_BLOCK_T, DecodePlan, decode, plan_decode

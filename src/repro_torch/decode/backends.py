@@ -7,13 +7,14 @@ bm-table entry that feeds the same kernel through ``table_weights``),
 ``tiled`` (the windowed scan + windowed traceback kernels, both entries),
 ``streaming`` (the carried unpacked scan behind a windowed stream session),
 ``parallel`` (the windowed scan, the (min,+) product, the carried unpacked
-scan and the packed traceback kernels), ``bcjr`` and ``turbo`` (the two
-BCJR scan kernels, the SISO family) and ``sequential`` (the plain oracle).
-Every other backend name of the reference is registered with the
-reference's capability record, so the planner and validation behave the
-same, but its entry raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it — it never falls back to another backend.  Importing
-this module (which ``repro_torch.decode`` does) populates the registry.
+scan and the packed traceback kernels), ``seqparallel`` (the same kernels
+over the shards of a device mesh, parallel/collectives.py), ``bcjr`` and
+``turbo`` (the two BCJR scan kernels, the SISO family) and ``sequential``
+(the plain oracle).  ``sharded_stream`` is registered with the reference's
+capability record, so the planner and validation behave the same, but its
+entry raises ``NotImplementedError`` naming the ROADMAP.md item that ports
+it — it never falls back to another backend.  Importing this module (which
+``repro_torch.decode`` does) populates the registry.
 """
 from __future__ import annotations
 
@@ -168,11 +169,27 @@ def decode_parallel(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> Decode
     return _result(spec, bits, metric, backend="parallel", chunk=ctx.chunk)
 
 
-register_decoder(
+@register_decoder(
     "seqparallel",
     capabilities=BackendCapabilities(family="conv", supports_mesh=True, requires_mesh=True),
-    summary="sequence-parallel decode across a mesh (not ported yet)",
-)(_not_ported("seqparallel", "9b"))
+)
+def decode_seqparallel(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> DecodeResult:
+    """Sequence-parallel decode over ``ctx.mesh``: the time axis is split
+    across its ``ctx.mesh_axis`` shards, each shard's transfer matrix is
+    all-gathered (n·S² floats a stream, independent of T), and each shard
+    re-scans its chunk from the folded prefix (parallel/collectives.py)."""
+    from repro_torch.parallel.collectives import viterbi_decode_seqparallel
+
+    if ctx.mesh is None:
+        raise ValueError("seqparallel backend needs ctx.mesh")
+    bits, metric = viterbi_decode_seqparallel(
+        spec.code, ctx.place(bm_tables), ctx.mesh, axis=ctx.mesh_axis,
+        terminated=spec.terminated,
+    )
+    return _result(
+        spec, bits, metric, backend="seqparallel",
+        mesh_axis=ctx.mesh_axis, mesh_size=int(ctx.mesh.shape[ctx.mesh_axis]),
+    )
 
 register_decoder(
     "sharded_stream",
@@ -227,7 +244,7 @@ def decode_turbo(spec, llrs, *, ctx: DecodeContext) -> DecodeResult:
     scaled extrinsic LLRs through the spec's interleaver, early-exiting on
     LLR-sign agreement.  ``path_metric`` is the negated mean posterior |LLR|
     (lower = more confident, matching the minimized-metric convention)."""
-    result = turbo_decode(spec, ctx.place(llrs), device=ctx.device)
+    result = turbo_decode(spec, ctx.place(llrs), device=ctx.home())
     metric = -torch.mean(torch.abs(result.llr), dim=-1)
     return _result(
         spec, result.bits, metric, backend="turbo",

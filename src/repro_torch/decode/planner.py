@@ -10,17 +10,22 @@ both name the same backend for the same (spec, shape, context):
   * non-Viterbi code families route first — a TurboSpec to ``turbo``, an
     RSC CodecSpec to ``bcjr`` — so the shape rules below select only among
     the Viterbi backends;
-  * a streaming context (``ctx.streaming``) -> ``streaming``;
-  * long blocks (T >= LONG_BLOCK_T) -> rule ``long-conv-tiled``: the
-    time-parallel ``tiled`` backend with the pinned ``ctx.tiles`` or
-    ``kernels/tiling.default_tiles`` (``parallel`` for trellises past the
-    tiled cap);
+  * a streaming context (``ctx.streaming``) with a multi-device ``data``
+    (``ctx.batch_axis``) mesh axis -> ``sharded_stream`` (planned as the
+    reference plans it; its execution is not ported yet and raises naming
+    ROADMAP item 9b); otherwise -> ``streaming``;
+  * long blocks (T >= LONG_BLOCK_T) -> ``seqparallel`` when a mesh is
+    present and T divides across its ``ctx.mesh_axis``; without a usable
+    mesh the rule ``long-conv-tiled``: the time-parallel ``tiled`` backend
+    with the pinned ``ctx.tiles`` or ``kernels/tiling.default_tiles``
+    (``parallel`` for trellises past the tiled cap);
   * everything else (short batched blocks) -> ``fused_packed`` (packed
     scan + traceback kernels; in-kernel branch metrics when the request
     carries raw symbols), ``parallel`` for trellises past the fused cap.
 
-The planner runs on ``ctx.device``: ``"cuda"`` without a card raises here,
-before anything runs.
+The planner runs on ``ctx.home()`` (the mesh's first device, else
+``ctx.device``): ``"cuda"`` without a card raises here, before anything
+runs.
 """
 from __future__ import annotations
 
@@ -34,8 +39,8 @@ from repro_torch.decode import backends as _backends  # noqa: F401  (populates t
 from repro_torch.decode.registry import RegisteredDecoder, get_decoder
 from repro_torch.decode.request import DecodeContext, DecodeRequest, DecodeResult
 from repro_torch.decode.spec import CodecSpec, spec_family
-from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.tiling import default_tiles
+from repro_torch.parallel.mesh import Mesh
 from repro_torch.siso.turbo import TurboSpec
 
 #: family -> SISO backend the planner routes non-Viterbi specs to.
@@ -136,7 +141,7 @@ def _normalize_spec(spec):
     raise TypeError(f"expected CodecSpec, ConvCode or TurboSpec, got {type(spec).__name__}")
 
 
-def _validate(decoder: RegisteredDecoder, spec) -> None:
+def _validate(decoder: RegisteredDecoder, spec, ctx: DecodeContext) -> None:
     caps = decoder.capabilities
     fam = spec_family(spec)
     if caps.family != fam:
@@ -145,8 +150,8 @@ def _validate(decoder: RegisteredDecoder, spec) -> None:
             f"spec is {fam!r} — pick a backend registered for that family"
         )
     S = spec.code.n_states
-    if caps.requires_mesh:
-        raise ValueError(f"backend {decoder.name!r} requires a mesh")
+    if caps.requires_mesh and ctx.mesh is None:
+        raise ValueError(f"backend {decoder.name!r} requires a mesh (pass mesh=/ctx.mesh)")
     if caps.max_states is not None and S > caps.max_states:
         raise ValueError(
             f"backend {decoder.name!r} handles at most {caps.max_states} states, "
@@ -154,12 +159,19 @@ def _validate(decoder: RegisteredDecoder, spec) -> None:
         )
     if caps.needs_terminated and not spec.terminated:
         raise ValueError(f"backend {decoder.name!r} only decodes terminated trellises")
+    if (caps.sharded_stream and ctx.mesh is not None
+            and not int(ctx.mesh.shape.get(ctx.batch_axis, 0))):
+        raise ValueError(
+            f"backend {decoder.name!r} shards over mesh axis "
+            f"{ctx.batch_axis!r}, which {ctx.mesh} lacks"
+        )
 
 
 def plan_decode(
     spec: Union[CodecSpec, ConvCode, TurboSpec],
     shape: Sequence[int],
     *,
+    mesh: Optional[Mesh] = None,
     backend: Optional[str] = None,
     ctx: Optional[DecodeContext] = None,
 ) -> DecodePlan:
@@ -169,9 +181,10 @@ def plan_decode(
       spec: the CodecSpec or TurboSpec (a bare ConvCode is promoted with
         defaults).
       shape: (B, T) or the full (B, T, M) branch-metric table shape.
+      mesh: convenience override for ``ctx.mesh``.
       backend: explicit registry name — skips auto-selection (still
         capability-validated).
-      ctx: execution context (device, streaming flag, pinned tiles).
+      ctx: execution context (device, mesh, streaming flag, pinned tiles).
 
     Returns:
       DecodePlan; ``plan.execute_request(request)`` runs it, ``plan.explain()``
@@ -180,7 +193,9 @@ def plan_decode(
     spec = _normalize_spec(spec)
     B, T = _normalize_shape(shape)
     ctx = ctx or DecodeContext()
-    dev = resolve_device(ctx.device)
+    if mesh is not None:
+        ctx = dataclasses.replace(ctx, mesh=mesh)
+    dev = ctx.home()
     device_kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     S = spec.code.n_states
 
@@ -195,30 +210,63 @@ def plan_decode(
             "backends)"
         )
     elif ctx.streaming:
-        choice = "streaming"
-        reason = "session context given -> windowed online decode (O(depth+chunk) memory)"
-    elif T >= LONG_BLOCK_T:
-        tiled_max = get_decoder("tiled").capabilities.max_states
-        if tiled_max is not None and S > tiled_max:
-            choice = "parallel"
+        n_data = (
+            int(ctx.mesh.shape.get(ctx.batch_axis, 0)) if ctx.mesh is not None else 0
+        )
+        sharded_max = get_decoder("sharded_stream").capabilities.max_states
+        if n_data > 1 and (sharded_max is None or S <= sharded_max):
+            choice = "sharded_stream"
             reason = (
-                f"long block (T={T} >= {LONG_BLOCK_T}), no mesh, and "
-                f"S={S} exceeds the tiled cap ({tiled_max}) -> "
-                "single-device (min,+) associative scan"
+                f"session context with a multi-device mesh "
+                f"({ctx.batch_axis}={n_data}) -> one scheduler spanning the "
+                f"{ctx.batch_axis!r} axis (slot table sharded per device)"
+            )
+        elif n_data > 1:
+            choice = "streaming"
+            reason = (
+                f"session context, {ctx.batch_axis}={n_data} mesh, but S={S} "
+                f"exceeds the sharded stream's cap ({sharded_max}) -> "
+                "single-device windowed decode"
             )
         else:
-            choice = "tiled"
-            if ctx.tiles is not None:
-                tiles, how = int(ctx.tiles), "ctx.tiles pinned by caller"
-            else:
-                tiles = default_tiles(B, T, S)
-                how = "kernels/tiling.default_tiles; no cost model yet"
-                ctx = dataclasses.replace(ctx, tiles=tiles)
+            choice = "streaming"
+            reason = "session context given -> windowed online decode (O(depth+chunk) memory)"
+    elif T >= LONG_BLOCK_T:
+        n = int(ctx.mesh.shape.get(ctx.mesh_axis, 0)) if ctx.mesh is not None else 0
+        if n and T % n == 0:
+            choice = "seqparallel"
             reason = (
-                f"long block (T={T} >= {LONG_BLOCK_T}), no mesh -> "
-                f"rule 'long-conv-tiled': time-parallel tiled decode, "
-                f"P={tiles} ({how})"
+                f"long block (T={T} >= {LONG_BLOCK_T}) with a mesh "
+                f"({ctx.mesh_axis}={n}, T divisible) -> shard the time axis"
             )
+        else:
+            if ctx.mesh is None:
+                why_not = "no mesh"
+            elif not n:
+                why_not = f"mesh lacks axis {ctx.mesh_axis!r}"
+            else:
+                why_not = f"T % {ctx.mesh_axis}={n} != 0"
+            tiled_max = get_decoder("tiled").capabilities.max_states
+            if tiled_max is not None and S > tiled_max:
+                choice = "parallel"
+                reason = (
+                    f"long block (T={T} >= {LONG_BLOCK_T}), {why_not}, and "
+                    f"S={S} exceeds the tiled cap ({tiled_max}) -> "
+                    "single-device (min,+) associative scan"
+                )
+            else:
+                choice = "tiled"
+                if ctx.tiles is not None:
+                    tiles, how = int(ctx.tiles), "ctx.tiles pinned by caller"
+                else:
+                    tiles = default_tiles(B, T, S)
+                    how = "kernels/tiling.default_tiles; no cost model yet"
+                    ctx = dataclasses.replace(ctx, tiles=tiles)
+                reason = (
+                    f"long block (T={T} >= {LONG_BLOCK_T}), {why_not} -> "
+                    f"rule 'long-conv-tiled': time-parallel tiled decode, "
+                    f"P={tiles} ({how})"
+                )
     else:
         fused_max = get_decoder("fused_packed").capabilities.max_states
         if fused_max is not None and S > fused_max:
@@ -235,7 +283,7 @@ def plan_decode(
             )
 
     decoder = get_decoder(choice)
-    _validate(decoder, spec)
+    _validate(decoder, spec, ctx)
     return DecodePlan(
         spec=spec, backend=choice, batch=B, steps=T, ctx=ctx,
         reason=reason, device_kind=device_kind,
@@ -246,6 +294,7 @@ def decode(
     request: Union[DecodeRequest, CodecSpec, ConvCode, TurboSpec],
     received=None,
     *,
+    mesh: Optional[Mesh] = None,
     backend: Optional[str] = None,
     ctx: Optional[DecodeContext] = None,
 ) -> DecodeResult:
@@ -254,9 +303,10 @@ def decode(
     Either ``decode(DecodeRequest(spec, received=rx))`` or the shorthand
     ``decode(spec, rx)``.  Returns a DecodeResult whose ``info_bits`` has
     flush bits stripped per the spec.  Runs on ``ctx.device`` (default
-    ``"cuda"``; raises when no card is present).
+    ``"cuda"``; raises when no card is present), or over ``mesh``
+    (``ctx.mesh``), whose devices must be of ``ctx.device``'s type.
     """
     if not isinstance(request, DecodeRequest):
         request = DecodeRequest(spec=_normalize_spec(request), received=received)
-    plan = plan_decode(request.spec, request.shape(), backend=backend, ctx=ctx)
+    plan = plan_decode(request.spec, request.shape(), mesh=mesh, backend=backend, ctx=ctx)
     return plan.execute_request(request)

@@ -1,9 +1,10 @@
 """Request/result/context dataclasses of the decode API.
 
 DecodeContext  where/how to run that is not part of the codec itself: the
-               device, chunking, streaming window depth, the streaming flag,
-               a pinned tile count and overlap.  The planner consumes it to
-               pick a backend; the backend to execute.
+               device or device mesh, chunking, streaming window depth, the
+               streaming flag, a pinned tile count and overlap.  The
+               planner consumes it to pick a backend; the backend to
+               execute.
 DecodeRequest  one decode job: a CodecSpec plus either raw channel output
                (``received``) or precomputed branch-metric tables.
 DecodeResult   bits + path metric + per-stream diagnostics + the plan that
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.decode.spec import CodecSpec
 from repro_torch.kernels.common import resolve_device
+from repro_torch.parallel.mesh import Mesh
 
 if TYPE_CHECKING:  # planner imports this module; annotation only
     from repro_torch.decode.planner import DecodePlan
@@ -28,6 +30,11 @@ class DecodeContext:
     """Execution context shared by the planner and every backend.
 
     Attributes:
+      mesh: a device mesh (parallel/mesh.py) for the mesh backends (None =
+        one device).  Its devices must be of ``device``'s type; inputs are
+        placed on, and results come back on, its first device.
+      mesh_axis: mesh axis name the sequence is sharded over.
+      batch_axis: mesh axis name batch/slot-parallel backends shard over.
       chunk: chunk length for chunked backends (the parallel scan's chunk
         transfer matrices, streaming).
       stream_depth: truncated-traceback depth for the streaming backend
@@ -45,6 +52,9 @@ class DecodeContext:
         runs their plain PyTorch versions.
     """
 
+    mesh: Optional[Mesh] = None
+    mesh_axis: str = "model"
+    batch_axis: str = "data"
     chunk: int = 64
     stream_depth: Optional[int] = None
     streaming: bool = False
@@ -52,9 +62,25 @@ class DecodeContext:
     tile_overlap: Optional[int] = None
     device: str = "cuda"
 
+    def __post_init__(self):
+        if self.mesh is None:
+            return
+        if not isinstance(self.mesh, Mesh):
+            raise TypeError(f"DecodeContext.mesh must be a repro_torch.parallel.Mesh, got "
+                            f"{type(self.mesh).__name__}")
+        if self.mesh.device_type != torch.device(self.device).type:
+            raise ValueError(f"mesh devices are {self.mesh.device_type!r} but the context's "
+                             f"device is {self.device!r}; pass a mesh of that type or "
+                             "DecodeContext(device=...) of the mesh's")
+
+    def home(self) -> torch.device:
+        """Where inputs go and results come back: the mesh's first device,
+        else ``device`` (``"cuda"`` without a card raises)."""
+        return resolve_device(self.device if self.mesh is None else self.mesh.devices.flat[0])
+
     def place(self, x) -> torch.Tensor:
-        """``x`` (tensor or array) as a tensor on this context's device."""
-        return torch.as_tensor(x, device=resolve_device(self.device))
+        """``x`` (tensor or array) as a tensor on :meth:`home`."""
+        return torch.as_tensor(x, device=self.home())
 
 
 @dataclasses.dataclass(frozen=True)

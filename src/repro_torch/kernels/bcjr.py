@@ -39,7 +39,8 @@ import torch
 
 from repro_torch.core.trellis import NEG_UNREACHABLE
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import distinct_rows, launch_counts, on_card, plain_counts
+from repro_torch.kernels.common import (
+    distinct_rows, launch_counts, launch_guard, on_card, plain_counts)
 
 ALPHA_NAME = "bcjr_alpha_scan"
 BETA_NAME = "bcjr_beta_llr_scan"
@@ -205,9 +206,10 @@ def bcjr_alpha_scan(code, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     alphas = torch.empty((T, S, B), dtype=torch.float32, device=feat.device)
     final_pm = torch.empty((S, B), dtype=torch.float32, device=feat.device)
     lib, fn = _launcher("bcjr_alpha_scan_launch", 6, 5)
-    err = fn(op.rows.data_ptr(), op.b0_row.data_ptr(), op.b1_row.data_ptr(), feat.data_ptr(),
-             alphas.data_ptr(), final_pm.data_ptr(), B, T, F, S, op.n_rows,
-             torch.cuda.current_stream(feat.device).cuda_stream)
+    with launch_guard(feat):
+        err = fn(op.rows.data_ptr(), op.b0_row.data_ptr(), op.b1_row.data_ptr(),
+                 feat.data_ptr(), alphas.data_ptr(), final_pm.data_ptr(), B, T, F, S,
+                 op.n_rows, torch.cuda.current_stream(feat.device).cuda_stream)
     _build.raise_on_error(lib, "bcjr_error_string", ALPHA_NAME, err)
     launch_counts[ALPHA_NAME] += 1
     return alphas, final_pm
@@ -236,10 +238,11 @@ def bcjr_beta_llr_scan(code, alphas: torch.Tensor, feat: torch.Tensor,
     op = operands(code, feat.device)
     llr = torch.empty((T, B), dtype=torch.float32, device=feat.device)
     lib, fn = _launcher("bcjr_beta_llr_scan_launch", 9, 6)
-    err = fn(op.rows.data_ptr(), op.c0_row.data_ptr(), op.c1_row.data_ptr(),
-             op.w0_row.data_ptr(), op.w1_row.data_ptr(), op.reg_bit.data_ptr(),
-             alphas.data_ptr(), feat.data_ptr(), llr.data_ptr(), B, T, F, S, op.n_rows,
-             int(bool(terminated)), torch.cuda.current_stream(feat.device).cuda_stream)
+    with launch_guard(feat):
+        err = fn(op.rows.data_ptr(), op.c0_row.data_ptr(), op.c1_row.data_ptr(),
+                 op.w0_row.data_ptr(), op.w1_row.data_ptr(), op.reg_bit.data_ptr(),
+                 alphas.data_ptr(), feat.data_ptr(), llr.data_ptr(), B, T, F, S, op.n_rows,
+                 int(bool(terminated)), torch.cuda.current_stream(feat.device).cuda_stream)
     _build.raise_on_error(lib, "bcjr_error_string", BETA_NAME, err)
     launch_counts[BETA_NAME] += 1
     return llr

@@ -9,6 +9,10 @@ points in ops.py) moves its inputs to ONE device up front, so every kernel
 of that decode sees the same device and takes the same side of the rule —
 one decode can never split across the kernel and the plain version.
 
+Launch device.  A wrapper launches inside :func:`launch_guard` of its
+operands, so the kernel runs on their card and on that card's stream
+whatever card the caller has current (a mesh's shards may lie on any card).
+
 Counters.  ``launch_counts[name]`` rises by one where a wrapper launches its
 kernel and nowhere else; ``plain_counts[name]`` where a wrapper runs its
 plain version.  A run proves it went through the kernels by zeroing both
@@ -48,6 +52,13 @@ def on_card(name: str, tensors: Sequence[torch.Tensor]) -> bool:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev.type == "cuda"
+
+
+def launch_guard(t: torch.Tensor):
+    """The context a kernel launch runs in: ``t``'s card made current, so
+    the launch, its stream and the launcher's per-device set-up (shared
+    memory opt-ins, SM counts) all belong to the card its operands lie on."""
+    return torch.cuda.device(t.device)
 
 
 def resolve_device(device) -> torch.device:

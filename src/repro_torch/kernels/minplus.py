@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.core.trellis import NEG_UNREACHABLE
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import launch_counts, on_card, plain_counts
+from repro_torch.kernels.common import launch_counts, launch_guard, on_card, plain_counts
 
 NAME = "minplus_matmul"
 
@@ -116,7 +116,8 @@ def kernel_variant(a: torch.Tensor, b: torch.Tensor) -> str:
         raise ValueError(f"{NAME}: kernel_variant takes CUDA operands")
     # the output is a fresh allocation, so aligned: 0 stands in for it
     _, _, variant = _launcher()
-    S = variant(a4.data_ptr(), b4.data_ptr(), 0, *a4.shape[:2], *sa, *sb, I, K, J)
+    with launch_guard(a):
+        S = variant(a4.data_ptr(), b4.data_ptr(), 0, *a4.shape[:2], *sa, *sb, I, K, J)
     return f"square S={S}" if S else "general"
 
 
@@ -145,8 +146,9 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor,
     N0, N1 = a4.shape[:2]
     out = torch.empty(batch + (I, J), dtype=torch.float32, device=a.device)
     lib, fn, _ = _launcher()
-    err = fn(a4.data_ptr(), b4.data_ptr(), out.data_ptr(), N0, N1, *sa, *sb, I, K, J,
-             init, torch.cuda.current_stream(a.device).cuda_stream)
+    with launch_guard(a):
+        err = fn(a4.data_ptr(), b4.data_ptr(), out.data_ptr(), N0, N1, *sa, *sb, I, K, J,
+                 init, torch.cuda.current_stream(a.device).cuda_stream)
     _build.raise_on_error(lib, "minplus_error_string", NAME, err)
     launch_counts[NAME] += 1
     return out
@@ -167,20 +169,28 @@ def compose_maps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp(c, max=NEG_UNREACHABLE)
 
 
-def prefix_maps(mats: torch.Tensor):
+def compose_maps_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`compose_maps` through :func:`minplus_matmul` from 1e30 (the
+    clamp is the accumulator's start), the same bits: the kernel on CUDA
+    operands, its plain version on the CPU.  a, b: (N, S, S)."""
+    return minplus_matmul(a, b, NEG_UNREACHABLE)
+
+
+def prefix_maps(mats: torch.Tensor, compose=compose_maps):
     """Exclusive (min,+) prefixes of a stack of per-tile state maps.
 
     mats: (P, ..., S, S), tile 0 first.  Returns ``(excl, total)`` where
     ``excl[p] = mats[0] ∘ ... ∘ mats[p-1]`` (the identity at p = 0) and
     ``total`` composes all P maps — a left fold, the reference's association
-    order.
+    order.  ``compose`` is one step of the fold: :func:`compose_maps`, or
+    :func:`compose_maps_kernel` (same bits) for (P, N, S, S) stacks.
     """
     S = mats.shape[-1]
     acc = identity_map(S, mats.shape[1:-2], mats.device)
     excl = []
     for m in mats:
         excl.append(acc)  # the *exclusive* prefix
-        acc = compose_maps(acc, m)
+        acc = compose(acc, m)
     return torch.stack(excl), acc
 
 

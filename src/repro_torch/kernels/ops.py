@@ -422,6 +422,75 @@ def _minplus_unclamped(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _minplus.minplus_matmul(a, b, math.inf)
 
 
+def chunk_transfer_maps(
+    code: ConvCode, chunks: torch.Tensor, hi: np.ndarray, capture: Optional[dict] = None,
+) -> torch.Tensor:
+    """Each chunk's (S, S) transfer matrix through the windowed packed scan:
+    ``[b, c, i, s]`` is the best metric of a path that enters chunk c in
+    state i and leaves it in state s.  The S unit entry states ride the lane
+    axis with the chunks (lanes (b, c, i)); outside [0, hi[c]) a lane's
+    metrics pass through untouched, which is the reference's masked matrix
+    of a short last chunk.
+
+    chunks: (B*nc, C, M) float32 contiguous, lanes (b, c); hi: (nc,) host
+    ints, the valid steps of each chunk.  Returns (B, nc, S, S).  Chunks
+    that are all whole (hi == C) fill their windows' upper ends on the
+    device; otherwise the per-lane row is uploaded (one host sync).
+    ``capture`` receives ``pass1`` (the scan's arguments) and ``mats``."""
+    S = code.n_states
+    dev = chunks.device
+    n_lanes, C = chunks.shape[:2]
+    B = n_lanes // len(hi)
+    lanes = n_lanes * S
+    if np.all(hi == C):
+        upper = torch.full((lanes,), C, dtype=torch.int32, device=dev)
+    else:
+        upper = _tile_lane_row(hi, B, S, dev)
+    b0, b1, rb = _vscan.cached_table_weights(code, dev)
+    pass1 = (
+        code, _minplus.identity_map(S, device=dev).repeat(n_lanes, 1),
+        chunks.repeat_interleave(S, dim=0), b0, b1, rb,
+        torch.zeros((lanes,), dtype=torch.int32, device=dev), upper,
+    )
+    mats = _vscan.viterbi_scan_packed_window(*pass1)[0].reshape(B, len(hi), S, S)
+    if capture is not None:
+        capture.update(pass1=pass1, mats=mats)
+    return mats
+
+
+def rescan_chunks(
+    code: ConvCode, entry: torch.Tensor, chunks: torch.Tensor, whole_words: bool
+) -> Tuple[tuple, torch.Tensor]:
+    """Re-scan chunks from the metrics entering them, for their survivors.
+
+    entry: (L, S) float32; chunks: (L, C, M) float32 contiguous.  Returns
+    (the scan's arguments, the survivors): whole packed words (C/32, L, S)
+    through the packed carried scan (#3) when ``whole_words`` (C a multiple
+    of 32), else selects (C, L, S) through the unpacked carried scan (#7)."""
+    entry = entry.contiguous()
+    if whole_words:
+        args = (code, entry, chunks, *_vscan.cached_table_weights(code, chunks.device))
+        return args, _vscan.viterbi_scan_packed_carry(*args)[1]
+    args = (code, entry, chunks)
+    return args, _vscan.viterbi_scan_carry(*args)[1]
+
+
+def walk_survivors(
+    code: ConvCode, survivors: torch.Tensor, packed: bool, frontier_pm: torch.Tensor,
+    terminated: bool, T: int, capture: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The last step of a chunked decode: the survivors ((T, B, S) selects,
+    or (ceil(T/32), B, S) words when ``packed``) walked by the packed
+    traceback from the frontier of the (B, S) metrics ``frontier_pm``.
+    Returns (bits (B, T), metric (B,)); ``capture`` receives ``walk`` (the
+    traceback's arguments)."""
+    final_state, metric = _frontier(frontier_pm, terminated)
+    walk = (code, survivors if packed else _surv.pack_survivors(survivors), final_state, T)
+    if capture is not None:
+        capture["walk"] = walk
+    return viterbi_traceback_op(*walk), metric
+
+
 def viterbi_decode_parallel_op(
     code: ConvCode,
     bm_tables: torch.Tensor,
@@ -465,37 +534,26 @@ def viterbi_decode_parallel_op(
         bm = torch.nn.functional.pad(bm, (0, 0, 0, pad))
     nc = (T + pad) // chunk
     chunks = bm.reshape(B * nc, chunk, M).contiguous()  # lanes (b, c)
-    b0, b1, rb = _vscan.cached_table_weights(code, dev)
 
-    # 1. lanes (b, c, i); outside [0, hi) the metrics pass through untouched,
-    # which is the reference's masked last-chunk matrix
+    # 1. the chunks' transfer matrices, the last one windowed to its steps
     hi = np.full((nc,), chunk, np.int32)
     hi[-1] = T - (nc - 1) * chunk
-    eye = _minplus.identity_map(S, device=dev)
-    pass1 = (
-        code, eye.repeat(B * nc, 1), chunks.repeat_interleave(S, dim=0), b0, b1, rb,
-        torch.zeros((B * nc * S,), dtype=torch.int32, device=dev), _tile_lane_row(hi, B, S, dev),
-    )
-    mats = _vscan.viterbi_scan_packed_window(*pass1)[0].reshape(B, nc, S, S)
-    if capture is not None:
-        capture.update(pass1=pass1, mats=mats)
-    del pass1  # frees the S-fold repeated operands before the scan
+    mats = chunk_transfer_maps(code, chunks, hi, capture)
 
     # 2. inclusive prefixes; row 0 of the exclusive ones seeds each chunk
     prefixes = _associative_scan(_minplus_unclamped, mats, axis=1)
     del mats
-    entry = torch.cat([eye[0].expand(B, 1, S), prefixes[:, :-1, 0, :]], dim=1)  # (B, nc, S)
-    final_state, metric = _frontier(prefixes[:, -1, 0, :].clone(), terminated)
+    unit = _minplus.identity_map(S, device=dev)[0]
+    entry = torch.cat([unit.expand(B, 1, S), prefixes[:, :-1, 0, :]], dim=1)  # (B, nc, S)
+    frontier = prefixes[:, -1, 0, :].clone()
     del prefixes
 
-    # 3. every chunk re-scanned at once: selects (chunk, B*nc, S)
-    rescan = (code, entry.reshape(B * nc, S).contiguous(), chunks)
-    _, sel = _vscan.viterbi_scan_carry(*rescan)
+    # 3. every chunk re-scanned at once into selects (chunk, B*nc, S)
+    rescan, sel = rescan_chunks(code, entry.reshape(B * nc, S), chunks, whole_words=False)
     bps = sel.reshape(chunk, B, nc, S).permute(2, 0, 1, 3).reshape(nc * chunk, B, S)[:T]
     del sel
+    if capture is not None:
+        capture.update(rescan=rescan, bps=bps)
 
     # 4. the walk
-    walk = (code, _surv.pack_survivors(bps), final_state, T)
-    if capture is not None:
-        capture.update(rescan=rescan, bps=bps, walk=walk)
-    return viterbi_traceback_op(*walk), metric
+    return walk_survivors(code, bps, False, frontier, terminated, T, capture)

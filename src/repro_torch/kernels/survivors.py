@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.core.trellis import ConvCode
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import PACK_BITS, launch_counts, on_card, plain_counts
+from repro_torch.kernels.common import (
+    PACK_BITS, launch_counts, launch_guard, on_card, plain_counts)
 
 NAME = "traceback_packed"
 WINDOW_NAME = "traceback_packed_window"
@@ -147,8 +148,9 @@ def traceback_packed(
         return traceback_packed_plain(code, packed, final_state, T)
     bits = torch.empty((B, T), dtype=torch.int32, device=packed.device)
     lib, fn = _launcher("traceback_packed_launch", 3)
-    err = fn(packed.data_ptr(), final_state.data_ptr(), bits.data_ptr(),
-             B, T, S, code.constraint, torch.cuda.current_stream(packed.device).cuda_stream)
+    with launch_guard(packed):
+        err = fn(packed.data_ptr(), final_state.data_ptr(), bits.data_ptr(), B, T, S,
+                 code.constraint, torch.cuda.current_stream(packed.device).cuda_stream)
     _build.raise_on_error(lib, "survivors_error_string", NAME, err)
     launch_counts[NAME] += 1
     return bits
@@ -186,9 +188,10 @@ def traceback_packed_window(
     bits = torch.empty((B, W * PACK_BITS), dtype=torch.int32, device=packed.device)
     entry = torch.empty((B,), dtype=torch.int32, device=packed.device)
     lib, fn = _launcher("traceback_packed_window_launch", 6)
-    err = fn(packed.data_ptr(), final_state.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-             bits.data_ptr(), entry.data_ptr(), B, W, S, code.constraint,
-             torch.cuda.current_stream(packed.device).cuda_stream)
+    with launch_guard(packed):
+        err = fn(packed.data_ptr(), final_state.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                 bits.data_ptr(), entry.data_ptr(), B, W, S, code.constraint,
+                 torch.cuda.current_stream(packed.device).cuda_stream)
     _build.raise_on_error(lib, "survivors_error_string", WINDOW_NAME, err)
     launch_counts[WINDOW_NAME] += 1
     return bits, entry

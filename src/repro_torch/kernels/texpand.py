@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core.trellis import ConvCode
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import launch_counts, on_card, plain_counts
+from repro_torch.kernels.common import launch_counts, launch_guard, on_card, plain_counts
 
 NAME = "texpand"
 
@@ -89,9 +89,10 @@ def texpand(code: ConvCode, pm: torch.Tensor, bm: torch.Tensor
     new_pm = torch.empty_like(pm)
     bp = torch.empty((B, S), dtype=torch.int32, device=pm.device)
     lib, fn = _launcher()
-    err = fn(pm.data_ptr(), bm.data_ptr(), _symbols(code, pm.device).data_ptr(),
-             new_pm.data_ptr(), bp.data_ptr(), B, S, M,
-             torch.cuda.current_stream(pm.device).cuda_stream)
+    symbols = _symbols(code, pm.device)
+    with launch_guard(pm):
+        err = fn(pm.data_ptr(), bm.data_ptr(), symbols.data_ptr(), new_pm.data_ptr(),
+                 bp.data_ptr(), B, S, M, torch.cuda.current_stream(pm.device).cuda_stream)
     _build.raise_on_error(lib, "texpand_error_string", NAME, err)
     launch_counts[NAME] += 1
     return new_pm, bp

@@ -50,7 +50,7 @@ import torch
 from repro_torch.core.trellis import NEG_UNREACHABLE, ConvCode
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    PACK_BITS, distinct_rows, launch_counts, on_card, plain_counts)
+    PACK_BITS, distinct_rows, launch_counts, launch_guard, on_card, plain_counts)
 from repro_torch.kernels.survivors import pack_survivors
 
 #: Largest trellis the kernels take (up to 1024 threads a stream, at most 8
@@ -292,7 +292,8 @@ def _scan(name: str, code: ConvCode, pm0, data, b0, b1, rb, window: Window = Non
     ints = (B, T, F, S, table.shape[0])
     ptrs = [t.data_ptr() for t in inputs] + [final_pm.data_ptr(), survivors.data_ptr()]
     lib, fn = _launcher(f"{name}_launch", len(ptrs), len(ints))
-    err = fn(*ptrs, *ints, torch.cuda.current_stream(data.device).cuda_stream)
+    with launch_guard(data):
+        err = fn(*ptrs, *ints, torch.cuda.current_stream(data.device).cuda_stream)
     _build.raise_on_error(lib, "viterbi_scan_error_string", name, err)
     launch_counts[name] += 1
     return final_pm, survivors

@@ -1,4 +1,4 @@
 """Launchers: ``python -m repro_torch.launch.serve`` (batched LM generation
 and the Viterbi decode path) and ``python -m repro_torch.launch.train`` (the
-fault-tolerant training loop on one device).  The dry run and the mesh
-helpers wait for ROADMAP items 11 and 9b."""
+fault-tolerant training loop on one device), and the mesh constructors
+(``launch/mesh.py``).  The dry run waits for ROADMAP item 11."""

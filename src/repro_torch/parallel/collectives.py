@@ -1,0 +1,180 @@
+"""Collectives over a single-controller mesh, and the sequence-parallel
+Viterbi decoder built on them.
+
+The Viterbi forward pass is a product in the (min,+) semiring, which is
+associative, so a length-T decode splits across the ``model`` mesh axis:
+
+  1. each shard computes its T/n chunk's (S, S) transfer matrix;
+  2. one all-gather of the n matrices (n·S² floats a stream, independent
+     of T);
+  3. the exclusive (min,+) prefixes, a left fold over the shards;
+  4. each shard re-scans its chunk from the metrics entering it to recover
+     its survivors, and one walk over the stitched survivors gives the bits.
+
+The reference runs this under ``shard_map``.  Here the mesh has one
+controlling process (parallel/mesh.py), so the shard function is a Python
+loop over ``mesh.shard_devices(axis)`` that launches each shard's kernels on
+its device: in-specs and out-specs become slicing and concatenation,
+``axis_index`` the loop index, and ``all_gather`` the function below — every
+transfer between shards goes through this module.  Axes other than ``axis``
+replicate in the reference (each replica computes the same values); here
+each ``axis`` shard runs once, at index 0 of the other axes.
+
+On the card the steps are the kernels #4 (``viterbi_scan_packed_window``,
+through ``ops.chunk_transfer_maps``), #11 (``minplus_matmul`` from 1e30,
+which is ``compose_maps``), #3 (``viterbi_scan_packed_carry``) when a shard's
+length is a multiple of 32 or else #7 (``viterbi_scan_carry``) and the pack,
+and #2 (``traceback_packed``); on a CPU mesh their plain versions.  Bits and
+metrics equal the reference's bit for bit, soft metrics included: every add
+is one float32 add, every min exact, and the fold keeps the reference's
+association.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.trellis import ConvCode
+from repro_torch.decode.spec import CodecSpec
+from repro_torch.kernels import minplus as _minplus
+from repro_torch.kernels import ops as _ops
+from repro_torch.kernels import viterbi_scan as _vscan
+from repro_torch.kernels.common import PACK_BITS
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    """Size of a named mesh axis, 0 when the mesh lacks it or is None (the
+    planner branches on this)."""
+    if mesh is None:
+        return 0
+    return int(mesh.shape.get(axis, 0))
+
+
+def all_gather(mesh, axis: str, per_shard: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The shards' tensors (one per index of ``axis``, each on its shard's
+    device) stacked along a new leading axis, on each shard's device: entry
+    i of the result lies on shard i's device.  Shards that share a device
+    share one stacked tensor."""
+    devices = mesh.shard_devices(axis)
+    if len(per_shard) != len(devices):
+        raise ValueError(f"all_gather over {axis}={len(devices)} got {len(per_shard)} tensors")
+    stacked: Dict[torch.device, torch.Tensor] = {}
+    for dev in devices:
+        if dev not in stacked:
+            stacked[dev] = torch.stack([t.to(dev) for t in per_shard])
+    return [stacked[dev] for dev in devices]
+
+
+def reduce_across_shards(mesh, axis: str, per_shard, op: str = "sum") -> torch.Tensor:
+    """Reduce a per-shard leading-axis array to a mesh-global value.
+
+    ``per_shard``: (n_shards·k, ...) with rows [i·k, (i+1)·k) owned by shard
+    i; ``op``: 'sum' | 'max' | 'min'.  Each shard reduces its rows on its
+    device, the partial results are all-gathered, and the reduced (...)
+    value is returned on the first shard's device (the reference returns it
+    replicated on every shard).  A sum keeps the input's dtype, as jnp's.
+    """
+    try:
+        local = {
+            "sum": lambda x: torch.sum(x, dim=0, dtype=x.dtype),
+            "max": lambda x: torch.amax(x, dim=0),
+            "min": lambda x: torch.amin(x, dim=0),
+        }[op]
+    except KeyError:
+        raise ValueError(f"op must be 'sum', 'max' or 'min', got {op!r}") from None
+    devices = mesh.shard_devices(axis)
+    rows = torch.as_tensor(per_shard)
+    n = len(devices)
+    if rows.dim() == 0 or rows.shape[0] % n:
+        raise ValueError(f"per_shard's leading axis {tuple(rows.shape)[:1]} does not divide "
+                         f"over {axis}={n}")
+    k = rows.shape[0] // n
+    partial = [local(rows[i * k:(i + 1) * k].to(dev)) for i, dev in enumerate(devices)]
+    return local(all_gather(mesh, axis, partial)[0])
+
+
+def sum_across_shards(mesh, axis: str, per_shard) -> torch.Tensor:
+    """reduce_across_shards with op='sum'."""
+    return reduce_across_shards(mesh, axis, per_shard, op="sum")
+
+
+def viterbi_decode_seqparallel(
+    code: Union[ConvCode, CodecSpec],
+    bm_tables: torch.Tensor,
+    mesh,
+    axis: str = "model",
+    terminated: Optional[bool] = None,
+    capture: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequence-parallel Viterbi over the ``axis`` shards of ``mesh``.
+
+    bm_tables: (B, T, M) with T divisible by the axis size (raises
+    ValueError before any work otherwise).  ``code`` may be a ConvCode or a
+    CodecSpec, whose ``terminated`` flag is the default when ``terminated``
+    is omitted.  Returns (bits (B, T) int32, metric (B,) float32) on the
+    first shard's device, equal to the sequential decoder's.
+
+    ``capture``: an optional dict that receives the operands and results of
+    every kernel launch, so each can be held against its plain version on
+    exactly what the decode gave it — ``pass1`` and ``mats`` (each shard's
+    windowed-scan arguments and (B, S, S) matrix), ``gathered`` and
+    ``folds`` ({device: the (n, B, S, S) stack it folded} and {device:
+    (the exclusive prefixes (n, B, S, S), the total)}), ``rescan`` and
+    ``pieces`` (each shard's re-scan arguments and survivors), ``packed``
+    (the stitched words) and ``walk`` (the traceback's arguments).
+    """
+    spec = CodecSpec.of(code)
+    code = spec.code
+    if terminated is None:
+        terminated = spec.terminated
+    devices = mesh.shard_devices(axis)
+    n = len(devices)
+    B, T, M = bm_tables.shape
+    S = code.n_states
+    if T % n:
+        raise ValueError(f"seqparallel: T={T} does not divide over {axis}={n} shards")
+    if S > _vscan.MAX_STATES:
+        raise ValueError(f"seqparallel: S={S} exceeds the scan kernels' "
+                         f"{_vscan.MAX_STATES} states")
+    C = T // n
+    home = devices[0]
+    bm = bm_tables.to(torch.float32)
+    # in-spec P(None, axis, None): shard i takes steps [i·C, (i+1)·C)
+    local = [bm[:, i * C:(i + 1) * C].to(dev).contiguous() for i, dev in enumerate(devices)]
+
+    # 1-2. each shard's transfer matrix (one whole chunk: no upload),
+    # gathered onto every shard
+    hi = np.array([C], np.int32)
+    caps = [{} if capture is not None else None for _ in devices]
+    mats = [_ops.chunk_transfer_maps(code, x, hi, cap)[:, 0] for x, cap in zip(local, caps)]
+    gathered = all_gather(mesh, axis, mats)
+    del mats
+
+    # 3. the fold, once per distinct device (the reference folds on every
+    # shard, to the same values)
+    folds: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+    for dev, stack in zip(devices, gathered):
+        if dev not in folds:
+            folds[dev] = _minplus.prefix_maps(stack, compose=_minplus.compose_maps_kernel)
+
+    # 4. each shard's re-scan from row 0 of its exclusive prefix: whole
+    # packed words when C is a multiple of 32, else unpacked selects
+    whole = C % PACK_BITS == 0
+    rescan, pieces = zip(*(_ops.rescan_chunks(code, folds[dev][0][i][:, 0, :], x, whole)
+                           for i, (dev, x) in enumerate(zip(devices, local))))
+    del local
+    # out-spec P(axis, ...): the survivors stitched along time on the home
+    # device
+    stitched = torch.cat([p.to(home) for p in pieces], dim=0)
+    if capture is not None:
+        capture.update(pass1=[c["pass1"] for c in caps], mats=[c["mats"] for c in caps],
+                       gathered={dev: gathered[devices.index(dev)] for dev in folds},
+                       folds=folds, rescan=list(rescan), pieces=list(pieces))
+    del rescan, pieces, gathered
+    out = _ops.walk_survivors(code, stitched, whole, folds[home][1][:, 0, :], terminated, T,
+                              capture)
+    if capture is not None:
+        capture["packed"] = capture["walk"][1]
+    return out

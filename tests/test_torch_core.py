@@ -232,7 +232,8 @@ def test_import_loads_neither_jax_nor_reference():
         "repro_torch.models, repro_torch.models.moe, repro_torch.models.mla, "
         "repro_torch.serve.engine, repro_torch.launch.serve, "
         "repro_torch.train.optimizer, repro_torch.train.train_loop, "
-        "repro_torch.train.checkpoint, repro_torch.data, repro_torch.launch.train\n"
+        "repro_torch.train.checkpoint, repro_torch.data, repro_torch.launch.train, "
+        "repro_torch.parallel, repro_torch.parallel.collectives, repro_torch.launch.mesh\n"
         "bad = [k for k in sys.modules if k.startswith('jax') or k == 'repro' "
         "or k.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -4,9 +4,10 @@ x unpunctured/punctured-2/3 x terminated/open) through ``decode()`` on raw
 symbols, through ``fused_packed`` on bm tables and through ``sequential``;
 planner parity; the registry's capability records; the routes ported since
 the first slice (``fused``, ``tiled``, ``streaming``, ``parallel``) through
-their registry entries; and the error paths (backends not ported yet, the
-planned ``parallel`` route past the scan kernels' states, non-finite input,
-no card)."""
+their registry entries; ``seqparallel`` through its registry entry on a
+CPU mesh; and the error paths (the backend not ported yet, the planned
+``parallel`` route past the scan kernels' states, non-finite input, no
+card)."""
 import dataclasses
 import zlib
 
@@ -27,14 +28,18 @@ torch.set_num_threads(1)
 
 CPU = PD.DecodeContext(device="cpu")
 GRID_CODES = {"k3": (3, (0b111, 0b101)), "k7": (7, (0o171, 0o133))}
-NOT_PORTED = ("seqparallel", "sharded_stream")
+NOT_PORTED = ("sharded_stream",)
+#: the mesh backend that runs (its parity with the reference's shard-by-shard
+#: composition: tests/test_torch_mesh.py)
+MESH_PORTED = ("seqparallel",)
 #: conv backends that raised in the first slice and run now (the SISO
 #: backends bcjr and turbo: tests/test_torch_siso.py; the parallel grid:
 #: tests/test_torch_parallel.py)
 PORTED_SINCE = ("fused", "parallel", "streaming", "tiled")
 #: every registered backend, each on a leg of the port's CPU parity grid:
 #: fused_packed and sequential (the decode grid), PORTED_SINCE (their
-#: registry entries), NOT_PORTED (they raise), bcjr and turbo
+#: registry entries), MESH_PORTED (its registry entry on a CPU mesh),
+#: NOT_PORTED (it raises), bcjr and turbo
 #: (tests/test_torch_siso.py) — the repo linter's RPR004 reads this tuple
 EXPECTED_BACKENDS = (
     "bcjr", "fused", "fused_packed", "parallel", "seqparallel", "sequential",
@@ -206,7 +211,8 @@ def test_registry_mirrors_reference_capabilities():
 
 def test_expected_backends_are_the_registry_and_each_rides_a_grid_leg():
     assert PD.list_decoders() == RD.list_decoders() == tuple(sorted(EXPECTED_BACKENDS))
-    legs = {"fused_packed", "sequential", "bcjr", "turbo", *PORTED_SINCE, *NOT_PORTED}
+    legs = {"fused_packed", "sequential", "bcjr", "turbo", *PORTED_SINCE, *MESH_PORTED,
+            *NOT_PORTED}
     assert legs == set(EXPECTED_BACKENDS)
 
 
@@ -220,6 +226,25 @@ def test_backends_not_ported_raise_by_name(name):
     if dec.from_received is not None:
         with pytest.raises(NotImplementedError, match=name):
             dec.decode_received(pspec, torch.zeros((2, 10, 2)), ctx=CPU)
+
+
+@pytest.mark.parametrize("name", MESH_PORTED)
+def test_mesh_route_runs_on_a_cpu_mesh_and_matches_reference(name):
+    """The reference's own seqparallel entry fails under this jax before it
+    computes anything (shard_map's replication check), so the entry is held
+    against the reference's sequential decode here, bits and hard metric."""
+    from repro_torch.launch.mesh import make_mesh
+
+    rspec, pspec = _specs("k7", "hard", False, False)
+    _, rx = _grid_inputs(pspec, seed=9, n_info=32)  # T = 32: 8 steps a shard
+    bm = np.array(rspec.branch_metrics(jnp.asarray(rx)))
+    ref_bits, ref_metric = r_viterbi_decode(rspec.code, jnp.asarray(bm), terminated=False)
+    mesh = make_mesh((1, 4), ("data", "model"), devices=["cpu"] * 4)
+    ctx = dataclasses.replace(CPU, mesh=mesh)
+    res = PD.get_decoder(name)(pspec, torch.from_numpy(bm), ctx=ctx)
+    assert res.diagnostics == {"backend": name, "mesh_axis": "model", "mesh_size": 4}
+    np.testing.assert_array_equal(res.bits.numpy(), np.asarray(ref_bits))
+    np.testing.assert_array_equal(res.path_metric.numpy(), np.asarray(ref_metric))
 
 
 @pytest.mark.parametrize("name", PORTED_SINCE)

@@ -26,6 +26,7 @@ from repro_torch.core.trellis import NEG_UNREACHABLE
 from repro_torch.kernels import minplus, ops, survivors, viterbi_scan
 from repro_torch.kernels.common import launch_counts, plain_counts, reset_counts
 from repro_torch.kernels.metrics import fused_metric_plan
+from repro_torch.launch.mesh import make_mesh
 
 
 @pytest.fixture
@@ -1018,10 +1019,9 @@ def test_scheduler_snapshot_on_card_restores_on_card(card, backend, inputs):
 # --------------------------------------------------------------------------- #
 
 #: every registered backend a card test decodes (the repo linter's RPR004
-#: card leg); seqparallel and sharded_stream raise (ROADMAP item 9b) and are
-#: exempt there
-CARD_BACKENDS = ("bcjr", "fused", "fused_packed", "parallel", "sequential", "streaming",
-                 "tiled", "turbo")
+#: card leg); sharded_stream raises (ROADMAP item 9b) and is exempt there
+CARD_BACKENDS = ("bcjr", "fused", "fused_packed", "parallel", "seqparallel", "sequential",
+                 "streaming", "tiled", "turbo")
 #: the kernels one decode of each backend launches on the card
 CARD_BACKEND_KERNELS = {
     "bcjr": {"bcjr_alpha_scan", "bcjr_beta_llr_scan"},
@@ -1029,6 +1029,9 @@ CARD_BACKEND_KERNELS = {
     "fused_packed": {"viterbi_scan_packed", "traceback_packed"},
     "parallel": {"viterbi_scan_packed_window", "minplus_matmul", "viterbi_scan_carry",
                  "traceback_packed"},
+    # 2 shards of T = 156 steps: 78 a shard, so the unpacked re-scan
+    "seqparallel": {"viterbi_scan_packed_window", "minplus_matmul", "viterbi_scan_carry",
+                    "traceback_packed"},
     "sequential": set(),
     "streaming": {"viterbi_scan_carry"},
     "tiled": {"viterbi_scan_packed_window", "traceback_packed_window"},
@@ -1052,13 +1055,16 @@ def test_every_backend_decodes_on_card_as_on_cpu(card, backend):
         rx = spec.channel(gen, spec.encode(torch.randint(0, 2, (12, 150), generator=gen)),
                           snr_db=2.0)
     kw = dict(chunk=32, tiles=4 if backend == "tiled" else None)
+    mesh = {"cuda": None, "cpu": None}
+    if backend == "seqparallel":
+        mesh = {d: make_mesh((2,), ("model",), devices=[d, d]) for d in ("cuda", "cpu")}
     reset_counts()
     on_card = decode(DecodeRequest(spec, received=rx.to(card)), backend=backend,
-                     ctx=DecodeContext(**kw))
+                     ctx=DecodeContext(mesh=mesh["cuda"], **kw))
     torch.cuda.synchronize()
     assert set(launch_counts) == CARD_BACKEND_KERNELS[backend] and not plain_counts
     on_cpu = decode(DecodeRequest(spec, received=rx), backend=backend,
-                    ctx=DecodeContext(device="cpu", **kw))
+                    ctx=DecodeContext(device="cpu", mesh=mesh["cpu"], **kw))
     assert on_card.plan.backend == on_cpu.plan.backend == backend
     assert torch.equal(on_card.bits.cpu(), on_cpu.bits)
     if backend == "turbo":
@@ -1068,6 +1074,95 @@ def test_every_backend_decodes_on_card_as_on_cpu(card, backend):
                                    rtol=1e-6, atol=0)
     else:
         assert torch.equal(on_card.path_metric.cpu(), on_cpu.path_metric)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_seqparallel_on_card_matches_cpu_mesh_and_parallel(card, n):
+    """seqparallel over n shards on one card against the same decode on a
+    CPU mesh (the plain versions) and against ``parallel`` at chunk T/n (the
+    same transfer matrices).  T = 256 re-scans into packed words (#3), T =
+    260 into unpacked selects (#7)."""
+    code = ConvCode(7, (0o171, 0o133))
+    gen = torch.Generator().manual_seed(40 + n)
+    on_card_mesh = make_mesh((1, n), ("data", "model"), devices=[card] * n)
+    cpu_mesh = make_mesh((1, n), ("data", "model"), devices=["cpu"] * n)
+    for T in (256, 260):
+        rescan = "viterbi_scan_packed_carry" if (T // n) % 32 == 0 else "viterbi_scan_carry"
+        for metric in ("hard", "soft"):
+            spec = CodecSpec(code=code, metric=metric)
+            bits = torch.randint(0, 2, (6, T - spec.n_flush), generator=gen)
+            rx = spec.channel(gen, spec.encode(bits), snr_db=2.0) if metric == "soft" else \
+                spec.channel(gen, spec.encode(bits), flip_prob=0.03)
+            reset_counts()
+            got = decode(DecodeRequest(spec, received=rx.to(card)), backend="seqparallel",
+                         ctx=DecodeContext(mesh=on_card_mesh))
+            torch.cuda.synchronize()
+            assert set(launch_counts) == {"viterbi_scan_packed_window", "minplus_matmul",
+                                          rescan, "traceback_packed"} and not plain_counts
+            assert got.diagnostics == {"backend": "seqparallel", "mesh_axis": "model",
+                                       "mesh_size": n}
+            want = decode(DecodeRequest(spec, received=rx), backend="seqparallel",
+                          ctx=DecodeContext(device="cpu", mesh=cpu_mesh))
+            assert got.bits.is_cuda and torch.equal(got.bits.cpu(), want.bits)
+            assert torch.equal(got.path_metric.cpu(), want.path_metric)
+            if metric == "hard":
+                # the same transfer matrices; integer sums, so the prefix
+                # tree of ``parallel`` and the fold agree exactly
+                par = decode(DecodeRequest(spec, received=rx.to(card)), backend="parallel",
+                             ctx=DecodeContext(chunk=T // n))
+                assert torch.equal(got.bits, par.bits)
+                assert torch.equal(got.path_metric, par.path_metric)
+
+
+@pytest.mark.gpu
+def test_decodes_on_a_second_card_run_there(card):
+    """With cuda:0 current, meshes whose first card is cuda:1 decode there:
+    a short block (``fused_packed``), a long block the mesh cannot shard
+    (``tiled``), a turbo block, and ``seqparallel`` on cuda:1 alone and over
+    cuda:1 and cuda:0.  Every kernel launches on the card its operands lie
+    on, the results come back on cuda:1 equal to the CPU's, and cuda:0 stays
+    current.  Skips below two cards."""
+    from repro_torch.siso import RSC_K4_LTE, QPPInterleaver, TurboSpec
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    first, second = torch.device("cuda", 0), torch.device("cuda", 1)
+    torch.cuda.set_device(first)
+    gen = torch.Generator().manual_seed(52)
+    conv = CodecSpec(code=CODE_K7_NASA, metric="soft")
+    turbo = TurboSpec(code=RSC_K4_LTE, interleaver=QPPInterleaver(64, 7, 16))
+    seq = {"viterbi_scan_packed_window", "minplus_matmul", "traceback_packed"}
+    cases = (  # (spec, info bits, mesh devices, the planned backend, its kernels)
+        (conv, 64, [second] * 2, "fused_packed", {"viterbi_scan_packed", "traceback_packed"}),
+        (conv, 1024, [second] * 6, "tiled", {"viterbi_scan_packed_window",
+                                              "traceback_packed_window"}),
+        (turbo, 64, [second] * 2, "turbo", {"bcjr_alpha_scan", "bcjr_beta_llr_scan"}),
+        (conv, 1024, [second] * 2, "seqparallel", seq | {"viterbi_scan_carry"}),
+        (conv, 1146, [second, first], "seqparallel", seq | {"viterbi_scan_packed_carry"}),
+    )
+    for spec, n_info, devices, backend, kernels in cases:
+        n = len(devices)
+        bits = torch.randint(0, 2, (4, n_info), generator=gen)
+        rx = spec.channel(gen, spec.encode(bits), snr_db=2.0 if spec is conv else 0.0)
+        torch.cuda.synchronize(first), torch.cuda.synchronize(second)
+        reset_counts()
+        got = decode(DecodeRequest(spec, received=rx),
+                     ctx=DecodeContext(mesh=make_mesh((n,), ("model",), devices=devices)))
+        torch.cuda.synchronize(first), torch.cuda.synchronize(second)
+        assert got.plan.backend == backend, (backend, got.plan.reason)
+        assert set(launch_counts) == kernels and not plain_counts, (backend, dict(launch_counts))
+        assert torch.cuda.current_device() == 0
+        assert got.bits.device == got.path_metric.device == second, backend
+        ctx = dict(device="cpu", tiles=got.plan.ctx.tiles)
+        if backend == "seqparallel":
+            ctx["mesh"] = make_mesh((n,), ("model",), devices=["cpu"] * n)
+        want = decode(DecodeRequest(spec, received=rx), backend=backend,
+                      ctx=DecodeContext(**ctx))
+        assert torch.equal(got.bits.cpu(), want.bits), (backend, devices)
+        # turbo's metric is a float32 mean (the port's stated tolerance)
+        torch.testing.assert_close(got.path_metric.cpu(), want.path_metric,
+                                   rtol=1e-6 if backend == "turbo" else 0, atol=0)
 
 
 @pytest.mark.gpu
