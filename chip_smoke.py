@@ -38,6 +38,21 @@ Phases (any failure raises and exits non-zero):
                run over each stream's first 16384 rows (open) the tick's
                phase shares, that run snapshotted at tick 300 and restored
                on the card, its bits equal a packed session's;
+ 4c. sharded scheduler — the same streams and producers through ``STREAM``
+               weak-scaled over a (2, 1) (data, model) mesh of two cells on
+               cuda:0 (2 x 64 slots, one wave): every stream's bits and
+               metric and the BER equal phase 4b's, #3 and #2 launched once
+               per shard a tick and no plain call, one host sync a tick
+               (``sanitized()``, ticks 100-103), one tick's launches of each
+               shard held exactly against their plain versions; a traced cut
+               (32768 rows a stream, open) snapshotted at tick 300 on the
+               mesh and restored on one device, and the other way round,
+               bits equal a packed session's; then ``decode(DecodeRequest(
+               spec, received=rx), ctx=DecodeContext(mesh=..., streaming=
+               True))`` on the first 4096 steps, planned ``sharded_stream``:
+               at stream_depth = T equal to the planned block decode, at the
+               default depth to a single-device scheduler's; wall, tick time
+               and arrival-to-commit beside phase 4b's, peak memory;
   5. fused   — the unpacked route at phase 2's shape and symbols:
                ``decode(..., backend="fused")`` (the unpacked scan kernel +
                the plain traceback), hard and soft, bits (and the hard
@@ -958,13 +973,15 @@ def _arrivals(table, rng):
         i += n
 
 
-def _deployment_scheduler(spec, **kw):
-    """A ``StreamScheduler`` at the ``STREAM`` deployment, ``fused_packed``
-    on raw symbols, on the card."""
+def _deployment_scheduler(spec, n_slots=None, **kw):
+    """A ``StreamScheduler`` at the ``STREAM`` deployment (``n_slots`` slots,
+    ``STREAM.n_slots`` by default), ``fused_packed`` on raw symbols, on the
+    card."""
     from repro_torch.configs import STREAM
     from repro_torch.stream import StreamScheduler
 
-    return StreamScheduler(spec, n_slots=STREAM.n_slots, chunk=STREAM.chunk,
+    n_slots = STREAM.n_slots if n_slots is None else n_slots
+    return StreamScheduler(spec, n_slots=n_slots, chunk=STREAM.chunk,
                            depth=STREAM.depth(spec.code), backend="fused_packed",
                            inputs="received", max_buffered=STREAM.max_buffered, **kw)
 
@@ -1094,7 +1111,187 @@ def phase_scheduler(stream, seed):
           f"snapshot at tick {SCHED_SNAP_TICK} of {restored.stats.ticks}, restored on the card, "
           f"producers re-attached): bits and metrics equal the packed session's; tick time "
           f"{total!r} s in all, share by phase {shares} (flush inside admit)")
-    return dict(e2e=e2e, launches=la, scan_args=scans[0][0], walk_args=walks[0][0])
+    return dict(e2e=e2e, launches=la, scan_args=scans[0][0], walk_args=walks[0][0],
+                results=results)
+
+
+#: phase 4c: ``STREAM`` weak-scaled over 2 shards (2 x 64 slots: one wave);
+#: its sanitized ticks, its captured tick, its snapshot tick; the traced runs
+#: take each stream's first 32768 rows (open-ended), so tick 300 falls
+#: mid-run; the planned decodes the first 4096 (a cut of length only)
+SHARDED_SHARDS = 2
+SHARDED_SYNC_TICKS = (100, 101, 102, 103)
+SHARDED_CAPTURE_TICK = 200
+SHARDED_TRACE_ROWS = 32768
+SHARDED_DECODE_ROWS = 4096
+
+
+def phase_sharded_scheduler(stream, single, seed, smi):
+    """Phase 4c: the slot-sharded scheduler — phase 4b's 128 streams and
+    producers through ``STREAM`` weak-scaled to 2 x 64 slots over a (2, 1)
+    (data, model) mesh of two cells on cuda:0; then the planner's
+    ``sharded_stream`` route on the first 4096 steps of each stream."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import STREAM
+    from repro_torch.decode import DecodeContext, DecodeRequest, decode
+    from repro_torch.kernels import reset_counts, survivors, viterbi_scan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.stream import StreamScheduler, StreamSession
+
+    card = torch.device("cuda", 0)
+    mesh = make_mesh((SHARDED_SHARDS, 1), ("data", "model"), devices=[card] * SHARDED_SHARDS)
+    n_slots = STREAM.n_slots_for(SHARDED_SHARDS)
+    spec = stream["spec"]
+    rows = stream["rx"].to(torch.float32).cpu().numpy()  # the caller's host symbols
+
+    # (a) the main path, between a zeroing and a read of the counters
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    sched = _deployment_scheduler(spec, n_slots=n_slots, mesh=mesh)
+    _open_streams(sched, rows, seed)
+    syncs, captured = {}, None
+    while sched.pending_work():
+        tick = sched.stats.ticks
+        if tick in SHARDED_SYNC_TICKS and tick not in syncs:
+            _, n, sites = _host_syncs(sched.step)
+            if sched.stats.ticks > tick:  # a tick that decoded
+                syncs[tick] = (n, sites)
+        elif tick == SHARDED_CAPTURE_TICK and captured is None:
+            with _recording(viterbi_scan, "viterbi_scan_packed_carry") as scans, \
+                    _recording(survivors, "traceback_packed") as walks:
+                sched.step()
+            captured = (scans, walks)
+        else:
+            sched.step()
+    results = sched.results
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    la, pa = _counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    ticks = sched.stats.ticks
+    print(f"[sharded] {STREAM_B} streams through {n_slots} slots over {SHARDED_SHARDS} shards "
+          f"of {card} ((data, model) = {tuple(mesh.shape.values())}), chunk {STREAM.chunk}, "
+          f"depth {sched.depth}: launches {la} plain calls {pa}, {ticks} ticks ({smi})")
+    for k in ("viterbi_scan_packed_carry", "traceback_packed"):
+        if la.get(k, 0) != SHARDED_SHARDS * ticks:
+            _fail(f"sharded: {k} launched {la.get(k, 0)} times in {ticks} ticks of "
+                  f"{SHARDED_SHARDS} shards")
+    if any(pa.values()):
+        _fail(f"sharded: plain versions ran: {pa}")
+    if sorted(syncs) != list(SHARDED_SYNC_TICKS) or any(n != 1 for n, _ in syncs.values()):
+        _fail(f"sharded: host syncs a tick {syncs}, want one each")
+    for i in range(STREAM_B):
+        bits, metric = results[f"s{i}"]
+        want_bits, want_metric = single["results"][f"s{i}"]
+        if not (np.array_equal(bits, want_bits) and metric == want_metric):
+            _fail(f"sharded: stream s{i} differs from phase 4b's single-device run")
+    sched_bits = torch.from_numpy(np.stack([results[f"s{i}"][0] for i in range(STREAM_B)]))
+    ber = _ber(spec.strip_flush(sched_bits.cuda()), stream["bits"])
+    if ber != single["e2e"]["ber"]:
+        _fail(f"sharded: BER {ber!r} != phase 4b's {single['e2e']['ber']!r}")
+    # one tick's launches, each held against its plain version on its operands
+    scans, walks = captured
+    if len(scans) != SHARDED_SHARDS or len(walks) != SHARDED_SHARDS:
+        _fail(f"sharded: the captured tick launched {len(scans)} scans, {len(walks)} walks")
+    err = max(max(_same(f"sharded tick scan, shard {i}", out,
+                        viterbi_scan.viterbi_scan_packed_carry_plain(*args)),
+                  _same(f"sharded tick walk, shard {i}", (wout,),
+                        (survivors.traceback_packed_plain(*wargs),)))
+              for i, ((args, out, _), (wargs, wout, _)) in enumerate(zip(scans, walks)))
+    hist = sched.telemetry.metrics.histogram("stream_tick_seconds")
+    report = sched.load_report()
+    e2e = dict(wall_s=wall, bits_per_s=STREAM_B * STREAM_INFO / wall, ticks=ticks,
+               shards=SHARDED_SHARDS, n_slots=n_slots, launches=la,
+               tick_s=dict(p50=hist.quantile(0.5), p99=hist.quantile(0.99), mean=hist.mean,
+                           max=hist.max),
+               arrival_to_commit_s=report["latency_s"], peak_bytes=peak, ber=ber,
+               host_syncs={t: n for t, (n, _) in syncs.items()}, captured_max_abs_err=err,
+               card=smi)
+    one = single["e2e"]
+    print(f"[sharded] every stream's bits and metric equal phase 4b's single-device run; BER "
+          f"{ber!r}; host syncs at ticks {e2e['host_syncs']}; one tick's {SHARDED_SHARDS} scans "
+          f"and walks equal their plain versions ({smi})")
+    print(f"[sharded] wall {wall!r} s = {e2e['bits_per_s']!r} info bits/s (phase 4b: "
+          f"{one['wall_s']!r} s); tick time p50 {e2e['tick_s']['p50']!r} s p99 "
+          f"{e2e['tick_s']['p99']!r} s (4b: {one['tick_s']['p50']!r}, {one['tick_s']['p99']!r}); "
+          f"arrival-to-commit {report['latency_s']} (4b: {one['arrival_to_commit_s']}); peak "
+          f"device memory {peak} bytes above the live tensors (4b: {one['peak_bytes']}) ({smi})")
+
+    # (b) snapshots across meshes at tick 300 of a traced cut: sharded ->
+    # single device, single device (the same 128 slots) -> the mesh
+    cut = rows[:, :SHARDED_TRACE_ROWS]
+    want_bits, want_metric = (x.cpu().numpy() for x in StreamSession(
+        spec, batch=STREAM_B, chunk=STREAM.chunk, backend="fused_packed",
+        inputs="received").decode_all(stream["rx"][:, :SHARDED_TRACE_ROWS], terminated=False))
+    for label, src, dst in (("mesh -> single device", mesh, None),
+                            ("single device -> mesh", None, mesh)):
+        cut_sched = _deployment_scheduler(spec, n_slots=n_slots, mesh=src)
+        prods = _open_streams(cut_sched, cut, seed, terminated=False)
+        while cut_sched.stats.ticks < SCHED_SNAP_TICK and cut_sched.pending_work():
+            cut_sched.step()
+        if cut_sched.stats.ticks != SCHED_SNAP_TICK:
+            _fail(f"sharded: the traced cut ended at tick {cut_sched.stats.ticks}")
+        snap = cut_sched.snapshot()
+        restored = StreamScheduler.restore(snap, mesh=dst)
+        for im in snap.active + snap.pending:
+            if not im.closed:
+                restored.attach_producer(im.stream_id, prods[im.stream_id])
+        got = restored.run()
+        for i in range(STREAM_B):
+            bits, metric = got[f"s{i}"]
+            if not (np.array_equal(bits, want_bits[i]) and metric == float(want_metric[i])):
+                _fail(f"sharded: snapshot {label} at tick {SCHED_SNAP_TICK}: stream s{i} "
+                      "differs from the packed session")
+        print(f"[sharded] snapshot {label} at tick {SCHED_SNAP_TICK} of "
+              f"{restored.stats.ticks} ({STREAM_B} streams x {SHARDED_TRACE_ROWS} rows, open): "
+              f"bits and metrics equal the packed session's")
+
+    # (c) the planner's route from a mesh: decode(DecodeRequest, ctx=
+    # DecodeContext(mesh=..., streaming=True)) on each stream's first 4096
+    # steps, open-ended
+    open_spec = dataclasses.replace(spec, terminated=False)
+    rx = stream["rx"][:, :SHARDED_DECODE_ROWS]
+    T = rx.shape[1]
+    planned = decode(DecodeRequest(open_spec, received=rx))
+    torch.cuda.synchronize()
+    reset_counts()
+    exact = decode(DecodeRequest(open_spec, received=rx),
+                   ctx=DecodeContext(mesh=mesh, streaming=True, stream_depth=T))
+    windowed = decode(DecodeRequest(open_spec, received=rx),
+                      ctx=DecodeContext(mesh=mesh, streaming=True))
+    torch.cuda.synchronize()
+    la2, pa2 = _counts()
+    if exact.plan.backend != "sharded_stream" or windowed.plan.backend != "sharded_stream":
+        _fail(f"sharded: planned {exact.plan.backend}, {windowed.plan.backend}")
+    if any(la2.get(k, 0) < 1 for k in ("viterbi_scan_packed_carry", "traceback_packed")) \
+            or any(pa2.values()):
+        _fail(f"sharded decode: launches {la2}, plain calls {pa2}")
+    _same_decode(f"sharded_stream at depth T={T} vs the planned {planned.plan.backend} decode",
+                 exact, planned)
+    oracle = StreamScheduler(open_spec, n_slots=n_slots, chunk=64, backend="fused_packed")
+    bm = open_spec.branch_metrics(rx).cpu().numpy()
+    for i in range(STREAM_B):
+        oracle.submit(str(i), bm[i])
+    want = oracle.run()
+    want_bits = torch.from_numpy(np.stack([want[str(i)][0] for i in range(STREAM_B)]))
+    want_metric = torch.tensor([want[str(i)][1] for i in range(STREAM_B)], dtype=torch.float32)
+    if not (torch.equal(windowed.bits.cpu(), want_bits)
+            and torch.equal(windowed.path_metric.cpu(), want_metric)):
+        _fail("sharded_stream at the default depth differs from a single-device scheduler")
+    e2e.update(decode=dict(T=T, launches=la2, planned_backend=planned.plan.backend,
+                           diagnostics={k: v for k, v in windowed.diagnostics.items()}))
+    print(f"[sharded] decode() from a (2, 1) mesh, streaming: planned sharded_stream "
+          f"({windowed.diagnostics}), launches {la2}; at depth T={T} bits and metrics equal the "
+          f"planned {planned.plan.backend} decode, at the default depth a single-device "
+          f"scheduler's ({smi})")
+    return e2e
 
 
 def phase_timing_scheduler(sched):
@@ -2443,7 +2640,8 @@ def phase_analysis(smi):
         print(f"[analysis] {name} ({e['backend']}): {e['ops']} dispatched ops, host syncs "
               f"{e['host_syncs']} / bound {e['max_host_syncs']} at {e['sync_sites']}, uploads "
               f"{e['uploads']}, rebuilds {e['rebuilds']}, launches {e['launches']}, plain "
-              f"calls {e['plain']}, contract violations {len(e['violations'])} ({smi})")
+              f"calls {e['plain']}, mesh collectives {e['collectives']}, contract violations "
+              f"{len(e['violations'])} ({smi})")
         if found:
             _fail(f"analysis {name}: " + "; ".join(found))
         table[name] = {k: e[k] for k in ("backend", "ops", "host_syncs", "max_host_syncs",
@@ -3914,6 +4112,8 @@ def main(argv=None) -> int:
     mark("decode, tiled, stream")
     sched = phase_scheduler(stream, args.seed)
     mark("scheduler")
+    sharded = phase_sharded_scheduler(stream, sched, args.seed, smi)
+    mark("sharded scheduler")
     fused_launches = phase_fused(inputs, results)
     texpand_launches, texpand_tables = phase_texpand(inputs, results)
     siso_launches, siso = phase_siso(gen)
@@ -3977,7 +4177,7 @@ def main(argv=None) -> int:
             row["shapes"] = {label: _summary(x) for label, x in row["shapes"].items()}
     rows += seeded_rows + siso_rows + parallel_rows
     e2e = {"decode_short": e2e, "tiled_nasa_frame": tiled_e2e, "stream_64k": stream["e2e"],
-           "scheduler_64k": sched["e2e"],
+           "scheduler_64k": sched["e2e"], "scheduler_sharded": sharded,
            "fused_texpand_siso": siso_e2e, "parallel": parallel_e2e,
            "parallel_launches": parallel_launches, "seqparallel": seqparallel,
            "ber": {"tiled_hard": tiled["hard"]["ber"], "tiled_soft": tiled["soft"]["ber"],

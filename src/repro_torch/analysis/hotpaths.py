@@ -10,12 +10,14 @@ sanitizer check, one entry per registered decoder.
   * ``streaming`` covers the stream tick: one steady ``StreamScheduler``
     tick (``fused_packed`` on raw symbols, chunk 32), the loop behind
     sessions and the scheduler;
+  * ``sharded_stream`` covers the sharded scheduler's tick
+    (``make_sharded_stream_step``, ``fused_packed``, device counters on) on
+    a unit ``data`` mesh of the device, as the reference's entry: it must
+    launch the packed tick's kernels and call no collective — no transfer
+    between shards;
   * ``turbo``'s Python loop carries host-side early-exit bookkeeping, so its
     entry is one turbo iteration (two SISO passes + extrinsic exchange),
-    where its device time goes;
-  * ``sharded_stream`` is not ported (ROADMAP item 9b): its entry checks
-    that the registry entry raises ``NotImplementedError`` naming 9b —
-    kept, not silently dropped.
+    where its device time goes.
 
 Each contract states the path's host-sync bound with the lines that sync
 (found by reading the code: the blocking copies and scalar reads one call
@@ -26,7 +28,9 @@ makes on the card) and the kernels one call must launch.
 ``device``: once to warm up (under ``allow_transfers``), then once under
 :func:`sanitized` with the op trace inside.  The report per entry: the
 dispatched ops, the host syncs and their lines against the bound, uploads,
-rebuilds, kernel launches, plain-version calls and contract violations.
+rebuilds, kernel launches, plain-version calls, the mesh collectives called
+(``parallel/collectives.calls``; any outside the contract's
+``allowed_collectives`` is a violation) and contract violations.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ _TICK_OUTPUTS = 0
 #: the sync lines the contracts name (held against the source by the tests)
 _LANE_ROW = "repro_torch/kernels/ops.py:204"    # _tile_lane_row: a pageable upload
 _TILE_INDEX = "repro_torch/kernels/ops.py:211"  # _tile_data: a pageable upload
-_TICK_BITS = "repro_torch/stream/scheduler.py:623"  # the tick's committed bits
+_TICK_BITS = "repro_torch/stream/scheduler.py:677"  # the tick's committed bits
 
 Builder = Callable[[torch.device], Tuple[Callable, Sequence]]
 
@@ -62,9 +66,6 @@ class HotPath:
     contract: Contract
     build: Builder
     summary: str = ""
-    #: ROADMAP item of a backend that is registered but not ported: the
-    #: entry checks that it raises NotImplementedError naming it
-    not_ported: Optional[str] = None
 
 
 def _conv_spec():
@@ -115,15 +116,39 @@ def _seqparallel_builder(B: int = 2, T: int = 64) -> Builder:
     return build
 
 
-def _not_ported_builder(backend: str) -> Builder:
+def _sharded_tick_builder(chunk: int = 32, B: int = 4) -> Builder:
+    """The sharded scheduler's tick (``make_sharded_stream_step``,
+    ``fused_packed`` on bm tables) over a unit ``data`` mesh of the device,
+    device counters on — the richest per-tick computation, and the one
+    whose freedom from transfers between shards the multi-device scaling
+    rests on.  Every slot decodes a full chunk of arena rows."""
+
     def build(device):
-        from repro_torch.decode import DecodeContext, get_decoder
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.stream import window as w
 
         spec = _conv_spec()
-        dec = get_decoder(backend)
-        ctx = DecodeContext(device=str(device))
-        bm = torch.zeros((2, 64, spec.table_width), device=device)
-        return (lambda tables: dec(spec, tables, ctx=ctx)), (bm,)
+        code = spec.code
+        mesh = make_mesh((1,), ("data",), devices=[device])
+        tick = w.make_sharded_stream_step(code, mesh, "data", chunk=chunk,
+                                          backend=w.PACKED_BACKEND, device_metrics=True)
+        depth = w.packed_depth(w.default_depth(code))
+        rx = torch.from_numpy(_hard_received(spec, B, chunk - spec.n_flush, seed=B))
+        bm = spec.branch_metrics(rx.to(device)).reshape(B * chunk, -1)
+        arena = torch.cat([torch.zeros_like(bm[:chunk]), bm])  # the zero prefix first
+        idx = torch.arange(chunk, chunk + B * chunk, dtype=torch.int32,
+                           device=device).reshape(B, chunk)
+        active = torch.ones((B,), dtype=torch.bool, device=device)
+        state = w.init_stream_state(code, B, depth, chunk, packed=True, device=device)
+        counters = w.init_device_counters(B, device)
+
+        def fn(arena, idx, active, pm, ring, *ctr):
+            state, bits, delta, out_ctr = tick(
+                (arena,), (idx,), (active,), w.StreamState(pm=(pm,), ring=(ring,)),
+                w.DeviceCounters(*((c,) for c in ctr)))
+            return (state.pm[0], state.ring[0], bits[0], delta[0]) + tuple(c[0] for c in out_ctr)
+
+        return fn, (arena, idx, active, state.pm, state.ring, *counters)
 
     return build
 
@@ -243,6 +268,9 @@ def hot_path_catalog() -> Tuple[HotPath, ...]:
             # of 64 steps re-scans into whole packed words
             contract=_contract(
                 "seqparallel", **block,
+                # the one path allowed to communicate: it gathers each
+                # shard's (S, S) transfer matrix (tiny, T-independent)
+                allowed_collectives=frozenset({"all_gather"}),
                 kernels=("viterbi_scan_packed_window", "minplus_matmul",
                          "viterbi_scan_packed_carry", "traceback_packed")),
             build=_seqparallel_builder(),
@@ -258,9 +286,14 @@ def hot_path_catalog() -> Tuple[HotPath, ...]:
         ),
         HotPath(
             name="sharded_stream_tick", backend="sharded_stream",
-            contract=_contract("sharded_stream_tick"),
-            build=_not_ported_builder("sharded_stream"), not_ported="9b",
-            summary="mesh-sharded stream tick (not ported)",
+            # no collective: slots are independent streams, so the tick
+            # makes no transfer between shards (and no host sync)
+            contract=_contract(
+                "sharded_stream_tick",
+                max_outputs=4 + 6,  # (pm, ring, bits, delta) + the counters
+                kernels=("viterbi_scan_packed_carry", "traceback_packed")),
+            build=_sharded_tick_builder(),
+            summary="one sharded scheduler tick on a unit data mesh, device counters on",
         ),
         HotPath(
             name="bcjr", backend="bcjr",
@@ -278,24 +311,9 @@ def hot_path_catalog() -> Tuple[HotPath, ...]:
     )
 
 
-def _check_not_ported(p: HotPath, device) -> Dict[str, object]:
-    fn, args = p.build(device)
-    try:
-        fn(*args)
-    except NotImplementedError as e:
-        raised = f"item {p.not_ported}" in str(e)
-    else:
-        raised = False
-    violations = [] if raised else [ContractViolation(
-        contract=p.contract.name, kind="not-ported", op="<call>",
-        detail=f"expected NotImplementedError naming item {p.not_ported}", where="")]
-    return dict(backend=p.backend, summary=p.summary, ops=0, host_syncs=0, sync_sites={},
-                max_host_syncs=0, uploads=0, rebuilds=0, launches={}, plain={},
-                missing_kernels=[], violations=violations)
-
-
 def _check_one(p: HotPath, device: torch.device) -> Dict[str, object]:
     from repro_torch.kernels.common import launch_counts, plain_counts, reset_counts
+    from repro_torch.parallel import collectives
 
     with sanitized(device=device) as rep:
         with rep.allow_transfers():
@@ -305,7 +323,9 @@ def _check_one(p: HotPath, device: torch.device) -> Dict[str, object]:
             torch.cuda.synchronize()
         base, sites_before = rep.snapshot(), Counter(rep.sync_sites)
         reset_counts()
+        calls_before = Counter(collectives.calls)
         trace, violations = trace_contract(fn, args, p.contract, device=device.type)
+        called = dict(collectives.calls - calls_before)
         if device.type == "cuda":
             torch.cuda.synchronize()
         launches, plain = dict(launch_counts), dict(plain_counts)
@@ -314,6 +334,11 @@ def _check_one(p: HotPath, device: torch.device) -> Dict[str, object]:
         uploads = rep.uploads - base.uploads
         sites = dict(rep.sync_sites - sites_before)
     c = p.contract
+    for name in sorted(set(called) - c.allowed_collectives):
+        violations.append(ContractViolation(
+            contract=c.name, kind="collective", op=name,
+            detail=f"mesh collective called {called[name]} times outside the contract "
+                   "allowlist", where="repro_torch/parallel/collectives.py"))
     if syncs > c.max_host_syncs:
         violations.append(ContractViolation(
             contract=c.name, kind="host-sync", op="<call>",
@@ -322,7 +347,7 @@ def _check_one(p: HotPath, device: torch.device) -> Dict[str, object]:
     missing = [k for k in c.kernels if device.type == "cuda" and not launches.get(k)]
     return dict(backend=p.backend, summary=p.summary, ops=len(trace), host_syncs=syncs,
                 sync_sites=sites, max_host_syncs=c.max_host_syncs, uploads=uploads,
-                rebuilds=rebuilds, launches=launches, plain=plain,
+                rebuilds=rebuilds, launches=launches, plain=plain, collectives=called,
                 missing_kernels=missing, violations=violations)
 
 
@@ -334,8 +359,8 @@ def check_hot_paths(
     without one) and check its contract.
 
     Returns {path name: {backend, ops, host_syncs, sync_sites,
-    max_host_syncs, uploads, rebuilds, launches, plain, missing_kernels,
-    violations, summary}}.  Raises AssertionError if the catalog does not
+    max_host_syncs, uploads, rebuilds, launches, plain, collectives,
+    missing_kernels, violations, summary}}.  Raises AssertionError if the catalog does not
     cover the full decoder registry.  The caller judges the rest:
     ``problems(entry)`` lists what fails an entry."""
     from repro_torch.decode import list_decoders
@@ -351,7 +376,7 @@ def check_hot_paths(
     )
     report: Dict[str, Dict[str, object]] = {}
     for p in paths:
-        report[p.name] = _check_not_ported(p, dev) if p.not_ported else _check_one(p, dev)
+        report[p.name] = _check_one(p, dev)
     return report
 
 

@@ -76,8 +76,10 @@ class Contract:
         floating dtype (beyond ``extra_float_dtypes``) is a ``dtype``
         violation.  float64 is always a violation of its own kind.
       extra_float_dtypes: additional tolerated float dtypes.
-      allowed_collectives: collective op names this path may run (empty for
-        every single-device path).
+      allowed_collectives: collectives this path may run: ``c10d`` op names
+        and the mesh collectives of parallel/collectives.py by function name
+        (``all_gather``, ``gather``, ...), whose calls ``check_hot_paths``
+        counts; empty for every path that makes no transfer between shards.
       max_host_syncs: the path's host-sync bound on the card: the blocking
         copies and scalar reads one call makes, found by reading the code.
       sync_sites: where those syncs are, as ``"repro_torch/<file>.py:<line>"``

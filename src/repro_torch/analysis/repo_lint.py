@@ -62,11 +62,7 @@ RULES: Dict[str, str] = {
 
 #: registry names exempt from RPR004's card-test leg, each with the reason
 #: (the parity-grid leg still applies to them)
-CARD_TEST_EXEMPT: Dict[str, str] = {
-    "sharded_stream": "mesh-required and not ported: its entry raises "
-                      "NotImplementedError naming ROADMAP item 9b; the CPU "
-                      "grid and the hot-path catalog check that it raises",
-}
+CARD_TEST_EXEMPT: Dict[str, str] = {}
 
 #: hot-path scopes for RPR003: (path suffix or directory part, function names
 #: or None for the whole module) — the per-tick device loop of the port.

@@ -67,8 +67,7 @@ class StreamDefaults:
     """Shared shape defaults for the streaming subsystem (sessions,
     scheduler, stream runs): chunk per tick, the continuous-batching
     decode-block size, and the mesh axis a sharded scheduler spans (the
-    mesh is ``repro_torch.parallel.Mesh``; the sharded scheduler itself
-    waits for ROADMAP.md queue 1, item 9b).
+    mesh is ``repro_torch.parallel.Mesh``).
 
     ``n_slots`` is the PER-SHARD slot load: a sharded scheduler weak-scales,
     so the slot table grows with the mesh (``n_slots_for``) and each device

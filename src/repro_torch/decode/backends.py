@@ -8,12 +8,11 @@ bm-table entry that feeds the same kernel through ``table_weights``),
 ``streaming`` (the carried unpacked scan behind a windowed stream session),
 ``parallel`` (the windowed scan, the (min,+) product, the carried unpacked
 scan and the packed traceback kernels), ``seqparallel`` (the same kernels
-over the shards of a device mesh, parallel/collectives.py), ``bcjr`` and
-``turbo`` (the two BCJR scan kernels, the SISO family) and ``sequential``
-(the plain oracle).  ``sharded_stream`` is registered with the reference's
-capability record, so the planner and validation behave the same, but its
-entry raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-it — it never falls back to another backend.  Importing this module (which
+over the shards of a device mesh, parallel/collectives.py),
+``sharded_stream`` (a stream scheduler whose slots span the shards of a
+mesh: the carried scan kernels and the packed traceback once per shard a
+tick), ``bcjr`` and ``turbo`` (the two BCJR scan kernels, the SISO family)
+and ``sequential`` (the plain oracle).  Importing this module (which
 ``repro_torch.decode`` does) populates the registry.
 """
 from __future__ import annotations
@@ -45,18 +44,6 @@ FUSED_MAX_STATES = 4096
 
 def _result(spec, bits, metric, **diag) -> DecodeResult:
     return DecodeResult(bits=bits, path_metric=metric, spec=spec, diagnostics=diag)
-
-
-def _not_ported(name: str, item: str):
-    """Entry of a backend that is registered but not ported yet."""
-
-    def entry(spec, data, *, ctx: DecodeContext) -> DecodeResult:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md queue 1, item {item})"
-        )
-
-    return entry
 
 
 @register_decoder(
@@ -191,7 +178,7 @@ def decode_seqparallel(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> Dec
         mesh_axis=ctx.mesh_axis, mesh_size=int(ctx.mesh.shape[ctx.mesh_axis]),
     )
 
-register_decoder(
+@register_decoder(
     "sharded_stream",
     capabilities=BackendCapabilities(
         family="conv",
@@ -202,8 +189,45 @@ register_decoder(
         online=True,
         max_states=FUSED_MAX_STATES,
     ),
-    summary="mesh-sharded streaming scheduler (not ported yet)",
-)(_not_ported("sharded_stream", "9b"))
+)
+def decode_sharded_stream(spec: CodecSpec, bm_tables, *, ctx: DecodeContext) -> DecodeResult:
+    """Mesh-sharded continuous-batching scheduler: the (B, T, M) block runs
+    as B streams through ONE StreamScheduler whose slot table, input arena
+    and survivor ring are partitioned along ``ctx.batch_axis`` — every shard
+    on that axis decodes its block of the slots each tick, on its device.
+    Each block row enters through ``submit`` — the documented adapter over
+    the scheduler's chunk-fed ingestion path (``online=True``: live callers
+    use open_stream/submit_chunk against the same machinery)."""
+    import numpy as np
+
+    from repro_torch.parallel.collectives import mesh_axis_size
+    from repro_torch.stream import StreamScheduler
+    from repro_torch.stream.window import default_depth
+
+    if ctx.mesh is None:
+        raise ValueError("sharded_stream backend needs ctx.mesh")
+    n = mesh_axis_size(ctx.mesh, ctx.batch_axis)
+    if not n:
+        raise ValueError(f"mesh lacks batch axis {ctx.batch_axis!r}")
+    B = bm_tables.shape[0]
+    depth = ctx.stream_depth if ctx.stream_depth is not None else default_depth(spec.code)
+    n_slots = -(-B // n) * n  # the slot table must divide over the shards
+    backend = "fused_packed" if ctx.chunk % 32 == 0 else "fused"
+    sched = StreamScheduler(
+        spec, n_slots=n_slots, chunk=ctx.chunk, depth=depth, backend=backend,
+        device=ctx.device, mesh=ctx.mesh, mesh_axis=ctx.batch_axis,
+    )
+    tables = bm_tables.detach().cpu().numpy()  # the scheduler takes host rows
+    for i in range(B):
+        sched.submit(str(i), tables[i])
+    out = sched.run()
+    home = ctx.home()
+    bits = torch.from_numpy(np.stack([out[str(i)][0] for i in range(B)])).to(home)
+    metric = torch.tensor([out[str(i)][1] for i in range(B)], dtype=torch.float32, device=home)
+    return _result(
+        spec, bits, metric, backend="sharded_stream", shards=n,
+        batch_axis=ctx.batch_axis, n_slots=n_slots, depth=depth, hot_loop=backend,
+    )
 
 
 def _bcjr_from_received(spec: CodecSpec, received, *, ctx: DecodeContext) -> DecodeResult:

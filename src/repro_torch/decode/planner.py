@@ -11,9 +11,8 @@ both name the same backend for the same (spec, shape, context):
     RSC CodecSpec to ``bcjr`` — so the shape rules below select only among
     the Viterbi backends;
   * a streaming context (``ctx.streaming``) with a multi-device ``data``
-    (``ctx.batch_axis``) mesh axis -> ``sharded_stream`` (planned as the
-    reference plans it; its execution is not ported yet and raises naming
-    ROADMAP item 9b); otherwise -> ``streaming``;
+    (``ctx.batch_axis``) mesh axis -> ``sharded_stream``; otherwise ->
+    ``streaming``;
   * long blocks (T >= LONG_BLOCK_T) -> ``seqparallel`` when a mesh is
     present and T divides across its ``ctx.mesh_axis``; without a usable
     mesh the rule ``long-conv-tiled``: the time-parallel ``tiled`` backend

@@ -21,7 +21,8 @@ import torch
 from repro_torch.parallel.mesh import Mesh
 
 
-def _visible_cards():
+def visible_cards():
+    """The visible CUDA devices (none without a card)."""
     if not torch.cuda.is_available():
         return []
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -35,7 +36,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     need = math.prod(shape)
     if devices is None:
-        cards = _visible_cards()
+        cards = visible_cards()
         if len(cards) < need:
             raise ValueError(f"Number of devices {len(cards)} must be >= the product of "
                              f"mesh_shape {shape}")
@@ -58,4 +59,4 @@ def smoke_mesh(device: str = "cuda") -> Mesh:
     with ``device="cpu"``."""
     if torch.device(device).type == "cpu":
         return make_mesh((1,), ("data",), devices=[torch.device(device)])
-    return make_mesh((max(1, len(_visible_cards())),), ("data",))
+    return make_mesh((max(1, len(visible_cards())),), ("data",))

@@ -1,7 +1,7 @@
 """Distribution: a single-controller device mesh (mesh.py), the collectives
-over it and the sequence-parallel Viterbi decoder (collectives.py), and the
-LM's sharding helpers (sharding.py, not ported yet: they raise naming
-ROADMAP item 9b)."""
+over it and the sequence-parallel Viterbi decoder (collectives.py), GPipe
+pipeline parallelism over a stage axis (pipeline.py), and the LM's sharding
+helpers (sharding.py, not ported yet: they raise naming ROADMAP item 9b)."""
 from repro_torch.parallel.mesh import Mesh
 from repro_torch.parallel.sharding import (
     batch_spec,

@@ -31,6 +31,7 @@ association.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -44,6 +45,11 @@ from repro_torch.kernels import viterbi_scan as _vscan
 from repro_torch.kernels.common import PACK_BITS
 
 
+#: collective name -> calls, so a hot-path check can show a path made no
+#: transfer between shards (analysis/hotpaths.py)
+calls: Counter = Counter()
+
+
 def mesh_axis_size(mesh, axis: str) -> int:
     """Size of a named mesh axis, 0 when the mesh lacks it or is None (the
     planner branches on this)."""
@@ -52,19 +58,49 @@ def mesh_axis_size(mesh, axis: str) -> int:
     return int(mesh.shape.get(axis, 0))
 
 
-def all_gather(mesh, axis: str, per_shard: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The shards' tensors (one per index of ``axis``, each on its shard's
-    device) stacked along a new leading axis, on each shard's device: entry
-    i of the result lies on shard i's device.  Shards that share a device
-    share one stacked tensor."""
+def _shard_devices(mesh, axis: str, per_shard: Sequence[torch.Tensor], what: str):
     devices = mesh.shard_devices(axis)
     if len(per_shard) != len(devices):
-        raise ValueError(f"all_gather over {axis}={len(devices)} got {len(per_shard)} tensors")
+        raise ValueError(f"{what} over {axis}={len(devices)} got {len(per_shard)} tensors")
+    return devices
+
+
+def gather(mesh, axis: str, per_shard: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    """The shards' tensors (one per index of ``axis``, each on its shard's
+    device) stacked along a new leading axis on ``device`` — the mesh's
+    first shard's by default: one copy from each other device."""
+    calls["gather"] += 1
+    devices = _shard_devices(mesh, axis, per_shard, "gather")
+    return _stack_on(per_shard, devices[0] if device is None else device)
+
+
+def _stack_on(per_shard: Sequence[torch.Tensor], device) -> torch.Tensor:
+    dev = torch.device(device)
+    return torch.stack([t.to(dev) for t in per_shard])
+
+
+def all_gather(mesh, axis: str, per_shard: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`gather` onto every shard's device: entry i of the result lies
+    on shard i's device.  Shards that share a device share one stacked
+    tensor."""
+    calls["all_gather"] += 1
+    devices = _shard_devices(mesh, axis, per_shard, "all_gather")
     stacked: Dict[torch.device, torch.Tensor] = {}
     for dev in devices:
         if dev not in stacked:
-            stacked[dev] = torch.stack([t.to(dev) for t in per_shard])
+            stacked[dev] = _stack_on(per_shard, dev)
     return [stacked[dev] for dev in devices]
+
+
+def ring_shift(mesh, axis: str, per_shard: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each shard's tensor handed to the next shard of ``axis``, on its
+    device, the last one's to the first — ``jax.lax.ppermute`` with the
+    ring permutation ``[(i, (i + 1) % n)]``: entry i of the result is shard
+    i - 1's tensor."""
+    calls["ring_shift"] += 1
+    devices = _shard_devices(mesh, axis, per_shard, "ring_shift")
+    n = len(devices)
+    return [per_shard[(i - 1) % n].to(dev) for i, dev in enumerate(devices)]
 
 
 def reduce_across_shards(mesh, axis: str, per_shard, op: str = "sum") -> torch.Tensor:
@@ -76,6 +112,7 @@ def reduce_across_shards(mesh, axis: str, per_shard, op: str = "sum") -> torch.T
     value is returned on the first shard's device (the reference returns it
     replicated on every shard).  A sum keeps the input's dtype, as jnp's.
     """
+    calls["reduce_across_shards"] += 1
     try:
         local = {
             "sum": lambda x: torch.sum(x, dim=0, dtype=x.dtype),
@@ -92,7 +129,7 @@ def reduce_across_shards(mesh, axis: str, per_shard, op: str = "sum") -> torch.T
                          f"over {axis}={n}")
     k = rows.shape[0] // n
     partial = [local(rows[i * k:(i + 1) * k].to(dev)) for i, dev in enumerate(devices)]
-    return local(all_gather(mesh, axis, partial)[0])
+    return local(gather(mesh, axis, partial))
 
 
 def sum_across_shards(mesh, axis: str, per_shard) -> torch.Tensor:

@@ -11,9 +11,9 @@ resilience.py — crash-consistent snapshot/restore (drain/migrate primitive)
                 + the StreamError / TickFault degradation types
 chaos.py      — deterministic seeded fault injection harness
 
-The reference's mesh helpers (``make_sharded_stream_step``,
-``shard_stream_state``, ``state_shardings``) wait for the multi-device work
-(ROADMAP.md queue 1, item 9b); everything else it exports is here.
+The scheduler and sessions take a device mesh (``mesh=``): slots are cut
+into per-shard blocks on the ``data`` axis (``state_shardings``,
+``shard_stream_state``, ``make_sharded_stream_step``).
 """
 from repro_torch.stream.chaos import (
     FAULT_CLASSES,
@@ -47,7 +47,10 @@ from repro_torch.stream.window import (
     chunk_forward_scan,
     default_depth,
     init_stream_state,
+    make_sharded_stream_step,
     packed_depth,
+    shard_stream_state,
+    state_shardings,
     stream_flush,
     stream_step,
     viterbi_decode_windowed,
@@ -80,7 +83,10 @@ __all__ = [
     "chunk_forward_scan",
     "default_depth",
     "init_stream_state",
+    "make_sharded_stream_step",
     "packed_depth",
+    "shard_stream_state",
+    "state_shardings",
     "stream_flush",
     "stream_step",
     "viterbi_decode_windowed",

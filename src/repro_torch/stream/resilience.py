@@ -160,15 +160,8 @@ def snapshot_scheduler(sched) -> StreamSnapshot:
     """Freeze ``sched`` into a StreamSnapshot (the scheduler is untouched
     and keeps serving).  Called between ticks — every device tensor is
     copied to the host here, once, off the hot path."""
-    pm_np = _host(sched.state.pm)
-    ring_np = _host(sched.state.ring)
-    offset_np = _host(sched.offset)
-    arena_np = _host(sched._arena)
-    ctr_np = (
-        {name: _host(leaf) for name, leaf in zip(type(sched._counters)._fields, sched._counters)}
-        if sched._counters is not None
-        else None
-    )
+    pm_np, ring_np, offset_np, ctr_np = sched._host_plane()
+    arena_np = [_host(slab) for slab in sched._arena]  # one slab a shard
 
     def image(st) -> StreamImage:
         im = StreamImage(
@@ -234,11 +227,13 @@ def restore_scheduler(
     """Build a fresh StreamScheduler on ``device`` resuming exactly where
     ``snap`` froze.
 
-    The snapshot is keyed per stream, so each stream's pm row / ring column /
-    arena rows land wherever its NEW slot lives, on whichever device the
-    restore targets (a snapshot taken on the card restores on the CPU and
-    the other way round).  Committed output after the restore is bit-exact
-    with the uninterrupted run.  ``mesh`` raises as the scheduler's does.
+    ``mesh`` need not match the snapshotted scheduler's: the snapshot is
+    keyed per stream, so restoring onto another shard count (or no mesh at
+    all) is a re-layout, not a reshard of opaque buffers — each stream's pm
+    row / ring column / arena rows land wherever its NEW slot lives, on
+    whichever device the restore targets (a snapshot taken on the card
+    restores on the CPU and the other way round).  Committed output after
+    the restore is bit-exact with the uninterrupted run.
 
     Producers are not restored — re-attach with ``attach_producer``.
     """
@@ -246,9 +241,6 @@ def restore_scheduler(
         raise ValueError(
             f"snapshot version {snap.version} != supported {SNAPSHOT_VERSION}"
         )
-    import torch
-
-    from repro_torch.stream import window as _w
     from repro_torch.stream.scheduler import SchedulerStats, StreamScheduler, _Stream
 
     cfg = snap.config
@@ -284,15 +276,9 @@ def restore_scheduler(
             out=list(im.out),
         )
 
-    # device plane rebuilt host-side in one pass (numpy), then uploaded once
-    pm = _host(sched.state.pm).copy()
-    ring = _host(sched.state.ring).copy()
+    # device plane rebuilt host-side in one pass (numpy), then placed once
+    pm, ring, _, ctrs = sched._host_plane()
     offset = np.zeros((sched.n_slots,), dtype=np.float32)
-    ctrs = (
-        {k: _host(v).copy() for k, v in zip(_w.DeviceCounters._fields, sched._counters)}
-        if sched._counters is not None
-        else None
-    )
     for im in snap.active:
         if im.packed != sched.packed:
             raise ValueError(
@@ -316,16 +302,10 @@ def restore_scheduler(
                 ctrs[k][slot] = im.counters[k]
         n = im.arena_rows.shape[0] if im.arena_rows is not None else 0
         if n:
-            start = sched._append_rows(st.shard, sched._upload(im.arena_rows))
+            start = sched._append_rows(
+                st.shard, sched._upload(im.arena_rows, sched._devices[st.shard]))
             st.rows = np.arange(start, start + n, dtype=np.int32)
-    dev = sched.device
-    sched.state = _w.StreamState(pm=torch.from_numpy(pm).to(dev),
-                                 ring=torch.from_numpy(ring).to(dev))
-    sched.offset = torch.from_numpy(offset).to(dev)
-    if ctrs is not None:
-        sched._counters = _w.DeviceCounters(
-            **{k: torch.from_numpy(v).to(dev) for k, v in ctrs.items()}
-        )
+    sched._load_plane(pm, ring, offset, ctrs)
 
     for im in snap.pending:
         st = stream_of(im)

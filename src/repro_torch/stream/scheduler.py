@@ -54,11 +54,25 @@ call is the copy of its committed bits to the host.
 
 The scheduler lives on one device, chosen at construction
 (``device="cuda"`` by default, which raises without a card;
-``device="cpu"`` runs every kernel's plain version).  The reference's
-``mesh=`` sharding is not ported (ROADMAP.md queue 1, item 9b): passing a
-mesh raises.  Decode results are bit-exact with the offline block decode of
-the same symbols: arrival schedule and placement never change what a slot's
-kernel sees.
+``device="cpu"`` runs every kernel's plain version).
+
+**Sharding.**  Given ``mesh=`` (parallel/mesh.py: one controlling process,
+no process group), ONE scheduler spans the shards of the ``data`` mesh
+axis: the slot table is partitioned into contiguous slots-per-shard blocks
+(slot -> shard ``slot // slots_per_shard``), and each shard's block of the
+path metrics, survivor ring, renormalization offsets and device counters,
+and its own input-arena slab, live on that shard's device
+(``window.state_shardings``).  The tick runs the gather + forward +
+traceback once per shard on its device with NO transfer between shards
+(``window.make_sharded_stream_step``); admission, ingestion and flush
+bookkeeping stay host-side over global slot ids (a stream's rows land in
+the slab of the shard hosting its slot, and its flush runs there).  The
+tick still makes one host sync: every shard's committed bits are gathered
+onto the mesh's first device and copied once.  The mesh-global scalars of
+``load_report`` reduce through ``parallel.collectives.sum_across_shards``.
+Decode results are bit-exact with the single-device scheduler and with the
+offline block decode of the same symbols: arrival schedule and placement
+never change what a slot's kernel sees.
 """
 from __future__ import annotations
 
@@ -77,6 +91,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.obs import Telemetry
 from repro_torch.obs.metrics import DEPTH_BUCKETS, LATENCY_BUCKETS_S, TICK_BUCKETS
 from repro_torch.obs.trace import span
+from repro_torch.parallel.collectives import gather, sum_across_shards
 from repro_torch.serve.kv_cache import SlotAllocator
 from repro_torch.stream import window as _w
 from repro_torch.stream.ingest import ChunkProducer, StreamBusy, as_producer
@@ -100,15 +115,15 @@ class _Stream:
     producer: Optional[ChunkProducer] = None
     closed: bool = False  # no more input will arrive (close() / EOF)
     slot: Optional[int] = None  # decode slot while admitted
-    shard: int = 0  # arena slab of the stream's slot (always 0: one device)
+    shard: int = 0  # mesh shard hosting the stream's slot (0 unsharded)
     priority: int = 0  # overload shedding victimizes the lowest first
     deadline_tick: Optional[int] = None  # evict_expired() retires past this
     seq: int = 0  # admission sequence (shed tie-break: newest loses)
     fed: int = 0  # rows accepted into the device arena
     pos: int = 0  # steps consumed by the kernel
     committed: int = 0  # bits already emitted
-    #: arena rows holding steps [pos, fed) — explicit indices, because
-    #: chunks of concurrent streams interleave in the arena.
+    #: shard-local arena rows holding steps [pos, fed) — explicit indices,
+    #: because chunks of concurrent streams interleave in the arena.
     rows: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0,), dtype=np.int32)
     )
@@ -155,7 +170,8 @@ class SchedulerStats:
 
 
 class StreamScheduler:
-    """Continuous batching of independent Viterbi streams on one device.
+    """Continuous batching of independent Viterbi streams on one device or
+    over the shards of a mesh axis.
 
     Args:
       spec: CodecSpec shared by all streams (a bare ConvCode is promoted);
@@ -171,16 +187,18 @@ class StreamScheduler:
       device: where the state, the arena and the kernels live — the card by
         default (raises without one); ``"cpu"`` runs the plain versions.
         Resolved once per scheduler, so every tick and flush takes the same
-        side of the kernel-or-plain rule.
+        side of the kernel-or-plain rule.  With a mesh, its devices must be
+        of this type, and the mesh's first device is the scheduler's.
       inputs: 'bm' — chunks are (t, M) branch-metric rows; 'received'
         (fused_packed only) — chunks are raw (t, n_out) channel symbols and
         branch metrics are computed in-kernel.
       max_buffered: default per-stream input-queue bound, in unconsumed rows
         (None -> 8 * chunk).  ``open_stream`` can override per stream.
       max_pending: overload bound on streams awaiting a slot (None: none).
-      mesh: not ported yet — anything but None raises.
-      mesh_axis: the reference's mesh axis name, taken for its signature;
-        unused while ``mesh`` is None.
+      mesh: optional parallel.Mesh — partition the slots over its
+        ``mesh_axis`` shards (``n_slots`` must divide evenly; see Sharding
+        in the module doc).
+      mesh_axis: mesh axis the slots are sharded over (default 'data').
       telemetry: obs.Telemetry bundle.  The metrics registry (always live)
         absorbs SchedulerStats plus the arrival-to-commit latency histogram;
         an attached tracer records tick-phase spans (see TICK_PHASES);
@@ -216,11 +234,6 @@ class StreamScheduler:
         mesh_axis: str = "data",
         telemetry: Optional[Telemetry] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamScheduler(mesh=...) is not ported to repro_torch yet "
-                "(ROADMAP.md queue 1, item 9b)"
-            )
         self.spec = CodecSpec.of(spec)
         code = self.spec.code
         self.code = code
@@ -241,11 +254,18 @@ class StreamScheduler:
             raise ValueError(
                 f"max_buffered ({self.max_buffered}) must be >= chunk ({chunk})"
             )
-        # one device for the scheduler's life: every tick and flush takes the
-        # same side of the kernel-or-plain rule (kernels/common.py)
+        # one device type for the scheduler's life: every tick and flush
+        # takes the same side of the kernel-or-plain rule (kernels/common.py)
         self.device = resolve_device(device)
-        self.n_shards = 1
-        self.slots_per_shard = n_slots
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        #: where each shard's block of slot rows lives
+        self._rows = (_w.SlotShards((self.device,), 0) if mesh is None else
+                      _w.mesh_slot_rows(mesh, mesh_axis, n_slots, "n_slots", self.device))
+        self._devices = self._rows.devices
+        self.device = self._devices[0]
+        self.n_shards = len(self._devices)
+        self.slots_per_shard = n_slots // self.n_shards
         self.packed, self.depth, self._plan, self._weights = _w.resolve_stream_backend(
             self.spec, chunk, self.depth, backend, inputs, self.device
         )
@@ -320,24 +340,41 @@ class StreamScheduler:
             if self.telemetry.device_counters
             else None
         )
-        self._pm0_row = _initial_pm(code, (), self.device)  # (S,) fresh-slot path metrics
-        # device-resident input arena (1, cap, ·) with rows [0, chunk) kept
-        # zero — the read target for idle/starved slots — and each accepted
-        # chunk appended to the used prefix.  Capacity grows geometrically
-        # and the used prefix is compacted when consumed/retired rows exceed
+        #: (S,) fresh-slot path metrics, on each shard's device
+        self._pm0 = {d: _initial_pm(code, (), d) for d in self._devices}
+        # device-resident input arena, one (cap, ·) slab per shard on its
+        # device, with rows [0, chunk) of every slab kept zero — the read
+        # target for idle/starved slots — and each accepted chunk appended to
+        # the used prefix of the slab of the shard hosting its stream's slot.
+        # Capacity is uniform over the slabs and grows geometrically; the
+        # used prefixes are compacted when consumed/retired rows exceed
         # _compact_ratio x the live rows (past _compact_floor, so toy
         # workloads never bother).
-        self._arena = torch.zeros((1, chunk, self._width), dtype=torch.float32,
-                                  device=self.device)
-        self._arena_len = [chunk]  # used rows
-        #: accepted feature rows (host tensors) holding arena rows
-        #: [_arena_len, _arena_len + their count): written by _flush_rows in
-        #: one upload before anything reads the arena
-        self._pending_rows: List[torch.Tensor] = []
-        self._pending_len = 0
+        self._arena: List[torch.Tensor] = [
+            torch.zeros((chunk, self._width), dtype=torch.float32, device=d)
+            for d in self._devices
+        ]
+        self._arena_len = [chunk] * self.n_shards  # used rows per shard
+        #: accepted feature rows (host tensors) per shard, holding its arena
+        #: rows [_arena_len, _arena_len + their count): written by
+        #: _flush_rows in one upload a shard before anything reads the arena
+        self._pending_rows: List[List[torch.Tensor]] = [[] for _ in self._devices]
+        self._pending_len = [0] * self.n_shards
         self._compact_ratio = 4
         self._compact_floor = 4096
-        self._step_fn = _w.jitted_stream_step(code, backend=backend, normalize=normalize)
+        if mesh is not None:
+            self.state = _w.shard_stream_state(mesh, mesh_axis, self.state)
+            self.offset = self._rows.split(self.offset)
+            if self._counters is not None:
+                self._counters = _w.DeviceCounters(*map(self._rows.split, self._counters))
+            self._step_fn = None  # the sharded tick replaces the batched step
+            self._sharded_step = _w.make_sharded_stream_step(
+                code, mesh, mesh_axis, chunk=chunk, backend=backend, normalize=normalize,
+                weights=self._weights, device_metrics=self._counters is not None,
+            )
+        else:
+            self._sharded_step = None
+            self._step_fn = _w.jitted_stream_step(code, backend=backend, normalize=normalize)
         self._gather = _gather_block  # an attribute: tests count a tick's gathers
 
     # ------------------------------ intake ------------------------------ #
@@ -586,11 +623,13 @@ class StreamScheduler:
             for slot in ready:
                 idx[slot] = self.active[slot].rows[: self.chunk]
                 mask[slot] = True
-            idx_t, mask_t = self._upload(idx), self._upload(mask)
+            # each shard's rows onto its device
+            idx_t, mask_t = self._upload_rows(idx), self._upload_rows(mask)
 
-        # 3. the one batched call for all live streams.  The span measures
-        #    the host's enqueue, not device time: the only forced sync stays
-        #    the bits transfer in the commit phase.
+        # 3. the one batched call for all live streams — once per shard when
+        #    the scheduler spans a mesh (gather + step, shard-local).  The
+        #    span measures the host's enqueue, not device time: the only
+        #    forced sync stays the bits transfer in the commit phase.
         with span(tr, "step"):
             try:
                 if self.tick_fault_hook is not None:
@@ -599,25 +638,40 @@ class StreamScheduler:
                     # is reassigned — the tick drops, the next one retries
                     # the identical gather, the decode is unchanged.
                     self.tick_fault_hook(self.stats.ticks)
-                block = self._gather(self._arena, idx_t)  # (n_slots, chunk, ·)
-                weights = self._weights if self.packed else None
-                if self._counters is not None:
-                    self.state, bits, delta, self._counters = self._step_fn(
-                        self.state, block, weights, mask_t,
-                        counters=self._counters,
-                    )
+                if self._sharded_step is not None:
+                    if self._counters is not None:
+                        self.state, bits, delta, self._counters = self._sharded_step(
+                            self._arena, idx_t, mask_t, self.state, self._counters
+                        )
+                    else:
+                        self.state, bits, delta = self._sharded_step(
+                            self._arena, idx_t, mask_t, self.state
+                        )
+                    self.offset = tuple(o + d for o, d in zip(self.offset, delta))
                 else:
-                    self.state, bits, delta = self._step_fn(
-                        self.state, block, weights, mask_t
-                    )
+                    (idx_t,), (mask_t,) = idx_t, mask_t
+                    block = self._gather(self._arena, idx_t)  # (n_slots, chunk, ·)
+                    weights = self._weights if self.packed else None
+                    if self._counters is not None:
+                        self.state, bits, delta, self._counters = self._step_fn(
+                            self.state, block, weights, mask_t,
+                            counters=self._counters,
+                        )
+                    else:
+                        self.state, bits, delta = self._step_fn(
+                            self.state, block, weights, mask_t
+                        )
+                    self.offset = self.offset + delta
             except TickFault:
                 self.stats.tick_device_failures += 1
                 self._device_failure_ctr.inc()
                 return {}
-            self.offset = self.offset + delta
 
         # 4. the tick's ONE host sync, then distribute newly-final bits.
         with span(tr, "commit"):
+            if self.mesh is not None:
+                # every shard's bits onto the mesh's first device
+                bits = gather(self.mesh, self.mesh_axis, bits).reshape(self.n_slots, -1)
             # the sanctioned device->host transfer: every other per-tick
             # value stays device-resident (DeviceCounters, arena, ring)
             bits_np = bits.cpu().numpy()  # repr-lint: allow[RPR003]
@@ -684,9 +738,12 @@ class StreamScheduler:
         return self.alloc.utilization()
 
     def load_report(self) -> Dict[str, object]:
-        """Occupancy and queue depth (one shard: the scheduler spans one
-        device) plus the global scalars, all from this controller's
-        bookkeeping.  Callers throttle on the queue-depth numbers:
+        """Occupancy and queue depth per shard plus the mesh-global scalars.
+        The per-shard counts come from this controller's bookkeeping; on a
+        mesh the totals reduce through parallel.collectives.sum_across_shards
+        (the reduction a controller per shard would issue), so the global
+        view never gathers any decode state.  Callers throttle on the
+        queue-depth numbers:
         ``queued_rows_total`` is how much input sits unconsumed on-device,
         ``starved_active`` how many slots are idling for lack of it.
 
@@ -704,15 +761,26 @@ class StreamScheduler:
             per_shard_queued[shard] += st.available
             if not st.closed and st.available < self.chunk:
                 starved += 1
+        per_shard_pending = np.zeros((self.n_shards,), dtype=np.int32)
+        per_shard_pending[0] = len(self.pending)  # the FIFO queue lives host-side
         pending_rows = sum(st.queued_rows for st in self.pending)
-        active_total = int(per_shard.sum())
+        if self.mesh is not None:
+            totals = sum_across_shards(
+                self.mesh, self.mesh_axis,
+                torch.from_numpy(np.stack([per_shard, per_shard_pending, per_shard_queued], 1)),
+            )
+            active_total, pending_total, queued_total = totals.tolist()
+        else:
+            active_total = int(per_shard.sum())
+            pending_total = len(self.pending)
+            queued_total = int(per_shard_queued.sum())
         report: Dict[str, object] = {
             "n_shards": self.n_shards,
             "per_shard_active": per_shard.tolist(),
             "per_shard_queued_rows": per_shard_queued.tolist(),
             "active_total": active_total,
-            "pending_total": len(self.pending),
-            "queued_rows_total": int(per_shard_queued.sum()),
+            "pending_total": pending_total,
+            "queued_rows_total": queued_total,
             "pending_rows": pending_rows,
             # deepest single stream queue (vs its max_buffered bound) — the
             # number a throttling caller compares against the credit limit
@@ -738,7 +806,7 @@ class StreamScheduler:
                 "telemetry=Telemetry(device_counters=True)"
             )
         leaves = {
-            name: x.cpu().numpy()
+            name: self._host_rows(x)
             for name, x in zip(_w.DeviceCounters._fields, self._counters)
         }
         out: Dict[str, Dict[str, float]] = {}
@@ -797,9 +865,10 @@ class StreamScheduler:
         telemetry: Optional[Telemetry] = None,
         device="cuda",
     ) -> "StreamScheduler":
-        """Resume a snapshot on a fresh scheduler on ``device`` — committed
-        output bit-exact vs the uninterrupted run.  Producers are not
-        restored; re-attach with ``attach_producer``."""
+        """Resume a snapshot on a fresh scheduler on ``device`` — on the same
+        or another mesh, or none — with committed output bit-exact vs the
+        uninterrupted run.  Producers are not restored; re-attach with
+        ``attach_producer``."""
         from repro_torch.stream.resilience import restore_scheduler
 
         return restore_scheduler(snap, mesh=mesh, mesh_axis=mesh_axis, telemetry=telemetry,
@@ -818,15 +887,58 @@ class StreamScheduler:
                 f"unknown or finished stream {stream_id!r} (open_stream first)"
             ) from None
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array as a tensor on the scheduler's device.  On the card
-        the copy is staged through page-locked memory and does not block the
-        host: a copy from pageable memory synchronizes the stream, and the
-        tick's one sync is the committed bits."""
+    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """A host array as a tensor on ``device`` (the scheduler's by
+        default).  On the card the copy is staged through page-locked memory
+        and does not block the host: a copy from pageable memory
+        synchronizes the stream, and the tick's one sync is the committed
+        bits."""
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+            return t.pin_memory().to(self.device if device is None else device,
+                                     non_blocking=True)
         return t
+
+    def _upload_rows(self, a: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """A host array of slot rows cut into the shards' blocks, each
+        uploaded onto its shard's device."""
+        k = self.slots_per_shard
+        return tuple(self._upload(a[i * k:(i + 1) * k], d) for i, d in enumerate(self._devices))
+
+    def _blocks(self, x) -> Tuple[torch.Tensor, ...]:
+        """A slot-row tensor of the device plane as its per-shard blocks (an
+        unsharded scheduler's tensor is its one block)."""
+        return x if self.mesh is not None else (x,)
+
+    def _host_rows(self, x, dim: int = 0) -> np.ndarray:
+        """A slot-row tensor of the device plane, whole, on the host — a
+        read-back off the hot path."""
+        return np.concatenate([b.detach().cpu().numpy() for b in self._blocks(x)], axis=dim)
+
+    def _host_plane(self):
+        """The device plane on the host: pm (n_slots, S), ring (R, n_slots,
+        S), offset (n_slots,) and {counter: (n_slots,)} (None when the
+        counters are off)."""
+        ctrs = None if self._counters is None else {
+            name: self._host_rows(x) for name, x in zip(_w.DeviceCounters._fields, self._counters)
+        }
+        return (self._host_rows(self.state.pm), self._host_rows(self.state.ring, 1),
+                self._host_rows(self.offset), ctrs)
+
+    def _load_plane(self, pm, ring, offset, counters) -> None:
+        """Place a host device plane (``_host_plane``'s shapes) on the
+        scheduler's device, or cut into the shards' blocks on theirs."""
+
+        def place(a: np.ndarray, dim: int = 0):
+            t = torch.from_numpy(a)
+            if self.mesh is None:
+                return t.to(self.device)
+            return _w.SlotShards(self._devices, dim).split(t)
+
+        self.state = _w.StreamState(pm=place(pm), ring=place(ring, 1))
+        self.offset = place(offset)
+        if counters is not None:
+            self._counters = _w.DeviceCounters(**{k: place(v) for k, v in counters.items()})
 
     def _check_rows(self, rows: np.ndarray) -> None:
         expected = (
@@ -881,21 +993,22 @@ class StreamScheduler:
         data = torch.from_numpy(rows)
         if self.inputs == "received":
             data = self._plan.features(data, t0=st.fed)
-        start = self._arena_len[st.shard] + self._pending_len
-        self._pending_rows.append(data)
-        self._pending_len += rows.shape[0]
+        start = self._arena_len[st.shard] + self._pending_len[st.shard]
+        self._pending_rows[st.shard].append(data)
+        self._pending_len[st.shard] += rows.shape[0]
         st.rows = np.concatenate(
             [st.rows, np.arange(start, start + rows.shape[0], dtype=np.int32)]
         )
         st.fed += rows.shape[0]
 
     def _flush_rows(self) -> None:
-        """Write the reserved rows into the arena, one upload for all."""
-        if not self._pending_rows:
-            return
-        block = torch.cat(self._pending_rows)
-        self._pending_rows, self._pending_len = [], 0
-        self._append_rows(0, self._upload(block.numpy()))
+        """Write the reserved rows into the arena, one upload a shard onto
+        its device."""
+        for shard, pending in enumerate(self._pending_rows):
+            if pending:
+                block = torch.cat(pending)
+                self._pending_rows[shard], self._pending_len[shard] = [], 0
+                self._append_rows(shard, self._upload(block.numpy(), self._devices[shard]))
 
     def _poll_producers(self) -> None:
         """Pull from attached producers into each stream's queue, never past
@@ -1022,22 +1135,19 @@ class StreamScheduler:
         self._maybe_compact()
 
     def _append_rows(self, shard: int, rows: torch.Tensor) -> int:
-        """Write rows into the arena's used prefix, doubling the capacity as
-        needed; returns the start row."""
+        """Write rows into a shard's used prefix, doubling the (uniform)
+        capacity as needed; returns the shard-local start row."""
         start = self._arena_len[shard]
         need = start + rows.shape[0]
-        cap = self._arena.shape[1]
+        cap = self._arena[0].shape[0]
         if need > cap:
             new_cap = max(2 * cap, need)
-            self._arena = torch.cat(
-                [
-                    self._arena,
-                    torch.zeros((self.n_shards, new_cap - cap, self._width),
-                                dtype=torch.float32, device=self.device),
-                ],
-                dim=1,
-            )
-        self._arena[shard, start:need] = rows
+            self._arena = [
+                torch.cat([slab, torch.zeros((new_cap - cap, self._width),
+                                             dtype=torch.float32, device=slab.device)])
+                for slab in self._arena
+            ]
+        self._arena[shard][start:need] = rows
         self._arena_len[shard] = need
         return start
 
@@ -1058,20 +1168,25 @@ class StreamScheduler:
             self._compact()
 
     def _compact(self) -> None:
-        cap = self._arena.shape[1]
-        parts = [torch.zeros((self.chunk, self._width), dtype=torch.float32,
-                             device=self.device)]
-        cursor = self.chunk
+        by_shard: Dict[int, List[_Stream]] = {}
         for st in self.active.values():
-            n = st.available
-            if n:
-                parts.append(self._arena[st.shard].index_select(0, self._upload(st.rows)))
-            st.rows = np.arange(cursor, cursor + n, dtype=np.int32)
-            cursor += n
-        parts.append(torch.zeros((max(cap - cursor, 0), self._width), dtype=torch.float32,
-                                 device=self.device))
-        self._arena = torch.cat(parts, dim=0)[None]
-        self._arena_len[0] = cursor
+            by_shard.setdefault(st.shard, []).append(st)
+        cap = self._arena[0].shape[0]
+        slabs = []
+        for shard, (slab, dev) in enumerate(zip(self._arena, self._devices)):
+            parts = [torch.zeros((self.chunk, self._width), dtype=torch.float32, device=dev)]
+            cursor = self.chunk
+            for st in by_shard.get(shard, ()):
+                n = st.available
+                if n:
+                    parts.append(slab.index_select(0, self._upload(st.rows, dev)))
+                st.rows = np.arange(cursor, cursor + n, dtype=np.int32)
+                cursor += n
+            parts.append(torch.zeros((max(cap - cursor, 0), self._width), dtype=torch.float32,
+                                     device=dev))
+            slabs.append(torch.cat(parts, dim=0))
+            self._arena_len[shard] = cursor
+        self._arena = slabs
         self.stats.arena_compactions += 1
 
     def _collect(self, st: _Stream) -> np.ndarray:
@@ -1080,37 +1195,41 @@ class StreamScheduler:
         ).astype(np.int32)
 
     def _reset_slot(self, slot: int) -> None:
-        # indexed writes into the carried tensors: every tick's stream_step
-        # returns fresh pm/ring/counter tensors, so nothing a caller holds
-        # from an earlier tick aliases what is overwritten here
-        self.state.pm[slot] = self._pm0_row
-        self.state.ring[:, slot] = 0
-        self.offset[slot] = 0.0
+        # indexed writes into the carried tensors (the block of the shard
+        # hosting the slot): every tick's stream_step returns fresh
+        # pm/ring/counter tensors, so nothing a caller holds from an earlier
+        # tick aliases what is overwritten here
+        shard, j = divmod(slot, self.slots_per_shard)
+        self._blocks(self.state.pm)[shard][j] = self._pm0[self._devices[shard]]
+        self._blocks(self.state.ring)[shard][:, j] = 0
+        self._blocks(self.offset)[shard][j] = 0.0
         if self._counters is not None:
             # counters reset at claim for the same reason as pm/ring: the
             # recycled slot must not leak the previous resident's statistics
             for x in self._counters:
-                x[slot] = 0
+                self._blocks(x)[shard][j] = 0
 
     def _tail_rows(self, st: _Stream) -> torch.Tensor:
         """(r, M) bm tables for a stream's remaining sub-chunk tail, gathered
         from the arena by row index (raw features go through the metric
         plan)."""
-        seg = self._arena[st.shard].index_select(0, self._upload(st.rows))
+        seg = self._arena[st.shard].index_select(
+            0, self._upload(st.rows, self._devices[st.shard]))
         if self.inputs == "received":
             return self._plan.bm_from_features(seg)
         return seg
 
     def _finish_slots(self, slots: Sequence[int]) -> None:
         """Tail-feed + final traceback for every drained stream retiring this
-        tick, then recycle the slots.  Tails are fed grouped by length (one
+        tick, then recycle the slots.  Each stream's flush runs on the shard
+        that holds its slot.  There, tails are fed grouped by length (one
         chunk_forward_scan per distinct tail length) and the final traceback
-        over all retirees runs as ONE batched stream_flush per termination
-        kind — not one dispatch per slot.  Each batched call covers only the
-        retiring rows: the reference pads them to ``n_slots`` rows so a jit
-        sees one shape, which changes no result and has no use in an eager
-        decode.  Packed survivor rings are unpacked here, once, off the hot
-        path."""
+        over the shard's retirees runs as ONE batched stream_flush per
+        termination kind — not one dispatch per slot.  Each batched call
+        covers only the retiring rows: the reference pads them to
+        ``n_slots`` rows so a jit sees one shape, which changes no result and
+        has no use in an eager decode.  Packed survivor rings are unpacked
+        here, once, off the hot path."""
         self._flush_rows()  # the tails read the arena
         with span(self._tracer, "flush"):
             self._finish_slots_traced(slots)
@@ -1120,13 +1239,48 @@ class StreamScheduler:
         if self._counters is not None:
             # retirement IS the device-counter drain point: one host read of
             # the (B,) merge-depth leaf for the whole cohort, off the hot path
-            md_last = self._counters.merge_depth_last.cpu().numpy()
+            md_last = self._host_rows(self._counters.merge_depth_last)
             for slot, _ in streams:
                 self._depth_hist.observe(int(md_last[slot]))
 
-        pm_frontier, ring = self.state
+        # retire in the reference's order: by tail length, then as given
+        by_r: Dict[int, List[Tuple[int, _Stream]]] = {}
+        for slot, st in streams:
+            by_r.setdefault(st.available, []).append((slot, st))
+        ordered = [pair for _, group in sorted(by_r.items()) for pair in group]
+        flushed: Dict[int, Tuple[np.ndarray, float]] = {}
+        for shard in sorted({st.shard for _, st in ordered}):
+            self._flush_shard(shard, [(s, st) for s, st in ordered if st.shard == shard], flushed)
+
+        R = self.depth + self.chunk
+        offset_np = self._host_rows(self.offset)  # one transfer, not one per slot
+        now = time.monotonic()
+        for slot, st in ordered:
+            bits_i, metric_i = flushed[slot]
+            n_rest = st.pos - st.committed
+            if n_rest:
+                st.out.append(bits_i[R - n_rest :])
+            st.committed = st.pos
+            self._observe_commit_latency(st, now)
+            self.results[st.stream_id] = (
+                self._collect(st), metric_i + float(offset_np[slot])
+            )
+            self.stats.streams_finished += 1
+            st.slot = None
+            del self._by_id[st.stream_id]
+            self.alloc.release(slot)  # state is re-initialized at next claim
+
+    def _flush_shard(self, shard: int, streams: Sequence[Tuple[int, _Stream]],
+                     flushed: Dict[int, Tuple[np.ndarray, float]]) -> None:
+        """Tail-feed and flush one shard's retiring streams on its device;
+        ``flushed[slot]`` receives each stream's (ring bits, relative
+        metric)."""
+        dev = self._devices[shard]
+        base = shard * self.slots_per_shard
+        pm_frontier = self._blocks(self.state.pm)[shard]
+        ring = self._blocks(self.state.ring)[shard]
         if self.packed:
-            ring = _w.unpack_ring(self.code, ring)  # (R, n_slots, S)
+            ring = _w.unpack_ring(self.code, ring)  # (R, slots_per_shard, S)
 
         # tail-feed, grouped by tail length r (each group one batched call)
         by_r: Dict[int, List[Tuple[int, _Stream]]] = {}
@@ -1136,7 +1290,7 @@ class StreamScheduler:
         pm_parts: List[torch.Tensor] = []
         ring_parts: List[torch.Tensor] = []
         for r, group in sorted(by_r.items()):
-            idx = self._upload(np.asarray([slot for slot, _ in group], dtype=np.int64))
+            idx = self._upload(np.asarray([slot - base for slot, _ in group], dtype=np.int64), dev)
             pm_g = pm_frontier[idx]  # (n, S)
             ring_g = ring[:, idx]  # (R, n, S)
             if r > 0:
@@ -1154,39 +1308,22 @@ class StreamScheduler:
 
         # one flush per termination kind (a single call in the common case
         # of uniformly-terminated streams)
-        flushed: Dict[int, Tuple[np.ndarray, float]] = {}
         for term in (True, False):
             rows = [i for i, (_, st) in enumerate(ordered) if st.terminated == term]
             if not rows:
                 continue
-            sel = self._upload(np.asarray(rows, dtype=np.int64))
+            sel = self._upload(np.asarray(rows, dtype=np.int64), dev)
             bits, metric = _w.jitted_stream_flush(self.code, terminated=term, packed=False)(
                 _w.StreamState(pm=pm_all[sel], ring=ring_all[:, sel])
             )
             bits_np, metric_np = bits.cpu().numpy(), metric.cpu().numpy()
             for k, i in enumerate(rows):
-                flushed[i] = (bits_np[k], float(metric_np[k]))
-
-        R = ring.shape[0]
-        offset_np = self.offset.cpu().numpy()  # one transfer, not one per slot
-        now = time.monotonic()
-        for i, (slot, st) in enumerate(ordered):
-            bits_i, metric_i = flushed[i]
-            n_rest = st.pos - st.committed
-            if n_rest:
-                st.out.append(bits_i[R - n_rest :])
-            st.committed = st.pos
-            self._observe_commit_latency(st, now)
-            self.results[st.stream_id] = (
-                self._collect(st), metric_i + float(offset_np[slot])
-            )
-            self.stats.streams_finished += 1
-            st.slot = None
-            del self._by_id[st.stream_id]
-            self.alloc.release(slot)  # state is re-initialized at next claim
+                flushed[ordered[i][0]] = (bits_np[k], float(metric_np[k]))
 
 
-def _gather_block(arena: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The tick's decode block: arena rows ``idx`` (n_slots, chunk) ->
-    (n_slots, chunk, width), one ``index_select``."""
-    return arena[0].index_select(0, idx.reshape(-1)).reshape(*idx.shape, arena.shape[2])
+def _gather_block(arena: Sequence[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
+    """The tick's decode block of an unsharded scheduler: rows ``idx``
+    (n_slots, chunk) of its one arena slab -> (n_slots, chunk, width), one
+    ``index_select``."""
+    slab = arena[0]
+    return slab.index_select(0, idx.reshape(-1)).reshape(*idx.shape, slab.shape[1])

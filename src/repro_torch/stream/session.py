@@ -17,6 +17,10 @@ the chunk must be a multiple of 32 and the depth is rounded up to one.
 
 The session lives on one device, chosen at construction (``device="cuda"``
 by default, which raises without a card); every pushed chunk is moved there.
+Given ``mesh=``, the batch is split over the shards of ``mesh_axis``
+instead: the carried state is in ``window.state_shardings``'s layout (each
+shard's rows on its device), each push runs ``stream_step`` once per shard
+on its rows, and the bits come back on the mesh's first device.
 
 Typical use:
 
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.trellis import ConvCode
@@ -37,6 +42,7 @@ from repro_torch.decode.spec import CodecSpec
 from repro_torch.kernels.common import resolve_device
 from repro_torch.obs import Telemetry
 from repro_torch.obs.trace import span
+from repro_torch.parallel.collectives import gather
 from repro_torch.stream import window as _w
 
 
@@ -71,15 +77,18 @@ class StreamSession:
         'received' (fused_packed only) — push takes raw (B, chunk, n_out)
         channel symbols and the kernel computes the metrics.
       normalize: renormalize path metrics every chunk.
-      mesh: not ported yet — anything but None raises.
-      mesh_axis: the reference's mesh axis name, taken for its signature;
-        unused while ``mesh`` is None.
+      mesh: optional parallel.Mesh — carry the state as per-shard blocks
+        partitioned along ``mesh_axis`` (batch must divide evenly); each
+        push's rows go to their shard's device.
+      mesh_axis: mesh axis the batch is sharded over (default 'data').
       telemetry: obs.Telemetry bundle — an attached tracer records ``push``
         / ``finish`` spans; ``device_counters=True`` carries DeviceCounters
         through every push, read back only by :meth:`device_counter_report`.
       validate: reject non-finite chunks at push/finish time (one
         device-to-host sync per push).
-      device: where the state lives and the kernels run.
+      device: where the state lives and the kernels run; with a mesh, the
+        mesh's devices must be of its type, and the mesh's first device is
+        where inputs arrive and bits come back.
     """
 
     def __init__(
@@ -97,11 +106,6 @@ class StreamSession:
         validate: bool = True,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamSession(mesh=...) is not ported to repro_torch yet "
-                "(ROADMAP.md queue 1, item 9b)"
-            )
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         self.validate = bool(validate)
@@ -115,6 +119,7 @@ class StreamSession:
         if self.depth < 1:
             raise ValueError("depth must be >= 1")
         self.backend = backend
+        self.normalize = normalize
         self.inputs = inputs
         self.packed, self.depth, self._plan, self._weights = _w.resolve_stream_backend(
             self.spec, chunk, self.depth, backend, inputs, self.device
@@ -125,6 +130,19 @@ class StreamSession:
         #: the ring holds packed words (True until an odd tail unpacks it)
         self._ring_packed = self.packed
         self.offset = torch.zeros((batch,), dtype=torch.float32, device=self.device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self._rows = None  # the layout of the batch rows on a mesh
+        if mesh is not None:
+            self._rows = _w.mesh_slot_rows(mesh, mesh_axis, batch, "batch", self.device)
+            self.device = self._rows.devices[0]
+            self.state = _w.shard_stream_state(mesh, mesh_axis, self.state)
+            self.offset = self._rows.split(self.offset)
+            # the packed backend's weights on each shard's device
+            self._shard_weights = [
+                None if self._weights is None else tuple(w.to(d) for w in self._weights)
+                for d in self._rows.devices
+            ]
         self.t = 0  # trellis steps pushed so far
         self.committed = 0  # bits already handed to the caller
         self.closed = False
@@ -136,6 +154,8 @@ class StreamSession:
             if self.telemetry.device_counters
             else None
         )
+        if self._counters is not None and self._rows is not None:
+            self._counters = _w.DeviceCounters(*map(self._rows.split, self._counters))
 
     @property
     def ring_size(self) -> int:
@@ -170,13 +190,24 @@ class StreamSession:
             chunk_data = self._plan.features(chunk_data, t0=self.t)
         weights = self._weights if self.packed else None
         with span(self._tracer, "push"):
-            if self._counters is not None:
-                self.state, bits, delta, self._counters = self._step(
-                    self.state, chunk_data, weights, counters=self._counters
+            if self._rows is not None:
+                out = _w.step_shards(
+                    self.code, self.state, self._rows.split(chunk_data), self._shard_weights,
+                    backend=self.backend, normalize=self.normalize, counters=self._counters,
                 )
+                self.state, bits, delta = out[:3]
+                if self._counters is not None:
+                    self._counters = out[3]
+                self.offset = tuple(o + d for o, d in zip(self.offset, delta))
+                bits = gather(self.mesh, self.mesh_axis, bits).reshape(self.batch, -1)
             else:
-                self.state, bits, delta = self._step(self.state, chunk_data, weights)
-        self.offset = self.offset + delta
+                if self._counters is not None:
+                    self.state, bits, delta, self._counters = self._step(
+                        self.state, chunk_data, weights, counters=self._counters
+                    )
+                else:
+                    self.state, bits, delta = self._step(self.state, chunk_data, weights)
+                self.offset = self.offset + delta
         self.t += self.chunk
         committable = max(0, self.t - self.depth)
         n_new = committable - self.committed
@@ -217,25 +248,43 @@ class StreamSession:
             if self.validate:
                 _require_finite(bm_tail, "the finish() tail")
             tail_bm = self._tail_bm(bm_tail)
-            ring = self.state.ring
-            if self._ring_packed:
-                # word shifts can't absorb an odd tail: unpack once, off the
-                # hot path — the flush runs on the unpacked ring.
-                ring = _w.unpack_ring(self.code, ring)
-                self._ring_packed = False
-            new_pm, bps = _w.jitted_chunk_forward(self.code)(self.state.pm, tail_bm)
-            ring = torch.cat([ring[r:], bps], dim=0)
-            self.state = _w.StreamState(pm=new_pm, ring=ring)
+            if self._rows is not None:
+                fed = [self._feed_tail(pm, ring, tail) for pm, ring, tail in
+                       zip(self.state.pm, self.state.ring, self._rows.split(tail_bm))]
+                self.state = _w.StreamState(pm=tuple(f[0] for f in fed),
+                                            ring=tuple(f[1] for f in fed))
+            else:
+                self.state = _w.StreamState(*self._feed_tail(*self.state, tail_bm))
+            # word shifts can't absorb an odd tail: the ring was unpacked
+            # once, off the hot path — the flush runs on the unpacked ring
+            self._ring_packed = False
             self.t += r
         with span(self._tracer, "finish"):
-            bits, metric = _w.jitted_stream_flush(
-                self.code, terminated=terminated, packed=self._ring_packed
-            )(self.state)
+            flush = _w.jitted_stream_flush(self.code, terminated=terminated,
+                                           packed=self._ring_packed)
+            if self._rows is not None:
+                # each shard flushes its rows; results on the first device
+                outs = [flush(_w.StreamState(pm=pm, ring=ring))
+                        for pm, ring in zip(self.state.pm, self.state.ring)]
+                bits = gather(self.mesh, self.mesh_axis, [o[0] for o in outs])
+                bits = bits.reshape(self.batch, -1)
+                metric = gather(self.mesh, self.mesh_axis, [o[1] for o in outs]).reshape(-1)
+                offset = gather(self.mesh, self.mesh_axis, self.offset).reshape(-1)
+            else:
+                (bits, metric), offset = flush(self.state), self.offset
         n_rest = self.t - self.committed
         self.committed = self.t
         self.closed = True
         R = bits.shape[1]
-        return (bits[:, R - n_rest:] if n_rest else bits[:, :0]), metric + self.offset
+        return (bits[:, R - n_rest:] if n_rest else bits[:, :0]), metric + offset
+
+    def _feed_tail(self, pm: torch.Tensor, ring: torch.Tensor, tail_bm: torch.Tensor):
+        """Advance (pm, ring) of some rows over an odd-length tail of bm
+        tables; the ring comes back unpacked."""
+        if self._ring_packed:
+            ring = _w.unpack_ring(self.code, ring)
+        new_pm, bps = _w.jitted_chunk_forward(self.code)(pm, tail_bm)
+        return new_pm, torch.cat([ring[tail_bm.shape[1]:], bps], dim=0)
 
     def device_counter_report(self) -> dict:
         """Read the per-row device counters back (one transfer per field,
@@ -246,8 +295,10 @@ class StreamSession:
                 "device counters are off — construct the session with "
                 "telemetry=Telemetry(device_counters=True)"
             )
+        blocks = (lambda x: x) if self._rows is not None else (lambda x: (x,))
         leaves = {
-            name: x.cpu().numpy() for name, x in zip(_w.DeviceCounters._fields, self._counters)
+            name: np.concatenate([b.cpu().numpy() for b in blocks(x)])
+            for name, x in zip(_w.DeviceCounters._fields, self._counters)
         }
         ticks = leaves["ticks"].clip(min=1)
         out = {name: x.tolist() for name, x in leaves.items()}

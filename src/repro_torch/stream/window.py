@@ -5,8 +5,7 @@ so a decoder that traces back D steps from the current best state and
 commits everything older is within noise of the full-block optimum and needs
 O(D) memory for a stream of any length.
 
-This module is the core shared by sessions (and, in a later slice, the
-scheduler):
+This module is the core shared by sessions and the scheduler:
 
   StreamState     carried across chunks: path metrics (B, S) and a
                   backpointer ring — (R, B, S) int32 for the unpacked
@@ -36,13 +35,18 @@ Exactness: when depth >= T nothing commits before the flush, the ring holds
 the whole history, and the flush traceback from the terminated state IS the
 full-block Viterbi traceback.
 
-The mesh parts of the reference (``state_shardings``, ``shard_stream_state``,
-``make_sharded_stream_step``) are not ported yet (ROADMAP queue 1, item 9).
+On a device mesh (parallel/mesh.py, one controlling process) a state's slot
+rows are cut into contiguous per-shard blocks, each on its shard's device
+(``state_shardings``, ``shard_stream_state``), and the tick of the sharded
+scheduler (``make_sharded_stream_step``) runs the gather and ``stream_step``
+once per shard on that shard's device, with no transfer between shards:
+slots are independent streams.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -311,6 +315,190 @@ def stream_step(
         renorm_sum=counters.renorm_sum + delta.abs().to(torch.float32),
     )
     return new_state, committed, delta, counters
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotShards:
+    """Where the slot rows of a tensor live on a mesh: its ``dim`` axis is
+    cut into ``len(devices)`` contiguous equal blocks, block i on
+    ``devices[i]`` — the counterpart of the reference's NamedSharding with
+    the mesh axis at ``dim``.  A tensor in this layout is the tuple of its
+    blocks."""
+
+    devices: Tuple[torch.device, ...]
+    dim: int
+
+    def split(self, x) -> Tuple[torch.Tensor, ...]:
+        """``x`` in this layout.  A whole tensor is cut into copies of its
+        blocks on their devices (its ``dim`` must divide evenly); a sequence
+        of blocks is kept, each moved only if it is not on its device."""
+        n = len(self.devices)
+        if isinstance(x, (tuple, list)):
+            if len(x) != n:
+                raise ValueError(f"{len(x)} blocks for {n} shards")
+            return tuple(b.to(d) for b, d in zip(x, self.devices))
+        size = x.shape[self.dim]
+        if size % n:
+            raise ValueError(f"dim {self.dim} of {tuple(x.shape)} does not divide over {n} shards")
+        k = size // n
+        return tuple(x.narrow(self.dim, i * k, k).to(d, copy=True).contiguous()
+                     for i, d in enumerate(self.devices))
+
+
+def mesh_slot_rows(mesh, axis: str, n_rows: int, what: str, device) -> SlotShards:
+    """The slot-row layout of a stream component (a scheduler's slot table,
+    a session's batch) of ``n_rows`` rows, named ``what`` in errors, on
+    ``mesh``: a repro_torch Mesh with ``axis``, whose shards ``n_rows``
+    divides and whose devices are of ``device``'s type — raises otherwise."""
+    from repro_torch.parallel.collectives import mesh_axis_size
+    from repro_torch.parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.parallel.Mesh, got {type(mesh).__name__}")
+    n = mesh_axis_size(mesh, axis)
+    if not n:
+        raise ValueError(f"mesh has no {axis!r} axis: {mesh}")
+    if n_rows % n:
+        raise ValueError(f"{what}={n_rows} must divide evenly over the {n} shards of mesh "
+                         f"axis {axis!r}")
+    if mesh.device_type != torch.device(device).type:
+        raise ValueError(f"mesh devices are {mesh.device_type!r} but the stream's device is "
+                         f"{str(device)!r}")
+    return SlotShards(mesh.shard_devices(axis), 0)
+
+
+def state_shardings(mesh, axis: str) -> StreamState:
+    """The layouts that cut a StreamState along its batch/slot dimension over
+    the ``axis`` shards of ``mesh``: pm (B, S) on dim 0, ring (R, B, S) on
+    dim 1.  Every mesh-aware stream component (sessions, the sharded
+    scheduler) shares it, so carried states move between them as they are."""
+    devices = mesh.shard_devices(axis)
+    return StreamState(pm=SlotShards(devices, 0), ring=SlotShards(devices, 1))
+
+
+def shard_stream_state(mesh, axis: str, state: StreamState) -> StreamState:
+    """``state`` in the per-shard layout: a StreamState whose pm and ring are
+    tuples of per-shard blocks (no-op when it is already there)."""
+    sh = state_shardings(mesh, axis)
+    return StreamState(pm=sh.pm.split(state.pm), ring=sh.ring.split(state.ring))
+
+
+def step_shards(
+    code: ConvCode,
+    state: StreamState,
+    blocks: Sequence[torch.Tensor],
+    weights: Sequence,
+    active: Optional[Sequence[torch.Tensor]] = None,
+    backend: str = "fused",
+    normalize: bool = True,
+    counters: Optional[DeviceCounters] = None,
+):
+    """``stream_step`` once per shard, each on its shard's device and its
+    own rows: ``state`` and ``counters`` hold per-shard blocks, ``blocks``
+    the shards' (rows, C, ·) inputs, ``weights`` each shard's weights (None
+    entries for the bm-table weights), ``active`` each shard's mask.  Nothing
+    moves between shards.  Returns stream_step's outputs with every tensor a
+    tuple of per-shard blocks."""
+    outs = [
+        stream_step(
+            code, StreamState(pm=pm, ring=ring), x, weights=w,
+            active=None if active is None else active[i], backend=backend,
+            normalize=normalize,
+            counters=None if counters is None else DeviceCounters(*(c[i] for c in counters)),
+        )
+        for i, (pm, ring, x, w) in enumerate(zip(state.pm, state.ring, blocks, weights))
+    ]
+    new_state = StreamState(pm=tuple(o[0].pm for o in outs), ring=tuple(o[0].ring for o in outs))
+    bits, delta = tuple(o[1] for o in outs), tuple(o[2] for o in outs)
+    if counters is None:
+        return new_state, bits, delta
+    return new_state, bits, delta, DeviceCounters(*zip(*(o[3] for o in outs)))
+
+
+#: (code, mesh, axis, chunk, backend, normalize, device_metrics) -> tick;
+#: see make_sharded_stream_step (only weight-free configs are memoized).
+_SHARDED_STEP_CACHE: dict = {}
+
+
+def make_sharded_stream_step(
+    code: ConvCode,
+    mesh,
+    axis: str,
+    *,
+    chunk: int,
+    backend: str = "fused",
+    normalize: bool = True,
+    weights=None,
+    device_metrics: bool = False,
+):
+    """Build the mesh-sharded per-tick update for the stream scheduler.
+
+    One scheduler spans the ``axis`` (``data``) shards of ``mesh``: each
+    shard holds a contiguous block of decode slots, its own input-arena slab
+    and its block of the path metrics and survivor ring, and the tick — arena
+    gather, forward scan, in-window traceback — runs once per shard on that
+    shard's device (a Python loop over ``mesh.shard_devices(axis)``, the
+    reference's shard_map).  There is NO transfer between shards: slots are
+    independent streams.
+
+    Returns ``tick(arena, idx, active, state) -> (state, bits, delta)``:
+    ``arena`` the per-shard slabs (cap, W), ``idx`` the (n_slots, chunk)
+    shard-LOCAL arena rows each slot decodes this tick (idle or starved slots
+    point at the zero prefix) and ``active`` the (n_slots,) mask of slots
+    whose state advances, each whole or already cut into per-shard blocks;
+    ``state`` in the ``state_shardings`` layout.  Every output is a tuple of
+    per-shard blocks.  With ``device_metrics=True`` the tick takes and
+    returns DeviceCounters of per-shard blocks too: ``tick(arena, idx,
+    active, state, counters) -> (state, bits, delta, counters)``.
+
+    ``weights``: the ``fused_packed`` backend's folded metric weights for
+    raw-symbol inputs (None: the bm-table weights), copied once to each
+    shard's device here.  Weight-free ticks are memoized on the static
+    configuration, so schedulers on the same (code, mesh, ...) share one.
+    """
+    cache_key = None
+    if weights is None:
+        cache_key = (code, mesh, axis, chunk, backend, normalize, device_metrics)
+        cached = _SHARDED_STEP_CACHE.get(cache_key)
+        if cached is not None:
+            return cached
+    if backend not in BACKENDS:
+        raise KeyError(backend)
+    layout = state_shardings(mesh, axis)
+    rows = layout.pm  # idx, active, counters, bits and delta: slot rows on dim 0
+    packed = backend == PACKED_BACKEND
+    shard_weights = [
+        tuple(w.to(d) for w in weights) if packed and weights is not None else None
+        for d in rows.devices
+    ]
+
+    def run(arena, idx, active, state, counters):
+        if len(arena) != len(rows.devices):
+            raise ValueError(f"{len(arena)} arena slabs for {len(rows.devices)} shards")
+        blocks = [
+            slab.index_select(0, i.reshape(-1)).reshape(*i.shape, slab.shape[-1])
+            for slab, i in zip(arena, rows.split(idx))
+        ]
+        return step_shards(
+            code, shard_stream_state(mesh, axis, state), blocks, shard_weights,
+            active=rows.split(active), backend=backend, normalize=normalize,
+            counters=counters,
+        )
+
+    if device_metrics:
+
+        def tick(arena, idx, active, state: StreamState, counters: DeviceCounters):
+            return run(arena, idx, active, state,
+                       DeviceCounters(*(rows.split(c) for c in counters)))
+
+    else:
+
+        def tick(arena, idx, active, state: StreamState):
+            return run(arena, idx, active, state, None)
+
+    if cache_key is not None:
+        _SHARDED_STEP_CACHE[cache_key] = tick
+    return tick
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,7 @@
 """Training runtime: optimizers, the train-step builder, the fault-tolerant
-loop, async checkpointing, straggler detection.  On one device; a device
-mesh (``elastic_mesh``, sharded steps) waits for ROADMAP item 9b."""
+loop, async checkpointing, straggler detection and the elastic mesh
+rebuild (``fault_tolerance.elastic_mesh``).  The step runs on one device;
+sharded steps wait for ROADMAP item 9b."""
 from repro_torch.train.fault_tolerance import StragglerDetector
 from repro_torch.train.optimizer import adafactor, adamw, cosine_warmup
 from repro_torch.train.train_loop import make_train_step, train

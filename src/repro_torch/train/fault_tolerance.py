@@ -1,10 +1,10 @@
-"""Fault-tolerance utilities: straggler detection.
+"""Fault-tolerance utilities: straggler detection and elastic mesh rebuild.
 
 Per-step time is the cheapest health signal a loop has: a straggling host or
 a slow scheduler tick shows up as a step-time outlier long before anything
 fails.  The detector keeps an EMA of step time and variance and flags
-z-score outliers.  ``elastic_mesh`` (rebuilding a device mesh over the
-surviving devices) waits for the multi-device work (ROADMAP queue 1, item 9b).
+z-score outliers; the mitigation is to snapshot and restart onto the
+surviving devices (``elastic_mesh``).
 """
 from __future__ import annotations
 
@@ -45,3 +45,29 @@ class StragglerDetector:
             self.mean = self.decay * self.mean + (1 - self.decay) * dt
             self.var = self.decay * self.var + (1 - self.decay) * (dt - self.mean) ** 2
         return is_straggler
+
+
+def elastic_mesh(prefer_shape, axes, devices=None):
+    """Build the largest mesh of the preferred shape that the surviving
+    device set supports, halving the *leading* (data-parallel) axis first —
+    a snapshot restored onto the result resumes with reduced throughput
+    instead of failing.  ``devices``: the survivors (repeats allowed), else
+    the visible cards; an empty set raises ``ValueError``.  Returns a
+    ``repro_torch.parallel.Mesh``."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import visible_cards
+    from repro_torch.parallel.mesh import Mesh
+
+    devices = list(devices if devices is not None else visible_cards())
+    if not devices:
+        raise ValueError("elastic_mesh: no devices to build a mesh on")
+    shape = list(prefer_shape)
+    while shape[0] > 1 and math.prod(shape) > len(devices):
+        shape[0] //= 2
+    if math.prod(shape) > len(devices):
+        # drop axes entirely until it fits (last resort: single device)
+        shape = [1] * len(prefer_shape)
+    cells = np.empty(math.prod(shape), dtype=object)
+    cells[:] = devices[:cells.size]
+    return Mesh(cells.reshape(shape), tuple(axes))

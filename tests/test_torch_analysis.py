@@ -75,12 +75,21 @@ def test_stream_entry_points_take_mesh_axis():
                      StreamScheduler.restore(snap, mesh_axis="data", device="cpu")):
         assert restored.n_slots == 2 and "a" in restored._by_id
     StreamSession(CODE_K3_STD, batch=2, chunk=8, device="cpu", mesh_axis="data")
-    # a mesh still raises, naming the item that ports it
+    # a mesh runs, sharded along mesh_axis (tests/test_torch_sharded_stream.py);
+    # anything but a repro_torch Mesh is refused by type
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 1), ("data", "model"), devices=["cpu"] * 2)
+    for restored in (restore_scheduler(snap, mesh=mesh, mesh_axis="data", device="cpu"),
+                     StreamScheduler.restore(snap, mesh=mesh, mesh_axis="data", device="cpu")):
+        assert restored.n_shards == 2 and "a" in restored._by_id
+    assert StreamSession(CODE_K3_STD, batch=2, chunk=8, device="cpu", mesh=mesh,
+                         mesh_axis="data").mesh is mesh
     for make in (lambda: StreamScheduler(CODE_K3_STD, device="cpu", mesh=object(),
                                          mesh_axis="data"),
                  lambda: StreamSession(CODE_K3_STD, device="cpu", mesh=object()),
                  lambda: restore_scheduler(snap, mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 9b"):
+        with pytest.raises(TypeError, match="Mesh"):
             make()
 
 
@@ -399,6 +408,28 @@ def test_collective_outside_the_allowlist(tmp_path):
         dist.destroy_process_group()
 
 
+def test_mesh_collective_outside_the_allowlist_is_flagged():
+    """A catalog entry's check counts the calls into parallel/collectives.py
+    during the traced call: a path that gathers over its mesh breaks a
+    comms-free contract, and passes once the contract allowlists the
+    gather."""
+    from repro_torch.analysis.hotpaths import HotPath, _check_one, _contract
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives
+
+    mesh = make_mesh((2,), ("data",), devices=["cpu"] * 2)
+
+    def build(device):
+        return (lambda x: collectives.gather(mesh, "data", [x, x + 1])), (torch.ones(3),)
+
+    for allowed, kinds in ((frozenset(), ["collective"]), (frozenset({"gather"}), [])):
+        path = HotPath(name="gathers", backend="sequential",
+                       contract=_contract("gathers", allowed_collectives=allowed), build=build)
+        entry = _check_one(path, torch.device("cpu"))
+        assert [v.kind for v in entry["violations"]] == kinds
+        assert entry["collectives"] == {"gather": 1}
+
+
 # --------------------------------------------------------------------------- #
 # runtime guards                                                               #
 # --------------------------------------------------------------------------- #
@@ -491,11 +522,14 @@ def test_every_registered_backend_is_checked_and_clean_on_the_cpu():
         assert problems(entry, "cpu") == [], name
         assert entry["host_syncs"] <= entry["max_host_syncs"], name
     assert report["stream_tick"]["host_syncs"] == 1  # the committed bits
-    # the one entry still not ported: it raises naming 9b, and runs no op
+    # the sharded tick runs the packed tick's kernels (plain here), with no
+    # host sync and no collective: no transfer between shards
     sharded = report["sharded_stream_tick"]
-    assert sharded["ops"] == 0 and sharded["violations"] == []
+    assert sharded["violations"] == [] and sharded["collectives"] == {}
+    assert sharded["host_syncs"] == sharded["max_host_syncs"] == 0
+    assert sharded["plain"] == {"viterbi_scan_packed_carry": 1, "traceback_packed": 1}
     for name in ("sequential", "fused", "fused_packed", "tiled", "parallel", "seqparallel",
-                 "bcjr", "turbo_iteration", "stream_tick"):
+                 "bcjr", "turbo_iteration", "stream_tick", "sharded_stream_tick"):
         assert report[name]["ops"] > 0, name
     # seqparallel runs for real: the plain versions of the kernels its
     # contract names, no host sync (its bound), no violation
@@ -515,7 +549,10 @@ def test_catalog_contracts_are_strict_and_their_sync_lines_current():
                     bcjr.BETA_NAME, minplus.NAME}
     for hp in hot_path_catalog():
         c = hp.contract
-        assert c.allowed_collectives == frozenset(), hp.name
+        # seqparallel gathers its shards' transfer matrices (the reference
+        # allowlists its all_gather too); every other path is comms-free
+        want = frozenset({"all_gather"}) if hp.name == "seqparallel" else frozenset()
+        assert c.allowed_collectives == want, hp.name
         assert set(c.kernels) <= kernel_names, hp.name
         assert len(c.sync_sites) <= c.max_host_syncs
         for site in c.sync_sites:

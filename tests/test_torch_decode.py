@@ -28,10 +28,12 @@ torch.set_num_threads(1)
 
 CPU = PD.DecodeContext(device="cpu")
 GRID_CODES = {"k3": (3, (0b111, 0b101)), "k7": (7, (0o171, 0o133))}
-NOT_PORTED = ("sharded_stream",)
-#: the mesh backend that runs (its parity with the reference's shard-by-shard
-#: composition: tests/test_torch_mesh.py)
-MESH_PORTED = ("seqparallel",)
+#: every registered backend runs: none raises for want of a port
+NOT_PORTED = ()
+#: the mesh backends (seqparallel's parity with the reference's shard-by-shard
+#: composition: tests/test_torch_mesh.py; sharded_stream's grid against the
+#: reference's viterbi_decode: tests/test_torch_sharded_stream.py)
+MESH_PORTED = ("seqparallel", "sharded_stream")
 #: conv backends that raised in the first slice and run now (the SISO
 #: backends bcjr and turbo: tests/test_torch_siso.py; the parallel grid:
 #: tests/test_torch_parallel.py)
@@ -216,33 +218,29 @@ def test_expected_backends_are_the_registry_and_each_rides_a_grid_leg():
     assert legs == set(EXPECTED_BACKENDS)
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_backends_not_ported_raise_by_name(name):
-    _, pspec = _specs("k3", "hard", False, True)
-    bm = torch.zeros((2, 10, pspec.table_width))
-    dec = PD.get_decoder(name)
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.*item 9b"):
-        dec(pspec, bm, ctx=CPU)
-    if dec.from_received is not None:
-        with pytest.raises(NotImplementedError, match=name):
-            dec.decode_received(pspec, torch.zeros((2, 10, 2)), ctx=CPU)
-
-
 @pytest.mark.parametrize("name", MESH_PORTED)
 def test_mesh_route_runs_on_a_cpu_mesh_and_matches_reference(name):
-    """The reference's own seqparallel entry fails under this jax before it
-    computes anything (shard_map's replication check), so the entry is held
-    against the reference's sequential decode here, bits and hard metric."""
+    """The reference's own mesh entries fail under this jax before they
+    compute anything (shard_map's replication check; the sharded scheduler's
+    ShardingTypeError), so each entry is held against the reference's
+    sequential decode here, bits and hard metric: seqparallel over 4 time
+    shards, sharded_stream over 4 slot shards at a window deeper than T."""
     from repro_torch.launch.mesh import make_mesh
 
     rspec, pspec = _specs("k7", "hard", False, False)
     _, rx = _grid_inputs(pspec, seed=9, n_info=32)  # T = 32: 8 steps a shard
     bm = np.array(rspec.branch_metrics(jnp.asarray(rx)))
     ref_bits, ref_metric = r_viterbi_decode(rspec.code, jnp.asarray(bm), terminated=False)
-    mesh = make_mesh((1, 4), ("data", "model"), devices=["cpu"] * 4)
-    ctx = dataclasses.replace(CPU, mesh=mesh)
+    if name == "seqparallel":
+        mesh = make_mesh((1, 4), ("data", "model"), devices=["cpu"] * 4)
+        want = {"backend": name, "mesh_axis": "model", "mesh_size": 4}
+    else:
+        mesh = make_mesh((4, 1), ("data", "model"), devices=["cpu"] * 4)
+        want = {"backend": name, "shards": 4, "batch_axis": "data", "n_slots": 4,
+                "depth": 32, "hot_loop": "fused_packed"}
+    ctx = dataclasses.replace(CPU, mesh=mesh, chunk=32, stream_depth=32)
     res = PD.get_decoder(name)(pspec, torch.from_numpy(bm), ctx=ctx)
-    assert res.diagnostics == {"backend": name, "mesh_axis": "model", "mesh_size": 4}
+    assert res.diagnostics == want
     np.testing.assert_array_equal(res.bits.numpy(), np.asarray(ref_bits))
     np.testing.assert_array_equal(res.path_metric.numpy(), np.asarray(ref_metric))
 

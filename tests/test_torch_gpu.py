@@ -1015,13 +1015,121 @@ def test_scheduler_snapshot_on_card_restores_on_card(card, backend, inputs):
 
 
 # --------------------------------------------------------------------------- #
+# the slot-sharded scheduler on meshes of the card                             #
+# --------------------------------------------------------------------------- #
+
+
+def _sharded(spec, backend, inputs, devices, **kw):
+    """The ``_scheduler`` configuration over a (len(devices), 1) (data,
+    model) mesh: 3 slots a shard."""
+    from repro_torch.stream import StreamScheduler
+
+    mesh = make_mesh((len(devices), 1), ("data", "model"), devices=devices)
+    return StreamScheduler(spec, n_slots=3 * len(devices),
+                           chunk=64 if backend == "fused_packed" else 32, backend=backend,
+                           inputs=inputs, mesh=mesh, device="cuda", **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_counters", [False, True])
+@pytest.mark.parametrize("backend,inputs", [("fused_packed", "received"), ("fused", "bm")])
+def test_sharded_scheduler_steady_tick_syncs_once(card, backend, inputs, device_counters):
+    """Over a (2, 1) mesh of the card the tick still makes ONE synchronizing
+    call — the copy of every shard's bits, gathered onto the mesh's first
+    device — device counters on or off, producers feeding every tick."""
+    from repro_torch.obs import Telemetry
+
+    spec = CodecSpec(code=CODE_K7_NASA)
+    sched = _sharded(spec, backend, inputs, [card, card],
+                     telemetry=Telemetry(device_counters=device_counters))
+    for sid, table in _sched_rows(spec, inputs, 6, 23).items():
+        sched.open_stream(sid, producer=_arrivals(np.concatenate([table] * 8, axis=0)))
+    sched.step()  # warm: builds and first launches land before the count
+    sched.step()
+    assert _syncs_per_tick(sched, 4) == [1, 1, 1, 1]
+    assert len(sched.active) == 6 and sched.stats.ticks == 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,inputs,kernels", [
+    ("fused_packed", "received", ("viterbi_scan_packed_carry", "traceback_packed")),
+    ("fused", "bm", ("viterbi_scan_carry",)),
+])
+def test_sharded_scheduler_launches_per_shard_and_matches_one_device(card, backend, inputs,
+                                                                     kernels):
+    """Every tick launches the hot loop's kernels once per shard and no plain
+    version; every stream equals a one-card scheduler's with the same 9
+    slots, and the same sharded scheduler's on a CPU mesh (the plain
+    versions)."""
+    from repro_torch.stream import StreamScheduler
+
+    spec = CodecSpec(code=CODE_K7_NASA, metric="soft")
+    rows = _sched_rows(spec, inputs, 8, 25)
+    reset_counts()
+    sharded = _sharded(spec, backend, inputs, [card] * 3)
+    _drive(sharded, rows)
+    torch.cuda.synchronize()
+    for k in kernels:
+        assert launch_counts[k] == 3 * sharded.stats.ticks > 0, k
+    assert not plain_counts
+    one_card = StreamScheduler(spec, n_slots=9, chunk=sharded.chunk, backend=backend,
+                               inputs=inputs, device="cuda")
+    on_cpu = StreamScheduler(spec, n_slots=9, chunk=sharded.chunk, backend=backend,
+                             inputs=inputs, device="cpu",
+                             mesh=make_mesh((3, 1), ("data", "model"), devices=["cpu"] * 3))
+    for other in (one_card, on_cpu):
+        _drive(other, rows)
+        assert other.results.keys() == sharded.results.keys()
+        for sid, (bits, metric) in sharded.results.items():
+            assert (bits == other.results[sid][0]).all() and metric == other.results[sid][1]
+
+
+@pytest.mark.gpu
+def test_sharded_scheduler_state_lives_on_its_shards_cards(card):
+    """Over cuda:0 and cuda:1 each shard's pm, ring, offsets and arena slab
+    lie on its own card; a snapshot restored over the two cards the other
+    way round runs to the end there, every stream equal to a one-card
+    scheduler's, and cuda:0 stays current.  Skips below two cards."""
+    from repro_torch.stream import StreamScheduler
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    first, second = torch.device("cuda", 0), torch.device("cuda", 1)
+    torch.cuda.set_device(first)
+    spec = CodecSpec(code=CODE_K7_NASA)
+    rows = _sched_rows(spec, "received", 6, 26)
+    sched = _sharded(spec, "fused_packed", "received", [first, second])
+    producers = {sid: _arrivals(table) for sid, table in rows.items()}
+    for sid, prod in producers.items():
+        sched.open_stream(sid, producer=prod)
+    for _ in range(3):
+        sched.step()
+    for blocks in (sched.state.pm, sched.state.ring, sched.offset, sched._arena):
+        assert [b.device for b in blocks] == [first, second]
+    snap = sched.snapshot()
+    restored = StreamScheduler.restore(
+        snap, mesh=make_mesh((2, 1), ("data", "model"), devices=[second, first]))
+    assert [b.device for b in restored.state.pm] == [second, first]
+    for im in snap.active + snap.pending:
+        if not im.closed:
+            restored.attach_producer(im.stream_id, producers[im.stream_id])
+    restored.run()
+    assert torch.cuda.current_device() == 0
+    one_card = StreamScheduler(spec, n_slots=6, chunk=64, backend="fused_packed",
+                               inputs="received", device="cuda")
+    _drive(one_card, rows)
+    for sid, (bits, metric) in one_card.results.items():
+        assert (restored.results[sid][0] == bits).all() and restored.results[sid][1] == metric
+
+
+# --------------------------------------------------------------------------- #
 # every backend on the card; the analysis layer; the paper's baseline         #
 # --------------------------------------------------------------------------- #
 
 #: every registered backend a card test decodes (the repo linter's RPR004
-#: card leg); sharded_stream raises (ROADMAP item 9b) and is exempt there
+#: card leg)
 CARD_BACKENDS = ("bcjr", "fused", "fused_packed", "parallel", "seqparallel", "sequential",
-                 "streaming", "tiled", "turbo")
+                 "sharded_stream", "streaming", "tiled", "turbo")
 #: the kernels one decode of each backend launches on the card
 CARD_BACKEND_KERNELS = {
     "bcjr": {"bcjr_alpha_scan", "bcjr_beta_llr_scan"},
@@ -1033,6 +1141,8 @@ CARD_BACKEND_KERNELS = {
     "seqparallel": {"viterbi_scan_packed_window", "minplus_matmul", "viterbi_scan_carry",
                     "traceback_packed"},
     "sequential": set(),
+    # 12 streams over 2 slot shards, chunk 32: the packed tick
+    "sharded_stream": {"viterbi_scan_packed_carry", "traceback_packed"},
     "streaming": {"viterbi_scan_carry"},
     "tiled": {"viterbi_scan_packed_window", "traceback_packed_window"},
     "turbo": {"bcjr_alpha_scan", "bcjr_beta_llr_scan"},
@@ -1058,6 +1168,8 @@ def test_every_backend_decodes_on_card_as_on_cpu(card, backend):
     mesh = {"cuda": None, "cpu": None}
     if backend == "seqparallel":
         mesh = {d: make_mesh((2,), ("model",), devices=[d, d]) for d in ("cuda", "cpu")}
+    if backend == "sharded_stream":
+        mesh = {d: make_mesh((2, 1), ("data", "model"), devices=[d, d]) for d in ("cuda", "cpu")}
     reset_counts()
     on_card = decode(DecodeRequest(spec, received=rx.to(card)), backend=backend,
                      ctx=DecodeContext(mesh=mesh["cuda"], **kw))

@@ -16,6 +16,7 @@ a ``Mesh`` of the same shape), ``viterbi_decode(normalize=, unroll=)``, the
 collectives, the mesh constructors and the mesh rules.  Nothing here starts
 a process group: the mesh is single-controller.
 """
+import dataclasses
 import functools
 import types
 
@@ -263,10 +264,20 @@ def test_planner_parity_with_meshes(shape, T, streaming, backend):
     for why_not in ("mesh lacks axis 'model'", "T % model"):
         assert (why_not in plan.reason) == (why_not in ref.reason)
     if backend == "sharded_stream":
-        # planned as in the reference; executing it waits for item 9b
-        rx = torch.zeros((2, T, pspec.code.n_out), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="sharded_stream.*item 9b"):
-            plan.execute_request(PD.DecodeRequest(pspec, received=rx))
+        # planned as in the reference, and executed: a request of noisy
+        # symbols over the 4 slot shards, at a window deeper than T, decodes
+        # to the reference's sequential bits and hard metric
+        rng = np.random.default_rng(T)
+        bits = rng.integers(0, 2, (2, T - pspec.n_flush)).astype(np.int32)
+        coded = pspec.encode(torch.from_numpy(bits)).numpy()
+        rx = (coded ^ (rng.random(coded.shape) < 0.03)).astype(np.int32)
+        ref_bits, ref_metric = R_vit.viterbi_decode(
+            rspec.code, rspec.branch_metrics(jnp.asarray(rx)))
+        plan = PD.plan_decode(pspec, (2, T), ctx=dataclasses.replace(pctx, stream_depth=T))
+        res = plan.execute_request(PD.DecodeRequest(pspec, received=torch.from_numpy(rx)))
+        assert res.diagnostics["shards"] == 4 and res.diagnostics["depth"] == T
+        np.testing.assert_array_equal(res.bits.numpy(), np.asarray(ref_bits))
+        np.testing.assert_array_equal(res.path_metric.numpy(), np.asarray(ref_metric))
 
 
 # --------------------------------------------------------------------------- #

@@ -175,7 +175,9 @@ def test_snapshot_save_load_and_version_gate(tmp_path):
     (tmp_path / "junk").write_bytes(pickle.dumps({"not": "a snapshot"}))
     with pytest.raises(TypeError):
         P_stream.StreamSnapshot.load(tmp_path / "junk")
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    # a mesh must be a repro_torch Mesh (restores onto meshes:
+    # tests/test_torch_sharded_stream.py)
+    with pytest.raises(TypeError, match="Mesh"):
         P_stream.StreamScheduler.restore(snap, mesh=object(), device="cpu")
     # a ring of the other storage kind is refused, not mis-read
     snap.config["backend"] = "fused_packed"

@@ -35,6 +35,7 @@ from repro_torch import obs as P_obs
 from repro_torch import stream as P_stream
 from repro_torch.core.trellis import ConvCode as PCode
 from repro_torch.kernels.common import plain_counts, reset_counts
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.stream import window as P_w
 
 torch.set_num_threads(1)
@@ -188,7 +189,7 @@ class Twin:
                 assert_same(_host(a), _host(b), f"counter {f}")
         assert r._arena_len == p._arena_len
         n = r._arena_len[0]
-        assert_same(_host(r._arena)[0, :n], _host(p._arena)[0, :n], "arena")
+        assert_same(_host(r._arena)[0, :n], _host(p._arena[0])[:n], "arena")
         rr, pr = r.load_report(), p.load_report()
         assert rr.pop("latency_s")["count"] == pr.pop("latency_s")["count"]
         assert_same(rr, pr, "load_report")
@@ -523,8 +524,12 @@ def test_scheduler_defaults_to_the_card_and_refuses_a_mesh(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         P_stream.StreamScheduler(pspec)
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    # a mesh is a repro_torch Mesh whose devices are of the scheduler's type
+    with pytest.raises(TypeError, match="Mesh"):
         P_stream.StreamScheduler(pspec, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh devices are 'cpu'"):
+        P_stream.StreamScheduler(pspec, mesh=make_mesh((1,), ("data",), devices=["cpu"]),
+                                 device="meta")
     with pytest.raises(ValueError, match="max_buffered"):
         P_stream.StreamScheduler(pspec, chunk=16, max_buffered=8, device="cpu")
     with pytest.raises(ValueError, match="received"):
@@ -532,7 +537,7 @@ def test_scheduler_defaults_to_the_card_and_refuses_a_mesh(monkeypatch):
     sched = P_stream.StreamScheduler(pspec, n_slots=2, chunk=32, backend="fused_packed",
                                      inputs="received", device="cpu")
     assert sched.device == torch.device("cpu") and sched.depth == 32
-    assert sched.state.pm.device == sched._arena.device == sched.offset.device
+    assert sched.state.pm.device == sched._arena[0].device == sched.offset.device
 
 
 def test_scheduler_runs_the_kernels_plain_versions_on_the_cpu():
@@ -551,8 +556,9 @@ def test_scheduler_runs_the_kernels_plain_versions_on_the_cpu():
 
 
 def test_stream_exports_match_the_reference_but_the_mesh_helpers():
-    mesh_helpers = {"make_sharded_stream_step", "shard_stream_state", "state_shardings"}
-    assert set(R_stream.__all__) - mesh_helpers == set(P_stream.__all__)
+    # the mesh helpers (make_sharded_stream_step, shard_stream_state,
+    # state_shardings) are exported too: the lists are equal
+    assert R_stream.__all__ == P_stream.__all__
     assert sorted(P_stream.__all__) == sorted(set(P_stream.__all__))
     for name in P_stream.__all__:
         assert hasattr(P_stream, name), name

@@ -281,7 +281,9 @@ def test_session_counters_spans_and_guards():
     quiet = PSession(pspec, batch=3, chunk=32, device="cpu")
     with pytest.raises(RuntimeError, match="device counters are off"):
         quiet.device_counter_report()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a mesh must be a repro_torch Mesh (sessions on meshes:
+    # tests/test_torch_sharded_stream.py)
+    with pytest.raises(TypeError, match="Mesh"):
         PSession(pspec, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="received"):
         PSession(pspec, backend="fused", inputs="received", device="cpu")

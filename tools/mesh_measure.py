@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""``seqparallel`` over the cards of one host: a mesh of n distinct cards
-against the same n shards on one card (bits and metric equal), both timed.
+"""The mesh paths over the cards of one host: a mesh of n distinct cards
+against the same n shards on one card (bits and metrics equal), both timed.
 
-    python3 tools/mesh_measure.py [--seed N] [--out chiprun_out/mesh.jsonl]
+    python3 tools/mesh_measure.py [seq] [sched] [--seed N] [--out chiprun_out/mesh.jsonl]
 
-Cases (the planner picks ``seqparallel`` from the mesh in every one):
+``seq`` (the default runs both) — ``seqparallel``; the planner picks it
+from the mesh in every case:
 
   nasa_1030  K=7 (171,133) hard, BSC p=0.03, B=1024 frames of 1024 info
              bits (T=1030): 1 and 2 shards;
@@ -17,8 +18,20 @@ each through ``decode(DecodeRequest(...), ctx=DecodeContext(mesh=...))``
 over a (1, n) (data, model) mesh of n cells on cuda:0 and, where the host
 has n cards, of n distinct cards.  Time: the host clock around one decode
 that ends in a synchronize of every card, 5 rounds after one warm-up, every
-round printed, beside the cards' names and power limits.  Exits non-zero
-without a card or when a check fails.
+round printed, beside the cards' names and power limits.
+
+``sched`` — the slot-sharded ``StreamScheduler`` at the ``STREAM``
+deployment weak-scaled over n = 1, 2, 4 ``data`` shards (n x 64 slots,
+chunk 64, depth 5K, 512 rows buffered a stream, ``fused_packed`` on raw
+symbols): n x 64 streams of 16384 info bits (K=7 (171,133), BSC p=0.03),
+one wave, each fed by a producer of seeded arrivals of 1-512 rows, over an
+(n, 1) (data, model) mesh of n cells on cuda:0 and of n distinct cards.
+Every stream's bits and metric must be equal on the two.  Time: the host
+clock from the first open to the last result (through a synchronize of
+every card), 2 rounds each, one card and n cards in turns, after a warm-up
+run; tick time p50/p99 from the scheduler's histogram.
+
+Exits non-zero without a card or when a check fails.
 """
 from __future__ import annotations
 
@@ -31,6 +44,11 @@ import time
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent.parent / "src"
+
+#: ``sched``: shard counts, info bits a stream, timed rounds a layout
+SCHED_SHARDS = (1, 2, 4)
+SCHED_INFO = 16384
+SCHED_ROUNDS = 2
 
 #: (label, K, B, info bits, BSC flip probability, shard counts)
 CASES = (("nasa_1030", 7, 1024, 1024, 0.03, (1, 2)),
@@ -57,11 +75,104 @@ def _rounds(torch, fn, rounds: int = 5) -> list:
     return out
 
 
+def _run_scheduler(torch, spec, rx, mesh, seed):
+    """One drained run of the deployment scheduler over ``mesh`` on the
+    host symbols ``rx`` (streams x rows x n_out): (results, wall s, ticks,
+    tick-time histogram)."""
+    import numpy as np
+
+    from repro_torch.configs import STREAM
+    from repro_torch.stream import GeneratorProducer, StreamScheduler
+
+    def arrivals(table, rng):
+        i = 0
+        while i < len(table):
+            n = int(rng.integers(1, 513))
+            yield table[i:i + n]
+            i += n
+
+    _sync_all(torch)
+    t0 = time.perf_counter()
+    sched = StreamScheduler(spec, n_slots=STREAM.n_slots_for(mesh.shape["data"]),
+                            chunk=STREAM.chunk, depth=STREAM.depth(spec.code),
+                            backend="fused_packed", inputs="received",
+                            max_buffered=STREAM.max_buffered, mesh=mesh)
+    for i, table in enumerate(rx):
+        sched.open_stream(f"s{i}", producer=GeneratorProducer(
+            arrivals(table, np.random.default_rng([seed, i]))))
+    results = sched.run()
+    _sync_all(torch)
+    wall = time.perf_counter() - t0
+    return results, wall, sched.stats.ticks, sched.telemetry.metrics.histogram(
+        "stream_tick_seconds")
+
+
+def _sched_rows(torch, args, cards, n_cards) -> list:
+    """The ``sched`` case's rows (see the module doc); raises on a check."""
+    import numpy as np
+
+    from repro_torch.core import CODE_K7_NASA
+    from repro_torch.decode import CodecSpec
+    from repro_torch.kernels.common import launch_counts, plain_counts, reset_counts
+    from repro_torch.launch.mesh import make_mesh
+
+    card0 = torch.device("cuda", 0)
+    gen = torch.Generator(device=card0).manual_seed(args.seed)
+    spec = CodecSpec(code=CODE_K7_NASA, metric="hard")
+    rows = []
+    for n in SCHED_SHARDS:
+        if n > n_cards:
+            print(f"[sched] {n} shards: not run, {n_cards} cards")
+            continue
+        bits = torch.randint(0, 2, (64 * n, SCHED_INFO), generator=gen, device=card0,
+                             dtype=torch.int32)
+        rx = spec.channel(gen, spec.encode(bits), flip_prob=0.03).to(torch.float32).cpu().numpy()
+        layouts = {"one_card": make_mesh((n, 1), ("data", "model"), devices=[card0] * n),
+                   "n_cards": make_mesh((n, 1), ("data", "model"))}
+        _run_scheduler(torch, spec, rx[:, :1024], layouts["n_cards"], args.seed)  # warm-up
+        row = dict(case="sched", shards=n, streams=64 * n, n_slots=64 * n, info=SCHED_INFO)
+        results = {}
+        for _ in range(SCHED_ROUNDS):
+            for name, mesh in layouts.items():
+                _sync_all(torch)
+                reset_counts()
+                got, wall, ticks, hist = _run_scheduler(torch, spec, rx, mesh, args.seed)
+                if plain_counts or launch_counts["traceback_packed"] != n * ticks:
+                    raise RuntimeError(f"sched {name} x{n}: launches {dict(launch_counts)}, "
+                                       f"plain calls {dict(plain_counts)}")
+                if name in results and any(
+                        not np.array_equal(got[s][0], results[name][s][0])
+                        or got[s][1] != results[name][s][1] for s in got):
+                    raise RuntimeError(f"sched {name} x{n}: rounds differ")
+                results[name] = got
+                row.setdefault(f"{name}_wall_s", []).append(wall)
+                row.setdefault(f"{name}_info_bits_per_s", []).append(
+                    64 * n * SCHED_INFO / wall)
+                row.setdefault(f"{name}_tick_s", []).append(
+                    dict(p50=hist.quantile(0.5), p99=hist.quantile(0.99), mean=hist.mean))
+                row[f"{name}_ticks"] = ticks
+        for s, (b, m) in results["one_card"].items():
+            got_b, got_m = results["n_cards"][s]
+            if not (np.array_equal(b, got_b) and m == got_m):
+                raise RuntimeError(f"sched x{n}: stream {s} differs on {n} cards")
+        print(f"[sched] {n} shards x 64 slots, {64 * n} streams x {SCHED_INFO} info bits: one "
+              f"card {row['one_card_wall_s']} s, {n} cards {row['n_cards_wall_s']} s; info "
+              f"bits/s {row['one_card_info_bits_per_s']} vs {row['n_cards_info_bits_per_s']}; "
+              f"ticks {row['one_card_ticks']}; tick s {row['one_card_tick_s']} vs "
+              f"{row['n_cards_tick_s']}; bits equal ({cards[:n]})")
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("cases", nargs="*", help="seq and/or sched (default: both)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="JSON lines file of the rows")
     args = ap.parse_args(argv)
+    args.cases = args.cases or ["seq", "sched"]
+    if set(args.cases) - {"seq", "sched"}:
+        ap.error(f"unknown cases {sorted(set(args.cases) - {'seq', 'sched'})}")
 
     import torch
 
@@ -84,7 +195,7 @@ def main(argv=None) -> int:
     card0 = torch.device("cuda", 0)
     gen = torch.Generator(device=card0).manual_seed(args.seed)
     rows = []
-    for label, K, B, n_info, flip, shards in CASES:
+    for label, K, B, n_info, flip, shards in CASES if "seq" in args.cases else ():
         code = ConvCode(K, (0o171, 0o133) if K == 7 else (0b111, 0b101))
         spec = CodecSpec(code=code, metric="hard")
         bits = torch.randint(0, 2, (B, n_info), generator=gen, device=card0, dtype=torch.int32)
@@ -118,6 +229,8 @@ def main(argv=None) -> int:
                   f"{statistics.median(row['n_cards_ms']) if 'n_cards_ms' in row else None!r}); "
                   f"launches on {n} cards {row.get('launches')} ({cards[0]})")
             rows.append(row)
+    if "sched" in args.cases:
+        rows += _sched_rows(torch, args, cards, n_cards)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "w") as f:
