@@ -128,6 +128,14 @@ Phases (any failure raises and exits non-zero):
                of the seven
                combines of the ``parallel`` NASA decode, all on the operands
                their decodes hand them; end-to-end times of every path;
+ 10b. costs  — the cost model (``repro_torch.roofline``): each costed
+               backend's ``predicted_costs()`` (counted on meta) equals the
+               same decode counted on the card, at the script's shapes, and
+               launches nothing, syncs nothing and allocates nothing there;
+               each kernel's counted bound beside its device time; the tiled
+               decode at ``_pick_tiles``' count against ``default_tiles``',
+               in turns (the LM phases 13 and 15 also hold qwen2.5-3b's
+               decode and train steps' meta counts to the card's);
  11. analysis — the port's repo rules (RPR001-RPR005) over src/repro_torch
                must be clean, and every registered backend's hot path
                (``repro_torch.analysis.check_hot_paths``) runs once warm and
@@ -696,7 +704,10 @@ def _touched_words(code, bits: "torch.Tensor") -> int:
     return int(torch.unique(key).numel())
 
 
-def _row(name, src, ref, ms, plain_ms, nbytes, n_ops, ops_per_s=FP32_OPS_PER_S):
+def _row(name, src, ref, ms, plain_ms, cost, ops_per_s=FP32_OPS_PER_S):
+    """A kernel's row: its times and its bound from ``cost`` = (operations,
+    bytes), its formula in roofline/op_cost.py at this run's shape."""
+    n_ops, nbytes = cost
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     row = dict(name=name, route="cuda", source=src, replaces=ref, ms=ms, plain_ms=plain_ms,
@@ -712,11 +723,11 @@ def phase_timing(hard_spec, rx, feats, weights):
 
     from repro_torch.decode import DecodeRequest, decode
     from repro_torch.kernels import ops, survivors, viterbi_scan
+    from repro_torch.roofline import op_cost
 
     code = hard_spec.code
     B, T, F = feats.shape
     S = code.n_states
-    W = -(-T // 32)
     b0, b1, rb = weights
     pm, packed = viterbi_scan.viterbi_scan_packed(code, feats, b0, b1, rb)
     fs, _ = ops._frontier(pm, True)
@@ -742,21 +753,17 @@ def phase_timing(hard_spec, rx, feats, weights):
           f"{B * N_INFO / (decode_ms / 1e3)!r} decoded bits/s, "
           f"peak device memory {peak} bytes above the live tensors")
 
-    # bounds: each input read once, each output written once, over HBM; the
-    # float operations over the float32 peak (larger of the two).  The folded
-    # rows b_j[s] are the M rows of the metric weight re-indexed by each
-    # transition's output symbol, so the function needs one F-term dot
-    # product (F multiplies + F adds) per symbol and step; per state it needs
-    # the 4 adds of (pm + m_j) + rb_j, the compare, the select and the clamp.
-    scan_bytes = 4 * (B * T * F + W * B * S + B * S + 2 * S * F + 2 * S)
-    scan_ops = B * T * (code.n_symbols * 2 * F + 7 * S)
-    tb_bytes = 4 * (_touched_words(code, bits) + B + B * T)
-    tb_ops = 6 * B * T
+    # bounds (roofline/op_cost.py): each input read once, each output
+    # written once, over HBM; the float operations over the float32 peak
+    # (larger of the two); the walk's bytes count the words it touched
+    touched = _touched_words(code, bits)
+    print(f"[timing] traceback_packed {B} x {T}: {touched} distinct survivor words touched")
     rows = [
         _row("viterbi_scan_packed", SCAN_SRC, "src/repro/kernels/viterbi_scan.py:232", scan_ms,
-             scan_plain_ms, scan_bytes, scan_ops),
+             scan_plain_ms, op_cost.scan_cost(B, T, F, S, code.n_symbols, seeded=False,
+                                              packed=True)),
         _row("traceback_packed", TB_SRC, "src/repro/kernels/survivors.py:211", tb_ms,
-             tb_plain_ms, tb_bytes, tb_ops),
+             tb_plain_ms, op_cost.traceback_cost(B, T, touched)),
     ]
     _device_only(rows[0], lambda: viterbi_scan.viterbi_scan_packed(code, feats, b0, b1, rb), 20)
     _device_only(rows[1], lambda: survivors.traceback_packed(code, packed, fs, T), 20)
@@ -1298,18 +1305,17 @@ def phase_timing_scheduler(sched):
     """Rows #3 and #2 at the scheduler's tick shape (64 slots x 64 steps, a
     4-word ring), on the operands one tick handed them."""
     from repro_torch.kernels import viterbi_scan
+    from repro_torch.roofline import op_cost
 
     code, pm0, feats, b0, b1, rb = args = sched["scan_args"]
     S, M = code.n_states, code.n_symbols
     B, C, F = feats.shape
-    W = -(-C // 32)
     r, pms, k, p = _timed(lambda: viterbi_scan.viterbi_scan_packed_carry(*args),
                           lambda: viterbi_scan.viterbi_scan_packed_carry_plain(*args), 50)
     err = _same("carry at the scheduler shape", k, p)
     print(f"[timing] rounds (ms): viterbi_scan_packed_carry scheduler {r}")
     scan = _row("viterbi_scan_packed_carry (scheduler)", SCAN_SRC, "", statistics.median(r), pms,
-                4 * (B * C * F + 2 * B * S + W * B * S + 2 * S * F + 2 * S),
-                B * C * (M * 2 * F + 7 * S))
+                op_cost.scan_cost(B, C, F, S, M, seeded=True, packed=True))
     scan.update(max_abs_err=err, shape=f"{B} slots x {C} steps",
                 launches=sched["launches"].get("viterbi_scan_packed_carry", 0))
     _device_only(scan, lambda: viterbi_scan.viterbi_scan_packed_carry(*args), 50)
@@ -1353,6 +1359,7 @@ def phase_timing_seeded(tiled, stream):
     from repro_torch.kernels import (
         fused_metric_plan, launch_counts, minplus, ops, plan_tiles, reset_counts, survivors,
         viterbi_scan)
+    from repro_torch.roofline import op_cost
 
     rows = []
     # --- the stream step: (B=128, C=64), the first chunk of the 64k stream
@@ -1365,7 +1372,6 @@ def phase_timing_seeded(tiled, stream):
     pm0 = torch.full((STREAM_B, S), 1e30, device="cuda")
     pm0[:, 0] = 0.0
     B, C, F = feats.shape
-    W = -(-C // 32)
     r, pms, k, p = _timed(lambda: viterbi_scan.viterbi_scan_packed_carry(code, pm0, feats, b0, b1, rb),
                           lambda: viterbi_scan.viterbi_scan_packed_carry_plain(
                               code, pm0, feats, b0, b1, rb), 50)
@@ -1373,8 +1379,7 @@ def phase_timing_seeded(tiled, stream):
     print(f"[timing] rounds (ms): viterbi_scan_packed_carry {r}")
     rows.append(_row("viterbi_scan_packed_carry", SCAN_SRC, "src/repro/kernels/viterbi_scan.py:260",
                      statistics.median(r), pms,
-                     4 * (B * C * F + 2 * B * S + W * B * S + 2 * S * F + 2 * S),
-                     B * C * (M * 2 * F + 7 * S)))
+                     op_cost.scan_cost(B, C, F, S, M, seeded=True, packed=True)))
     rows[-1].update(max_abs_err=err, shape=f"{B} streams x {C} steps")
     _device_only(rows[-1], lambda: viterbi_scan.viterbi_scan_packed_carry(code, pm0, feats, b0, b1,
                                                                           rb), 50)
@@ -1385,8 +1390,7 @@ def phase_timing_seeded(tiled, stream):
     print(f"[timing] rounds (ms): viterbi_scan_carry {r}")
     rows.append(_row("viterbi_scan_carry", SCAN_SRC, "src/repro/kernels/viterbi_scan.py:208",
                      statistics.median(r), pms,
-                     4 * (B * C * M + 2 * B * S + C * B * S + 2 * S * M + 2 * S),
-                     B * C * (M * 2 * M + 7 * S)))
+                     op_cost.scan_cost(B, C, M, S, M, seeded=True, packed=False)))
     rows[-1].update(max_abs_err=err, shape=f"{B} streams x {C} steps")
     _device_only(rows[-1], lambda: viterbi_scan.viterbi_scan_carry(code, pm0, bm), 50)
 
@@ -1429,10 +1433,9 @@ def phase_timing_seeded(tiled, stream):
         err = _same(f"windowed scan, tiled {label}", k, p)
         print(f"[timing] rounds (ms): viterbi_scan_packed_window {label} "
               f"({lanes} lanes x {V} steps) {r}")
-        nbytes = 4 * (lanes * V * F + 2 * lanes * S + 2 * lanes + W * lanes * S + 2 * S * F + 2 * S)
-        n_ops = valid * (lanes // lanes2) * (M * 2 * F + 7 * S)
         prow = _row(f"viterbi_scan_packed_window ({label})", SCAN_SRC, "", statistics.median(r),
-                    pms, nbytes, n_ops)
+                    pms, op_cost.scan_cost(lanes, V, F, S, M, seeded=True, packed=True,
+                                           window=True, steps=valid * (lanes // lanes2)))
         prow.update(launches=n_launch, max_abs_err=err)
         _device_only(prow, lambda a=args: viterbi_scan.viterbi_scan_packed_window(*a), reps)
         passes.append((statistics.median(r), pms, err, prow))
@@ -1459,9 +1462,11 @@ def phase_timing_seeded(tiled, stream):
     err = _same("windowed traceback, tiled", k, p)
     print(f"[timing] rounds (ms): traceback_packed_window {r}")
     touched = _window_touched_words(code, *tb[1:])
+    print(f"[timing] traceback_packed_window pinned P={TILES}: {touched} distinct survivor "
+          "words touched")
     row = _row("traceback_packed_window", TB_SRC, "src/repro/kernels/survivors.py:163",
-               statistics.median(r), pms, 4 * (touched + lanes * 32 * W + 4 * lanes),
-               6 * valid * S)
+               statistics.median(r), pms,
+               op_cost.traceback_window_cost(lanes, W, valid * S, touched))
     row.update(max_abs_err=err, shape=f"{lanes} lanes x {32 * W} steps")
     _device_only(row, lambda: survivors.traceback_packed_window(*tb), 5)
     rows.append(row)
@@ -1809,6 +1814,7 @@ def _timing_bcjr(siso, e2e):
     step and its plain version's time (``shapes``); records one SISO pass
     (alpha + beta) per shape in ``e2e``."""
     from repro_torch.kernels import bcjr
+    from repro_torch.roofline import op_cost
 
     rcode = siso["turbo"]["spec"].code
     F, Sr = rcode.n_features, rcode.n_states
@@ -1828,9 +1834,7 @@ def _timing_bcjr(siso, e2e):
         # per (lane, step): R distinct F-term branch costs, then per state two
         # adds, a min, the renorm min, subtract and clamp
         a_row = _row("bcjr_alpha_scan", BCJR_SRC, "src/repro/kernels/bcjr.py:117",
-                     statistics.median(r), pms,
-                     4 * (N * F * Bt + N * Sr * Bt + Sr * Bt + 2 * Sr * F),
-                     Bt * N * (R * 2 * F + 6 * Sr))
+                     statistics.median(r), pms, op_cost.bcjr_alpha_cost(Bt, N, F, Sr, R))
         a_row.update(max_abs_err=a_err, shape=f"{Bt} blocks x {N} steps, S={Sr}", rounds=r)
         r, pms, k, p = _timed(lambda: bcjr.bcjr_beta_llr_scan(rcode, alphas, feat, terminated),
                               lambda: bcjr.bcjr_beta_llr_scan_plain(rcode, alphas, feat,
@@ -1841,9 +1845,7 @@ def _timing_bcjr(siso, e2e):
         # per (lane, step): R branch costs; the LLR's two costs, two mins per
         # state and one subtract; the beta retire's two adds, min and renorm
         b_row = _row("bcjr_beta_llr_scan", BCJR_SRC, "src/repro/kernels/bcjr.py:165",
-                     statistics.median(r), pms,
-                     4 * (N * Sr * Bt + N * F * Bt + N * Bt + 4 * Sr * F + 2 * Sr),
-                     Bt * N * (R * 2 * F + 12 * Sr + 1))
+                     statistics.median(r), pms, op_cost.bcjr_beta_cost(Bt, N, F, Sr, R))
         b_row.update(max_abs_err=b_err, shape=f"{Bt} blocks x {N} steps, S={Sr}", rounds=r)
         for row in (a_row, b_row):
             us = row["ms"] * 1e3 / N
@@ -1871,6 +1873,7 @@ def phase_timing_siso(texpand_tables, siso):
 
     from repro_torch.decode import DecodeRequest, decode
     from repro_torch.kernels import bcjr, texpand, viterbi_scan
+    from repro_torch.roofline import op_cost
 
     rows = []
     e2e = {}
@@ -1885,8 +1888,8 @@ def phase_timing_siso(texpand_tables, siso):
     del k, p
     print(f"[timing] rounds (ms): viterbi_scan {r}")
     row = _row("viterbi_scan", SCAN_SRC, "src/repro/kernels/viterbi_scan.py:190",
-               statistics.median(r), pms, 4 * (B * T * M + T * B * S + B * S + 2 * S * M + 2 * S),
-               B * T * (M * 2 * M + 7 * S))
+               statistics.median(r), pms, op_cost.scan_cost(B, T, M, S, M, seeded=False,
+                                                            packed=False))
     row.update(max_abs_err=err, shape=f"{B} streams x {T} steps, K=7")
     _device_only(row, lambda: viterbi_scan.viterbi_scan(code, bm), 4)
     rows.append(row)
@@ -1898,7 +1901,7 @@ def phase_timing_siso(texpand_tables, siso):
     err = _same("texpand at the fused shape", k, p)
     print(f"[timing] rounds (ms): texpand (one step) {r}")
     row = _row("texpand", TEXPAND_SRC, "src/repro/kernels/texpand.py:46", statistics.median(r),
-               pms, 4 * (3 * B * S + B * M + 2 * S), 4 * B * S)
+               pms, op_cost.texpand_cost(B, S, M))
     row.update(max_abs_err=err, shape=f"{B} streams x 1 step, K=7")
     _device_only(row, lambda: texpand.texpand(code, pm_mid, bm_t[40]), 200)
     rows.append(row)
@@ -2271,6 +2274,7 @@ def phase_timing_walk_long(parallel):
     import torch
 
     from repro_torch.kernels import fused_metric_plan, ops, survivors
+    from repro_torch.roofline import op_cost
 
     spec_b, planned = parallel["spec_b"], parallel["long_planned"]
     cap = {}
@@ -2288,10 +2292,11 @@ def phase_timing_walk_long(parallel):
     print(f"[timing] rounds (ms): traceback_packed_window long stream ({lanes} lanes x "
           f"{32 * W} steps) {r}")
     valid = int((tb[4] - tb[3]).clamp(min=0).sum())
+    touched = _window_touched_words(code, *tb[1:])
+    print(f"[timing] traceback_packed_window long stream planned: {touched} distinct survivor "
+          "words touched")
     row = _row("traceback_packed_window (long stream planned)", TB_SRC, "",
-               statistics.median(r), pms,
-               4 * (_window_touched_words(code, *tb[1:]) + lanes * 32 * W + 4 * lanes),
-               6 * valid)
+               statistics.median(r), pms, op_cost.traceback_window_cost(lanes, W, valid, touched))
     row.update(max_abs_err=err, launches=planned["launches"].get("traceback_packed_window", 0),
                shape=f"{lanes} lanes x {32 * W} steps")
     _device_only(row, lambda: survivors.traceback_packed_window(*tb), 20)
@@ -2414,6 +2419,7 @@ def phase_timing_parallel(tiled, parallel):
 
     from repro_torch.decode import DecodeContext, DecodeRequest, decode
     from repro_torch.kernels import launch_counts, minplus, ops, plain_counts, reset_counts
+    from repro_torch.roofline import op_cost
 
     hard = tiled["hard"]
     spec = hard["spec"]
@@ -2462,7 +2468,7 @@ def phase_timing_parallel(tiled, parallel):
         # operations: one add and one min per (n, i, j, k), each an issued
         # fp32 instruction
         srow = _row(f"minplus_matmul (combine {i})", MINPLUS_SRC, "", statistics.median(r), pms,
-                    4 * N * (I * K + K * J + I * J), 2 * N * I * J * K, ops_per_s=ins_per_s)
+                    op_cost.minplus_cost(N, I, K, J), ops_per_s=ins_per_s)
         srow.update(max_abs_err=err, launches=n_launch, variant=variant,
                     shape=f"{N} products of {I}x{K} by {K}x{J}")
         _device_only(srow, lambda: minplus.minplus_matmul(a, b, math.inf), 20)
@@ -2510,11 +2516,10 @@ def phase_timing_parallel(tiled, parallel):
     del k, p
     print(f"[timing] rounds (ms): viterbi_scan_packed_window parallel ({lanes} lanes x {Tw} "
           f"steps) {r}")
-    Ww = -(-Tw // 32)
     valid = int((whi - wlo).clamp(min=0).sum())
     wrow = _row("viterbi_scan_packed_window (parallel)", SCAN_SRC, "", statistics.median(r), pms,
-                4 * (lanes * Tw * Fw + 2 * lanes * Sw + 2 * lanes + Ww * lanes * Sw + 2 * Sw * Fw
-                     + 2 * Sw), valid * (Mw * 2 * Fw + 7 * Sw))
+                op_cost.scan_cost(lanes, Tw, Fw, Sw, Mw, seeded=True, packed=True, window=True,
+                                  steps=valid))
     wrow.update(rounds=r, max_abs_err=err, B=lanes, T=Tw, S=Sw)
     _device_only(wrow, lambda: viterbi_scan.viterbi_scan_packed_window(*pass1), 3)
     del pass1
@@ -2534,8 +2539,7 @@ def phase_timing_parallel(tiled, parallel):
         err = _same(f"unpacked carry at the {label} shape", k, p)
         del k, p
         row7 = _row(f"viterbi_scan_carry ({label})", SCAN_SRC, "", statistics.median(r), pms,
-                    4 * (Br * C * Mr + 2 * Br * Sr + C * Br * Sr + 2 * Sr * Mr + 2 * Sr),
-                    Br * C * (Mr * 2 * Mr + 7 * Sr))
+                    op_cost.scan_cost(Br, C, Mr, Sr, Mr, seeded=True, packed=False))
         row7.update(rounds=r, max_abs_err=err, B=Br, T=C, S=Sr)
         _device_only(row7, lambda a=args: viterbi_scan.viterbi_scan_carry(*a), 10)
         rescan[label] = {k: row7[k] for k in ("ms", "rounds", "device_ms", "device_rounds",
@@ -2569,6 +2573,7 @@ def _walk_shape(label, args, launches, reps):
     wrapper: back to back and device-only, against its plain version, with
     its bound (the touched words, the start states and the bits)."""
     from repro_torch.kernels import survivors
+    from repro_torch.roofline import op_cost
 
     code, packed, fs, T = args
     W, B, S = packed.shape
@@ -2578,8 +2583,10 @@ def _walk_shape(label, args, launches, reps):
                           lambda: survivors.traceback_packed_plain(*args), reps)
     err = _same(f"traceback_packed, {label}", (k,), (p,))
     print(f"[timing] rounds (ms): traceback_packed {label} ({B} lanes x {T} steps) {r}")
+    touched = _touched_words(code, k)
+    print(f"[timing] traceback_packed {label}: {touched} distinct survivor words touched")
     row = _row(f"traceback_packed ({label})", TB_SRC, "", statistics.median(r), pms,
-               4 * (_touched_words(code, k) + B + B * T), 6 * B * T)
+               op_cost.traceback_cost(B, T, touched))
     row.update(max_abs_err=err, launches=launches, shape=f"{B} lanes x {T} steps")
     _device_only(row, lambda: survivors.traceback_packed(*args), reps)
     return row
@@ -2621,6 +2628,145 @@ def phase_timing_walks(tiled, stream, parallel_walk):
 
 
 #: what a kernel row keeps of each of its further shapes
+#: the tiled decodes at which plan_decode's counted tile pick (_pick_tiles)
+#: is timed against kernels/tiling.default_tiles, in turns: phase_tiled's
+#: NASA frame and the long stream (the pick and the default agree there),
+#: then two K=7 blocks where they differ — the planner grid's long K=7 block
+#: (2 x 4096 steps) and one 64k stream as a block — cut from phase 4's
+#: symbols (label, source, rows, steps)
+COST_TILE_SHAPES = (("nasa_frame", "tiled", NASA_B, None), ("long_stream", "parallel", 1, None),
+                    ("k7_2x4096", "stream", 2, 4096), ("k7_1x65542", "stream", 1, None))
+#: rounds of the pick against the default, in turns
+COST_TILE_ROUNDS = 5
+#: "no slower": the pick's median within this share of the default's
+COST_TILE_TOL = 0.02
+#: a small shape for the plain ``sequential`` decode's count
+COST_SEQ_SHAPE = (16, 128)
+
+
+def _plan_costs_on_card(label, plan, bm):
+    """``plan.predicted_costs()`` (meta) against ``count_fn_costs`` of the
+    same decode run on the card on ``bm``: fails unless they are equal and
+    the prediction launched nothing, made no host sync and allocated
+    nothing on the card."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, plain_counts, reset_counts
+    from repro_torch.roofline import count_fn_costs
+
+    torch.cuda.synchronize()
+    reset_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pred, syncs, sites = _host_syncs(plan.predicted_costs)
+    torch.cuda.synchronize()
+    grew = (torch.cuda.memory_allocated() - base, torch.cuda.max_memory_allocated() - base)
+    if pred is None or syncs or any(launch_counts.values()) or any(plain_counts.values()) \
+            or grew != (0, 0):
+        _fail(f"costs {label}: predicted_costs() gave {pred}, {syncs} host syncs ({sites}), "
+              f"launches {dict(launch_counts)}, plain calls {dict(plain_counts)}, card bytes "
+              f"{grew}")
+    card = count_fn_costs(lambda t: plan.decoder(plan.spec, t, ctx=plan.ctx).bits, bm)
+    torch.cuda.synchronize()
+    if card != pred:
+        _fail(f"costs {label}: meta count {pred} differs from the card run's {card}")
+    print(f"[costs] {label} ({plan.backend}, B={plan.batch} T={plan.steps}"
+          + (f" P={plan.ctx.tiles}" if plan.backend == "tiled" else "")
+          + f"): predicted_costs() on meta = the card run's count {card}; 0 launches, 0 host "
+          "syncs, 0 card bytes")
+    return card
+
+
+def phase_costs(inputs, results, tiled, stream, parallel, rows, smi):
+    """Phase 10b: the cost model on the card (roofline/).  At the script's
+    own shapes each traceable backend's ``predicted_costs()`` (counted on
+    meta) equals ``count_fn_costs`` of the same decode run on the card,
+    launches nothing, makes no host sync and allocates nothing there; each
+    kernel's counted bound beside its device time from the timing phases;
+    the tiled decode at ``_pick_tiles``' count against ``default_tiles``',
+    in turns (which of them ``plan_decode`` may use)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.decode import (
+        CodecSpec, DecodeContext, DecodeRequest, decode, plan_decode)
+    from repro_torch.decode.planner import _pick_tiles
+    from repro_torch.kernels.tiling import default_tiles
+    from repro_torch.roofline import HW
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    if (HW.hbm_bw, HW.fp32_flops, HW.hbm_bytes) != (HBM_BYTES_PER_S, FP32_OPS_PER_S, total):
+        _fail(f"costs: roofline HW {HW} against the script's rates and the card's "
+              f"{total} bytes")
+    print(f"[costs] roofline.HW {HW}: total_memory {total} bytes ({smi})")
+
+    counts = {}
+    hard_spec, rx = results["hard"].spec, inputs["hard"][2]
+    bm = hard_spec.branch_metrics(rx)
+    for backend in ("fused_packed", "fused"):
+        counts[backend] = _plan_costs_on_card(
+            f"short blocks {backend}", plan_decode(hard_spec, bm.shape, backend=backend), bm)
+    del bm
+    nasa = tiled["hard"]
+    bm = nasa["spec"].branch_metrics(nasa["rx"])
+    counts["tiled_pinned"] = _plan_costs_on_card(
+        f"NASA frame P={TILES}", plan_decode(nasa["spec"], bm.shape,
+                                             ctx=DecodeContext(tiles=TILES)), bm)
+    counts["tiled_planned"] = _plan_costs_on_card(
+        "NASA frame planned", plan_decode(nasa["spec"], bm.shape), bm)
+    counts["parallel"] = _plan_costs_on_card(
+        f"NASA frame chunk {PARALLEL_CHUNK}",
+        plan_decode(nasa["spec"], bm.shape, backend="parallel",
+                    ctx=DecodeContext(chunk=PARALLEL_CHUNK)), bm)
+    B, T = COST_SEQ_SHAPE
+    counts["sequential"] = _plan_costs_on_card(
+        "sequential", plan_decode(nasa["spec"], (B, T), backend="sequential"),
+        bm[:B, :T].contiguous())
+    del bm
+
+    for row in rows:
+        dev = row.get("device_ms")
+        print(f"[costs] {row['name']}: counted bound {row['bound_ms']!r} ms "
+              f"({row['bound_by']}) against device {dev!r} ms = "
+              f"{(dev / row['bound_ms']) if dev else None!r}x; back to back {row['ms']!r} ms "
+              f"({smi})")
+
+    # the tile count: the counted pick against the shape default, in turns
+    tiles = {}
+    sources = {"tiled": (nasa["spec"], nasa["rx"]),
+               "parallel": (parallel["spec_b"], parallel["rx_b"]),
+               "stream": (stream["spec"], stream["rx"])}
+    for label, source, rows_, steps in COST_TILE_SHAPES:
+        spec, src = sources[source]
+        rx_s = src[:rows_, :steps].contiguous()
+        spec = dataclasses.replace(spec, terminated=steps is None and spec.terminated)
+        Bs, Ts = rx_s.shape[:2]
+        pick, why = _pick_tiles(spec, Bs, Ts, torch.cuda.get_device_name(0),
+                                DecodeContext().chunk, "cuda:0")
+        dflt = default_tiles(Bs, Ts, spec.code.n_states)
+        request = DecodeRequest(spec, received=rx_s)
+        outs = {P: decode(request, ctx=DecodeContext(tiles=P)) for P in {pick, dflt}}
+        if not (torch.equal(outs[pick].bits, outs[dflt].bits)
+                and torch.equal(outs[pick].path_metric, outs[dflt].path_metric)):
+            _fail(f"costs {label}: the tiled decode at P={pick} and P={dflt} differ")
+        times = {pick: [], dflt: []} if pick != dflt else {pick: []}
+        for _ in range(COST_TILE_ROUNDS):
+            for P in times:
+                times[P] += _event_ms(lambda P=P: decode(request, ctx=DecodeContext(tiles=P)), 3)
+        med = {P: statistics.median(v) for P, v in times.items()}
+        slower = med[pick] > med[dflt] * (1 + COST_TILE_TOL)
+        tiles[label] = dict(B=Bs, T=Ts, pick=pick, default=dflt, why=why,
+                            rounds_ms={str(P): v for P, v in times.items()},
+                            median_ms={str(P): v for P, v in med.items()}, pick_slower=slower)
+        print(f"[costs] tiles {label} (K={spec.code.constraint}, B={Bs}, T={Ts}): _pick_tiles "
+              f"P={pick} ({why}), default_tiles P={dflt}; in turns (ms) {times}; medians "
+              f"{med}: the pick is {'SLOWER' if slower else 'no slower'} ({smi})")
+    verdict = not any(t["pick_slower"] for t in tiles.values())
+    print(f"[costs] _pick_tiles no slower than default_tiles at every shape: {verdict}")
+    return {"counts": counts, "tiles": tiles, "pick_no_slower": verdict}
+
+
 def phase_analysis(smi):
     """Phase 11: the repo rules over the port's tree, then every registered
     backend's hot path under its contract and the sanitizer (after every
@@ -2977,6 +3123,7 @@ def phase_lm_serve(smi, seed):
         with OpRecorder() as rec:
             model.decode_step(params, tok, pos, caches)
         step_ops = len(rec.ops)
+        step_costs = _lm_decode_costs(model, params, (tok, pos, caches), LM_PROMPT + LM_NEW, smi)
         with OpRecorder() as rec:
             model.prefill(params, batch, caches)
         prefill_ops = len(rec.ops)
@@ -3002,7 +3149,7 @@ def phase_lm_serve(smi, seed):
         "decode_device_ms": statistics.median(step_dev), "decode_device_rounds": step_dev,
         "generate_ms": statistics.median(gen_ms), "generate_rounds": gen_ms,
         "tokens_per_s": LM_B * LM_NEW / (statistics.median(gen_ms) / 1e3),
-        "decode_ops": step_ops, "prefill_ops": prefill_ops,
+        "decode_ops": step_ops, "prefill_ops": prefill_ops, "decode_costs": step_costs,
         "step_bytes_as_written": step_bytes, "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
         "fp32_read_once_bound_ms": 4 * counted / HBM_BYTES_PER_S * 1e3,
         "host_syncs_generate": syncs, "card": smi,
@@ -3034,6 +3181,31 @@ def phase_lm_serve(smi, seed):
                 _fail(f"lm_serve {dtype}: the decode's argmax is no maximum of the full forward")
             row[f"teacher_forcing_{dtype}"] = tf
     return row, tokens
+
+
+def _lm_decode_costs(model, params, args, rows, smi):
+    """One decode step on ``args`` = (tokens, positions, caches of ``rows``
+    rows) counted on the card and on meta (roofline/steps.py): fails unless
+    equal.  Returns the count with ``model_flops`` and the roofline report."""
+    import torch
+
+    from repro_torch.configs import ArchBundle, ShapeConfig
+    from repro_torch.models import build
+    from repro_torch.roofline import count_fn_costs
+    from repro_torch.roofline import steps as lm_steps
+
+    card = count_fn_costs(lm_steps.decode_step(model), params, *args)
+    torch.cuda.synchronize()
+    shape = ShapeConfig("decode", rows, args[0].shape[0], "decode")
+    meta = lm_steps.count_decode_step(build(ArchBundle(model.cfg, model.part), device="meta"),
+                                      shape)
+    if card != meta:
+        _fail(f"lm_serve: the decode step's count on the card {card} differs from its meta "
+              f"count {meta}")
+    mf, report = _roofline_row(model.cfg, shape, meta)
+    print(f"[lm_serve] a decode step (B={shape.global_batch}, caches of {rows} rows) counted on "
+          f"meta = on the card: {meta}; model_flops {mf!r}; roofline {report} ({smi})")
+    return dict(meta, model_flops=mf, roofline=report)
 
 
 def phase_serve_scenario(tokens, smi, bits_per_token=18, label="serve_scenario"):
@@ -3197,6 +3369,7 @@ def phase_lm_train(smi, seed):
         _fail(f"lm_train: the fixed batch's loss did not fall: {losses}")
     if syncs != 1:
         _fail(f"lm_train: {syncs} host syncs in a step (sites {sites}), expected 1")
+    costs = _lm_step_costs(bundle, step_fn, (params, state, batch, LM_TRAIN_STEPS), step_ms, smi)
 
     # the optimizer's own time: one AdamW update of the full model (CUDA
     # events, median of 3 after 1 warm-up) on bf16 gradients like the step's
@@ -3236,8 +3409,47 @@ def phase_lm_train(smi, seed):
         "mfu_bf16": mfu, "peak_bytes_above_phase_start": peak,
         "peak_predicted": LM_TRAIN_PEAK_PREDICTED, "host_syncs_step": syncs,
         "optimizer_ms": statistics.median(opt_ms), "optimizer_rounds_ms": opt_ms,
-        "train_loop": loop, "card": smi,
+        "train_loop": loop, "costs": costs, "card": smi,
     }
+
+
+def _roofline_row(cfg, shape, meta):
+    """``model_flops`` and the roofline report of a one-card count."""
+    from repro_torch.roofline import model_flops, roofline_report
+
+    mf = model_flops(cfg, shape)
+    return mf, roofline_report({"chips": 1, "jaxpr_cost": {"flops_per_device": meta["flops"],
+                                                           "bytes_per_device": meta["bytes"]},
+                                "collectives": {"total": 0.0}, "model_flops": mf})
+
+
+def _lm_step_costs(bundle, step_fn, args, step_ms, smi):
+    """The train step counted on the card (one more step of ``step_fn`` on
+    ``args`` under the counter) and on meta (roofline/steps.py, from the
+    abstract parameters and input specs): fails unless equal.  Returns the
+    count with ``model_flops``, the roofline report and the measured step's
+    share of the counted bound."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import build
+    from repro_torch.roofline import count_fn_costs
+    from repro_torch.roofline import steps as lm_steps
+
+    card = count_fn_costs(step_fn, *args)
+    torch.cuda.synchronize()
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=LM_TRAIN_S, global_batch=LM_TRAIN_B)
+    meta = lm_steps.count_train_step(build(bundle, device="meta"), shape)
+    if card != meta:
+        _fail(f"lm_train: the step's count on the card {card} differs from its meta count {meta}")
+    mf, report = _roofline_row(bundle.model, shape, meta)
+    share = report["bound_s"] / (step_ms / 1e3)
+    print(f"[lm_train] the step counted on meta = on the card: {meta}; model_flops {mf!r}; "
+          f"roofline {report}; the measured step {step_ms!r} ms reaches {share!r} of the "
+          f"counted bound ({smi})")
+    return dict(meta, model_flops=mf, roofline=report, share_of_bound=share)
 
 
 #: the MoE and MLA families at full width (src/repro/configs/qwen3_moe_30b_a3b.py,
@@ -4199,6 +4411,8 @@ def main(argv=None) -> int:
                                     "bound_by", "library_ms", "shapes") if k in row}
                for row in rows]
     mark("kernels table")
+    costs = phase_costs(inputs, results, tiled, stream, parallel, rows, smi)
+    mark("costs")
     analysis = phase_analysis(smi)
     mark("analysis")
     paper = phase_paper(smi)
@@ -4220,7 +4434,7 @@ def main(argv=None) -> int:
     mark("lm_serve_encdec")
     lm_train_encdec = phase_lm_train_encdec(smi, args.seed)
     mark("lm_train_encdec")
-    print(json.dumps({"analysis": analysis, "paper": paper, "lm_serve": lm,
+    print(json.dumps({"costs": costs, "analysis": analysis, "paper": paper, "lm_serve": lm,
                       "serve_scenario": scenario, "lm_train": lm_train,
                       "lm_serve_moe": lm_moe, "lm_train_moe": lm_train_moe,
                       "lm_serve_recurrent": lm_recurrent,

@@ -17,7 +17,10 @@ both name the same backend for the same (spec, shape, context):
     present and T divides across its ``ctx.mesh_axis``; without a usable
     mesh the rule ``long-conv-tiled``: the time-parallel ``tiled`` backend
     with the pinned ``ctx.tiles`` or ``kernels/tiling.default_tiles``
-    (``parallel`` for trellises past the tiled cap);
+    (``parallel`` for trellises past the tiled cap).  The reference scores
+    tile counts with ``_pick_tiles``; the port keeps it beside the rule but
+    does not plan with it: on the H100 its count-based pick ran a K=7
+    single 65542-step block 2x slower than ``default_tiles`` (ROADMAP §3);
   * everything else (short batched blocks) -> ``fused_packed`` (packed
     scan + traceback kernels; in-kernel branch metrics when the request
     carries raw symbols), ``parallel`` for trellises past the fused cap.
@@ -25,10 +28,15 @@ both name the same backend for the same (spec, shape, context):
 The planner runs on ``ctx.home()`` (the mesh's first device, else
 ``ctx.device``): ``"cuda"`` without a card raises here, before anything
 runs.
+
+``DecodePlan.predicted_costs()`` counts the planned decode on ``meta``
+tensors (``roofline/op_cost.py``): the torch ops it dispatches and each
+kernel by its formula, with no device touched.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -38,7 +46,7 @@ from repro_torch.decode import backends as _backends  # noqa: F401  (populates t
 from repro_torch.decode.registry import RegisteredDecoder, get_decoder
 from repro_torch.decode.request import DecodeContext, DecodeRequest, DecodeResult
 from repro_torch.decode.spec import CodecSpec, spec_family
-from repro_torch.kernels.tiling import default_tiles
+from repro_torch.kernels.tiling import MIN_TILE_CORE, default_tiles
 from repro_torch.parallel.mesh import Mesh
 from repro_torch.siso.turbo import TurboSpec
 
@@ -67,15 +75,27 @@ class DecodePlan:
         return get_decoder(self.backend)
 
     def predicted_costs(self) -> Optional[dict]:
-        """Predicted flops/bytes of the planned decode.  None: the port has
-        no cost model yet (the reference returns None too for backends its
-        tracer cannot follow)."""
-        return None
+        """Counted flops/bytes of the planned decode: the backend run on
+        ``meta`` zeros of the planned shape under the op-and-kernel counter
+        (``roofline/op_cost.count_fn_costs``: the dispatched torch ops, each
+        kernel by its formula) — no kernel launched, no host sync, nothing
+        allocated on a device.  Returns {"flops", "bytes", "input_bytes"} or
+        None for backends that cannot run on ``meta`` (host-side
+        orchestration such as the stream schedulers, a mesh)."""
+        from repro_torch.roofline.op_cost import count_fn_costs
+
+        try:
+            ctx = dataclasses.replace(self.ctx, device="meta")
+            bm = torch.zeros((self.batch, self.steps, self.spec.table_width),
+                             dtype=torch.float32, device="meta")
+            return count_fn_costs(lambda t: self.decoder(self.spec, t, ctx=ctx).bits, bm)
+        except Exception:
+            return None
 
     def explain(self, costs: bool = False) -> str:
-        """Human-readable plan summary; ``costs=True`` appends a cost line.
-        The port has no cost model yet (``predicted_costs()`` is None), so
-        that line says so and gives no figures."""
+        """Human-readable plan summary; ``costs=True`` appends the counted
+        prediction (flops, bytes moved and their ratio) when the backend
+        runs on ``meta``."""
         caps = self.decoder.capabilities
         text = (
             f"plan: backend={self.backend!r} for shape (B={self.batch}, T={self.steps}, "
@@ -86,8 +106,16 @@ class DecodePlan:
             f"max_states={caps.max_states} needs_terminated={caps.needs_terminated}"
         )
         if costs:
-            text += ("\n  cost: no cost model yet — predictions must rest on H100 "
-                     "measurements (ROADMAP.md queue 1, item 12)")
+            c = self.predicted_costs()
+            if c is None:
+                text += "\n  cost: untraceable (host-side orchestration backend)"
+            else:
+                intensity = c["flops"] / c["bytes"] if c["bytes"] else 0.0
+                text += (
+                    f"\n  cost: ~{c['flops']:.3g} flops, ~{c['bytes']:.3g} bytes "
+                    f"moved ({intensity:.2f} flops/byte), "
+                    f"{c['input_bytes']:.3g} input bytes"
+                )
         return text
 
     def execute(self, bm_tables) -> DecodeResult:
@@ -121,6 +149,39 @@ class DecodePlan:
         result = self.decoder.decode_received(self.spec, received, ctx=self.ctx)
         result.plan = self
         return result
+
+
+@functools.lru_cache(maxsize=128)
+def _pick_tiles(spec: CodecSpec, B: int, T: int, device_kind: str, chunk: int,
+                device: str) -> Tuple[int, str]:
+    """Tile count for a long-block tiled decode, chosen from the counted
+    costs: the tiled backend costed once per candidate P (the
+    ``predicted_costs()`` that ``explain(costs=True)`` reports) and the
+    argmin of (flops + bytes) / P taken — the critical path when the P
+    tiles run side by side on the lane axis.  Candidates that cannot be
+    costed are skipped; if none can, the shape default.  Cached per (spec,
+    shape, device).  ``plan_decode`` does not call it (module doc)."""
+    S = spec.code.n_states
+    fallback = default_tiles(B, T, S)
+    cap = max(1, T // MIN_TILE_CORE)
+    candidates = sorted({p for p in (1, 2, 4, 8, 16, 32) if p <= cap} | {fallback})
+    scored = {}
+    for p in candidates:
+        plan = DecodePlan(
+            spec=spec, backend="tiled", batch=B, steps=T,
+            ctx=DecodeContext(chunk=chunk, tiles=p, device=device),
+            reason="tile-count candidate", device_kind=device_kind,
+        )
+        c = plan.predicted_costs()
+        if c is not None:
+            scored[p] = (c["flops"] + c["bytes"]) / p
+    if not scored:
+        return fallback, "predicted_costs untraceable -> shape default"
+    best = min(scored, key=scored.get)
+    return best, (
+        f"argmin of predicted (flops+bytes)/P over P in {list(scored)} "
+        "(roofline predicted_costs)"
+    )
 
 
 def _normalize_shape(shape: Sequence[int]) -> Tuple[int, int]:
@@ -258,8 +319,7 @@ def plan_decode(
                 if ctx.tiles is not None:
                     tiles, how = int(ctx.tiles), "ctx.tiles pinned by caller"
                 else:
-                    tiles = default_tiles(B, T, S)
-                    how = "kernels/tiling.default_tiles; no cost model yet"
+                    tiles, how = default_tiles(B, T, S), "kernels/tiling.default_tiles"
                     ctx = dataclasses.replace(ctx, tiles=tiles)
                 reason = (
                     f"long block (T={T} >= {LONG_BLOCK_T}), {why_not} -> "

@@ -40,7 +40,8 @@ import torch
 from repro_torch.core.trellis import NEG_UNREACHABLE
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    distinct_rows, launch_counts, launch_guard, on_card, plain_counts)
+    distinct_rows, launch_counts, launch_guard, plain_counts, route)
+from repro_torch.roofline import op_cost
 
 ALPHA_NAME = "bcjr_alpha_scan"
 BETA_NAME = "bcjr_beta_llr_scan"
@@ -197,22 +198,26 @@ def bcjr_alpha_scan(code, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
         shifts added back).
     """
     _check(ALPHA_NAME, code, [("feat", feat, (None, code.n_features, None))])
-    if not on_card(ALPHA_NAME, (feat,)):
-        plain_counts[ALPHA_NAME] += 1
-        return bcjr_alpha_scan_plain(code, feat)
+    where = route(ALPHA_NAME, (feat,))
     T, F, B = feat.shape
     S = code.n_states
     op = operands(code, feat.device)
-    alphas = torch.empty((T, S, B), dtype=torch.float32, device=feat.device)
-    final_pm = torch.empty((S, B), dtype=torch.float32, device=feat.device)
-    lib, fn = _launcher("bcjr_alpha_scan_launch", 6, 5)
-    with launch_guard(feat):
-        err = fn(op.rows.data_ptr(), op.b0_row.data_ptr(), op.b1_row.data_ptr(),
-                 feat.data_ptr(), alphas.data_ptr(), final_pm.data_ptr(), B, T, F, S,
-                 op.n_rows, torch.cuda.current_stream(feat.device).cuda_stream)
-    _build.raise_on_error(lib, "bcjr_error_string", ALPHA_NAME, err)
-    launch_counts[ALPHA_NAME] += 1
-    return alphas, final_pm
+    with op_cost.kernel(ALPHA_NAME, op_cost.bcjr_alpha_cost, B, T, F, S, op.n_rows):
+        if where == "cpu":
+            plain_counts[ALPHA_NAME] += 1
+            return bcjr_alpha_scan_plain(code, feat)
+        alphas = torch.empty((T, S, B), dtype=torch.float32, device=feat.device)
+        final_pm = torch.empty((S, B), dtype=torch.float32, device=feat.device)
+        if where == "meta":
+            return alphas, final_pm
+        lib, fn = _launcher("bcjr_alpha_scan_launch", 6, 5)
+        with launch_guard(feat):
+            err = fn(op.rows.data_ptr(), op.b0_row.data_ptr(), op.b1_row.data_ptr(),
+                     feat.data_ptr(), alphas.data_ptr(), final_pm.data_ptr(), B, T, F, S,
+                     op.n_rows, torch.cuda.current_stream(feat.device).cuda_stream)
+        _build.raise_on_error(lib, "bcjr_error_string", ALPHA_NAME, err)
+        launch_counts[ALPHA_NAME] += 1
+        return alphas, final_pm
 
 
 def bcjr_beta_llr_scan(code, alphas: torch.Tensor, feat: torch.Tensor,
@@ -231,18 +236,22 @@ def bcjr_beta_llr_scan(code, alphas: torch.Tensor, feat: torch.Tensor,
     T, F = feat.shape[:2]
     _check(BETA_NAME, code, [("feat", feat, (None, code.n_features, None)),
                              ("alphas", alphas, (T, code.n_states, feat.shape[2]))])
-    if not on_card(BETA_NAME, (alphas, feat)):
-        plain_counts[BETA_NAME] += 1
-        return bcjr_beta_llr_scan_plain(code, alphas, feat, terminated)
+    where = route(BETA_NAME, (alphas, feat))
     B, S = feat.shape[2], code.n_states
     op = operands(code, feat.device)
-    llr = torch.empty((T, B), dtype=torch.float32, device=feat.device)
-    lib, fn = _launcher("bcjr_beta_llr_scan_launch", 9, 6)
-    with launch_guard(feat):
-        err = fn(op.rows.data_ptr(), op.c0_row.data_ptr(), op.c1_row.data_ptr(),
-                 op.w0_row.data_ptr(), op.w1_row.data_ptr(), op.reg_bit.data_ptr(),
-                 alphas.data_ptr(), feat.data_ptr(), llr.data_ptr(), B, T, F, S, op.n_rows,
-                 int(bool(terminated)), torch.cuda.current_stream(feat.device).cuda_stream)
-    _build.raise_on_error(lib, "bcjr_error_string", BETA_NAME, err)
-    launch_counts[BETA_NAME] += 1
-    return llr
+    with op_cost.kernel(BETA_NAME, op_cost.bcjr_beta_cost, B, T, F, S, op.n_rows):
+        if where == "cpu":
+            plain_counts[BETA_NAME] += 1
+            return bcjr_beta_llr_scan_plain(code, alphas, feat, terminated)
+        llr = torch.empty((T, B), dtype=torch.float32, device=feat.device)
+        if where == "meta":
+            return llr
+        lib, fn = _launcher("bcjr_beta_llr_scan_launch", 9, 6)
+        with launch_guard(feat):
+            err = fn(op.rows.data_ptr(), op.c0_row.data_ptr(), op.c1_row.data_ptr(),
+                     op.w0_row.data_ptr(), op.w1_row.data_ptr(), op.reg_bit.data_ptr(),
+                     alphas.data_ptr(), feat.data_ptr(), llr.data_ptr(), B, T, F, S, op.n_rows,
+                     int(bool(terminated)), torch.cuda.current_stream(feat.device).cuda_stream)
+        _build.raise_on_error(lib, "bcjr_error_string", BETA_NAME, err)
+        launch_counts[BETA_NAME] += 1
+        return llr

@@ -7,7 +7,14 @@ wrapper raises — there is no fallback), a CPU tensor runs the plain PyTorch
 version.  Anything that composes more than one kernel (the decode entry
 points in ops.py) moves its inputs to ONE device up front, so every kernel
 of that decode sees the same device and takes the same side of the rule —
-one decode can never split across the kernel and the plain version.
+one decode can never split across the kernel and the plain version.  A
+``meta`` tensor takes a third route, a shape function: the wrapper returns
+empty ``meta`` outputs of the kernel's shapes and dtypes and runs nothing,
+so a decode can be costed (``roofline/op_cost.py``) without a device.
+
+Costs.  Every wrapper runs inside ``roofline.op_cost.kernel`` with its
+kernel's operation and byte formula: a cost counter that is active records
+the same entry on every route and ignores the ops the wrapper dispatches.
 
 Launch device.  A wrapper launches inside :func:`launch_guard` of its
 operands, so the kernel runs on their card and on that card's stream
@@ -41,17 +48,27 @@ def reset_counts() -> None:
     plain_counts.clear()
 
 
-def on_card(name: str, tensors: Sequence[torch.Tensor]) -> bool:
-    """True when ``tensors`` lie on a CUDA device (launch the kernel), False
-    when they lie on the CPU (run the plain version).  Raises when they are
-    spread over more than one device or lie on any other device."""
+def route(name: str, tensors: Sequence[torch.Tensor]) -> str:
+    """``"cuda"`` when ``tensors`` lie on a CUDA device (launch the kernel),
+    ``"cpu"`` on the CPU (run the plain version), ``"meta"`` on the meta
+    device (return empty outputs of the kernel's shapes).  Raises when they
+    are spread over more than one device or lie on any other device."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices {sorted(map(str, devices))}")
     (dev,) = devices
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    return dev.type == "cuda"
+    return dev.type
+
+
+def on_card(name: str, tensors: Sequence[torch.Tensor]) -> bool:
+    """True when ``tensors`` lie on a CUDA device, False on the CPU; raises
+    on any other device (``meta`` included) or on several."""
+    where = route(name, tensors)
+    if where == "meta":
+        raise ValueError(f"{name}: takes CUDA or CPU operands, got meta")
+    return where == "cuda"
 
 
 def launch_guard(t: torch.Tensor):

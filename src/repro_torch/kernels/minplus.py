@@ -38,7 +38,9 @@ import torch
 
 from repro_torch.core.trellis import NEG_UNREACHABLE
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import launch_counts, launch_guard, on_card, plain_counts
+from repro_torch.kernels.common import (
+    launch_counts, launch_guard, on_card, plain_counts, route)
+from repro_torch.roofline import op_cost
 
 NAME = "minplus_matmul"
 
@@ -137,21 +139,24 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor,
       returns an empty tensor without a launch.
     """
     batch, I, K, J, a4, b4, sa, sb = _check(a, b)
-    card = on_card(NAME, (a, b))
+    where = route(NAME, (a, b))
     if batch.numel() == 0:
         return torch.empty(batch + (I, J), dtype=torch.float32, device=a.device)
-    if not card:
-        plain_counts[NAME] += 1
-        return minplus_matmul_plain(a, b, init)
-    N0, N1 = a4.shape[:2]
-    out = torch.empty(batch + (I, J), dtype=torch.float32, device=a.device)
-    lib, fn, _ = _launcher()
-    with launch_guard(a):
-        err = fn(a4.data_ptr(), b4.data_ptr(), out.data_ptr(), N0, N1, *sa, *sb, I, K, J,
-                 init, torch.cuda.current_stream(a.device).cuda_stream)
-    _build.raise_on_error(lib, "minplus_error_string", NAME, err)
-    launch_counts[NAME] += 1
-    return out
+    with op_cost.kernel(NAME, op_cost.minplus_cost, batch.numel(), I, K, J):
+        if where == "cpu":
+            plain_counts[NAME] += 1
+            return minplus_matmul_plain(a, b, init)
+        out = torch.empty(batch + (I, J), dtype=torch.float32, device=a.device)
+        if where == "meta":
+            return out
+        N0, N1 = a4.shape[:2]
+        lib, fn, _ = _launcher()
+        with launch_guard(a):
+            err = fn(a4.data_ptr(), b4.data_ptr(), out.data_ptr(), N0, N1, *sa, *sb, I, K, J,
+                     init, torch.cuda.current_stream(a.device).cuda_stream)
+        _build.raise_on_error(lib, "minplus_error_string", NAME, err)
+        launch_counts[NAME] += 1
+        return out
 
 
 def identity_map(n_states: int, batch_shape: tuple = (), device="cpu") -> torch.Tensor:

@@ -213,6 +213,14 @@ def _tile_data(data_btf: torch.Tensor, tp: _tiling.TilePlan) -> torch.Tensor:
     return tiles.reshape(B * tp.n_tiles, tp.span, F)
 
 
+def _window_steps(lo: np.ndarray, hi: np.ndarray, lanes_each: int) -> int:
+    """Lane-steps inside per-tile (or per-chunk) host windows ``[lo, hi)``,
+    each window shared by ``lanes_each`` lanes: the work a windowed kernel
+    launch does, which its cost records."""
+    # host arrays of the tile or chunk plan: no device read
+    return lanes_each * int(np.maximum(hi - lo, 0).sum())  # repr-lint: allow[RPR003]
+
+
 def _tiled_weighted_decode(
     code: ConvCode,
     data_btf: torch.Tensor,
@@ -259,7 +267,8 @@ def _tiled_weighted_decode(
             code, eye.repeat(B * P, 1), tiles.repeat_interleave(S, dim=0), b0, b1, rb,
             _tile_lane_row(lo_np, B, S, dev), _tile_lane_row(hi_np, B, S, dev),
         )
-        fpm1 = _vscan.viterbi_scan_packed_window(*pass1)[0]  # survivors unused
+        fpm1 = _vscan.viterbi_scan_packed_window(
+            *pass1, steps=_window_steps(lo_np, hi_np, B * S))[0]  # survivors unused
         # map[p, b, i, j] = best metric entering tile p in state i, leaving j
         maps = fpm1.reshape(B, P, S, S).transpose(0, 1)
         if capture is not None:
@@ -280,7 +289,8 @@ def _tiled_weighted_decode(
         code, pm0.contiguous(), tiles, b0, b1, rb,
         _tile_lane_row(lo_np, B, 1, dev), _tile_lane_row(hi_np, B, 1, dev),
     )
-    fpm2, packed2 = _vscan.viterbi_scan_packed_window(*pass2)
+    fpm2, packed2 = _vscan.viterbi_scan_packed_window(
+        *pass2, steps=_window_steps(lo_np, hi_np, B))
     if not exact:
         # approximate frontier: the last tile's span covers the block end;
         # its metric is relative (warm-up re-zeroed the earlier history)
@@ -299,7 +309,8 @@ def _tiled_weighted_decode(
         torch.full((lanes,), ov, dtype=torch.int32, device=dev),
         _tile_lane_row(hi_np, B, S, dev),
     )
-    bits_all, ent = _surv.traceback_packed_window(*walk)
+    bits_all, ent = _surv.traceback_packed_window(
+        *walk, steps=_window_steps(np.full_like(hi_np, ov), hi_np, B * S))
     if capture is not None:
         capture.update(pass2=pass2, packed=packed2, traceback=walk)
     del walk  # frees the S-fold repeated words before the stitch
@@ -452,7 +463,8 @@ def chunk_transfer_maps(
         chunks.repeat_interleave(S, dim=0), b0, b1, rb,
         torch.zeros((lanes,), dtype=torch.int32, device=dev), upper,
     )
-    mats = _vscan.viterbi_scan_packed_window(*pass1)[0].reshape(B, len(hi), S, S)
+    mats = _vscan.viterbi_scan_packed_window(
+        *pass1, steps=_window_steps(np.zeros_like(hi), hi, B * S))[0].reshape(B, len(hi), S, S)
     if capture is not None:
         capture.update(pass1=pass1, mats=mats)
     return mats

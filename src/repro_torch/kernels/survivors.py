@@ -26,13 +26,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.core.trellis import ConvCode
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    PACK_BITS, launch_counts, launch_guard, on_card, plain_counts)
+    PACK_BITS, launch_counts, launch_guard, plain_counts, route)
+from repro_torch.roofline import op_cost
 
 NAME = "traceback_packed"
 WINDOW_NAME = "traceback_packed_window"
@@ -143,22 +145,26 @@ def traceback_packed(
     if tuple(final_state.shape) != (B,):
         raise ValueError(f"{NAME}: final_state must be ({B},), got {tuple(final_state.shape)}")
     _check_int32(NAME, (("packed", packed), ("final_state", final_state)))
-    if not on_card(NAME, (packed, final_state)):
-        plain_counts[NAME] += 1
-        return traceback_packed_plain(code, packed, final_state, T)
-    bits = torch.empty((B, T), dtype=torch.int32, device=packed.device)
-    lib, fn = _launcher("traceback_packed_launch", 3)
-    with launch_guard(packed):
-        err = fn(packed.data_ptr(), final_state.data_ptr(), bits.data_ptr(), B, T, S,
-                 code.constraint, torch.cuda.current_stream(packed.device).cuda_stream)
-    _build.raise_on_error(lib, "survivors_error_string", NAME, err)
-    launch_counts[NAME] += 1
-    return bits
+    where = route(NAME, (packed, final_state))
+    with op_cost.kernel(NAME, op_cost.traceback_cost, B, T):
+        if where == "cpu":
+            plain_counts[NAME] += 1
+            return traceback_packed_plain(code, packed, final_state, T)
+        bits = torch.empty((B, T), dtype=torch.int32, device=packed.device)
+        if where == "meta":
+            return bits
+        lib, fn = _launcher("traceback_packed_launch", 3)
+        with launch_guard(packed):
+            err = fn(packed.data_ptr(), final_state.data_ptr(), bits.data_ptr(), B, T, S,
+                     code.constraint, torch.cuda.current_stream(packed.device).cuda_stream)
+        _build.raise_on_error(lib, "survivors_error_string", NAME, err)
+        launch_counts[NAME] += 1
+        return bits
 
 
 def traceback_packed_window(
     code: ConvCode, packed: torch.Tensor, final_state: torch.Tensor, lo: torch.Tensor,
-    hi: torch.Tensor,
+    hi: torch.Tensor, steps: Optional[int] = None,
 ):
     """Windowed traceback: walk packed survivors through per-lane [lo, hi).
 
@@ -168,6 +174,9 @@ def traceback_packed_window(
         at step ``hi``).
       lo, hi: (B,) int32 per-lane walk windows; steps outside emit bit 0 and
         leave the state untouched.
+      steps: the sum of ``hi - lo`` over the lanes (clamped at 0), when the
+        caller knows it on the host — the work the cost counter records;
+        None counts every step of every lane.
     Returns:
       bits: (B, 32*W) int32 decoded bits (0 outside the window).
       entry_state: (B,) int32 the state each lane reached at step ``lo`` —
@@ -182,16 +191,20 @@ def traceback_packed_window(
             raise ValueError(f"{WINDOW_NAME}: {what} must be ({B},), got {tuple(t.shape)}")
     _check_int32(WINDOW_NAME, (("packed", packed), ("final_state", final_state), ("lo", lo),
                                ("hi", hi)))
-    if not on_card(WINDOW_NAME, (packed, final_state, lo, hi)):
-        plain_counts[WINDOW_NAME] += 1
-        return traceback_packed_window_plain(code, packed, final_state, lo, hi)
-    bits = torch.empty((B, W * PACK_BITS), dtype=torch.int32, device=packed.device)
-    entry = torch.empty((B,), dtype=torch.int32, device=packed.device)
-    lib, fn = _launcher("traceback_packed_window_launch", 6)
-    with launch_guard(packed):
-        err = fn(packed.data_ptr(), final_state.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                 bits.data_ptr(), entry.data_ptr(), B, W, S, code.constraint,
-                 torch.cuda.current_stream(packed.device).cuda_stream)
-    _build.raise_on_error(lib, "survivors_error_string", WINDOW_NAME, err)
-    launch_counts[WINDOW_NAME] += 1
-    return bits, entry
+    where = route(WINDOW_NAME, (packed, final_state, lo, hi))
+    with op_cost.kernel(WINDOW_NAME, op_cost.traceback_window_cost, B, W, steps):
+        if where == "cpu":
+            plain_counts[WINDOW_NAME] += 1
+            return traceback_packed_window_plain(code, packed, final_state, lo, hi)
+        bits = torch.empty((B, W * PACK_BITS), dtype=torch.int32, device=packed.device)
+        entry = torch.empty((B,), dtype=torch.int32, device=packed.device)
+        if where == "meta":
+            return bits, entry
+        lib, fn = _launcher("traceback_packed_window_launch", 6)
+        with launch_guard(packed):
+            err = fn(packed.data_ptr(), final_state.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                     bits.data_ptr(), entry.data_ptr(), B, W, S, code.constraint,
+                     torch.cuda.current_stream(packed.device).cuda_stream)
+        _build.raise_on_error(lib, "survivors_error_string", WINDOW_NAME, err)
+        launch_counts[WINDOW_NAME] += 1
+        return bits, entry

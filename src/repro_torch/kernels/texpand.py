@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.core.trellis import ConvCode
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import launch_counts, launch_guard, on_card, plain_counts
+from repro_torch.kernels.common import launch_counts, launch_guard, plain_counts, route
+from repro_torch.roofline import op_cost
 
 NAME = "texpand"
 
@@ -82,17 +83,21 @@ def texpand(code: ConvCode, pm: torch.Tensor, bm: torch.Tensor
             raise TypeError(f"{NAME}: {what} must be torch.float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{NAME}: {what} must be contiguous")
-    if not on_card(NAME, (pm, bm)):
-        plain_counts[NAME] += 1
-        return texpand_plain(code, pm, bm)
+    where = route(NAME, (pm, bm))
     B = pm.shape[0]
-    new_pm = torch.empty_like(pm)
-    bp = torch.empty((B, S), dtype=torch.int32, device=pm.device)
-    lib, fn = _launcher()
-    symbols = _symbols(code, pm.device)
-    with launch_guard(pm):
-        err = fn(pm.data_ptr(), bm.data_ptr(), symbols.data_ptr(), new_pm.data_ptr(),
-                 bp.data_ptr(), B, S, M, torch.cuda.current_stream(pm.device).cuda_stream)
-    _build.raise_on_error(lib, "texpand_error_string", NAME, err)
-    launch_counts[NAME] += 1
-    return new_pm, bp
+    with op_cost.kernel(NAME, op_cost.texpand_cost, B, S, M):
+        if where == "cpu":
+            plain_counts[NAME] += 1
+            return texpand_plain(code, pm, bm)
+        new_pm = torch.empty_like(pm)
+        bp = torch.empty((B, S), dtype=torch.int32, device=pm.device)
+        if where == "meta":
+            return new_pm, bp
+        lib, fn = _launcher()
+        symbols = _symbols(code, pm.device)
+        with launch_guard(pm):
+            err = fn(pm.data_ptr(), bm.data_ptr(), symbols.data_ptr(), new_pm.data_ptr(),
+                     bp.data_ptr(), B, S, M, torch.cuda.current_stream(pm.device).cuda_stream)
+        _build.raise_on_error(lib, "texpand_error_string", NAME, err)
+        launch_counts[NAME] += 1
+        return new_pm, bp

@@ -50,8 +50,9 @@ import torch
 from repro_torch.core.trellis import NEG_UNREACHABLE, ConvCode
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
-    PACK_BITS, distinct_rows, launch_counts, launch_guard, on_card, plain_counts)
+    PACK_BITS, distinct_rows, launch_counts, launch_guard, plain_counts, route)
 from repro_torch.kernels.survivors import pack_survivors
+from repro_torch.roofline import op_cost
 
 #: Largest trellis the kernels take (up to 1024 threads a stream, at most 8
 #: states a thread).
@@ -274,29 +275,38 @@ def _check(name: str, code: ConvCode, pm0, data, b0, b1, rb, window: Window) -> 
 
 
 def _scan(name: str, code: ConvCode, pm0, data, b0, b1, rb, window: Window = None,
-          pack: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Validate, then launch the kernel (CUDA tensors) or run the plain
-    version (CPU tensors), counting which one ran under ``name``."""
+          pack: bool = True, steps: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Validate, then launch the kernel (CUDA tensors), run the plain
+    version (CPU tensors) or return empty outputs (meta tensors), counting
+    which one ran under ``name`` and recording the kernel's cost
+    (``steps``: the lane-steps inside the windows, when the caller knows
+    them)."""
     _check(name, code, pm0, data, b0, b1, rb, window)
     operands = (data, b0, b1, rb) + (() if pm0 is None else (pm0,)) + (window or ())
-    if not on_card(name, operands):
-        plain_counts[name] += 1
-        return _scan_plain(code, pm0, data, b0, b1, rb, window, pack)
+    where = route(name, operands)
     B, T, F = data.shape
     S = code.n_states
-    final_pm = torch.empty((B, S), dtype=torch.float32, device=data.device)
-    rows = -(-T // PACK_BITS) if pack else T
-    survivors = torch.empty((rows, B, S), dtype=torch.int32, device=data.device)
-    table, maps = row_operands(b0, b1, rb)  # the distinct weight rows
-    inputs = tuple(t for t in (pm0, data, table, maps, *(window or ())) if t is not None)
-    ints = (B, T, F, S, table.shape[0])
-    ptrs = [t.data_ptr() for t in inputs] + [final_pm.data_ptr(), survivors.data_ptr()]
-    lib, fn = _launcher(f"{name}_launch", len(ptrs), len(ints))
-    with launch_guard(data):
-        err = fn(*ptrs, *ints, torch.cuda.current_stream(data.device).cuda_stream)
-    _build.raise_on_error(lib, "viterbi_scan_error_string", name, err)
-    launch_counts[name] += 1
-    return final_pm, survivors
+    with op_cost.kernel(name, op_cost.scan_cost, B, T, F, S, code.n_symbols,
+                        seeded=pm0 is not None, packed=pack, window=window is not None,
+                        steps=steps):
+        if where == "cpu":
+            plain_counts[name] += 1
+            return _scan_plain(code, pm0, data, b0, b1, rb, window, pack)
+        final_pm = torch.empty((B, S), dtype=torch.float32, device=data.device)
+        rows = -(-T // PACK_BITS) if pack else T
+        survivors = torch.empty((rows, B, S), dtype=torch.int32, device=data.device)
+        if where == "meta":
+            return final_pm, survivors
+        table, maps = row_operands(b0, b1, rb)  # the distinct weight rows
+        inputs = tuple(t for t in (pm0, data, table, maps, *(window or ())) if t is not None)
+        ints = (B, T, F, S, table.shape[0])
+        ptrs = [t.data_ptr() for t in inputs] + [final_pm.data_ptr(), survivors.data_ptr()]
+        lib, fn = _launcher(f"{name}_launch", len(ptrs), len(ints))
+        with launch_guard(data):
+            err = fn(*ptrs, *ints, torch.cuda.current_stream(data.device).cuda_stream)
+        _build.raise_on_error(lib, "viterbi_scan_error_string", name, err)
+        launch_counts[name] += 1
+        return final_pm, survivors
 
 
 def viterbi_scan_packed(
@@ -329,6 +339,7 @@ def viterbi_scan_packed_carry(
 def viterbi_scan_packed_window(
     code: ConvCode, pm0: torch.Tensor, data: torch.Tensor, b0: torch.Tensor,
     b1: torch.Tensor, rb: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+    steps: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`viterbi_scan_packed_carry` with a per-lane step-validity window
     — the tiled-decode launch (P time-tiles folded onto the lane axis, each
@@ -340,9 +351,12 @@ def viterbi_scan_packed_window(
       lo, hi: (B,) int32 — lane b runs ACS only on steps lo[b] <= t < hi[b]
         of this launch; elsewhere the metrics pass through and the survivor
         bit is 0.
+      steps: the sum of ``hi - lo`` over the lanes (clamped at 0), when the
+        caller knows it on the host — the work the cost counter records;
+        None counts every lane-step.
     Returns: final_pm (B, S) float32; packed (ceil(T/32), B, S) int32.
     """
-    return _scan(WINDOW_NAME, code, pm0, data, b0, b1, rb, window=(lo, hi))
+    return _scan(WINDOW_NAME, code, pm0, data, b0, b1, rb, window=(lo, hi), steps=steps)
 
 
 def viterbi_scan_carry(

@@ -43,11 +43,16 @@ from repro_torch.kernels import minplus as _minplus
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import viterbi_scan as _vscan
 from repro_torch.kernels.common import PACK_BITS
+from repro_torch.roofline.op_cost import tensor_bytes
 
 
 #: collective name -> calls, so a hot-path check can show a path made no
 #: transfer between shards (analysis/hotpaths.py)
 calls: Counter = Counter()
+#: collective name -> bytes of its results on one device (a gather's stacked
+#: tensor, a shift's received tensor, a reduction's value), which
+#: roofline/analysis.collective_bytes reads
+nbytes: Counter = Counter()
 
 
 def mesh_axis_size(mesh, axis: str) -> int:
@@ -71,7 +76,9 @@ def gather(mesh, axis: str, per_shard: Sequence[torch.Tensor], device=None) -> t
     first shard's by default: one copy from each other device."""
     calls["gather"] += 1
     devices = _shard_devices(mesh, axis, per_shard, "gather")
-    return _stack_on(per_shard, devices[0] if device is None else device)
+    out = _stack_on(per_shard, devices[0] if device is None else device)
+    nbytes["gather"] += tensor_bytes(out)
+    return out
 
 
 def _stack_on(per_shard: Sequence[torch.Tensor], device) -> torch.Tensor:
@@ -89,6 +96,7 @@ def all_gather(mesh, axis: str, per_shard: Sequence[torch.Tensor]) -> List[torch
     for dev in devices:
         if dev not in stacked:
             stacked[dev] = _stack_on(per_shard, dev)
+    nbytes["all_gather"] += tensor_bytes(stacked[devices[0]])
     return [stacked[dev] for dev in devices]
 
 
@@ -100,6 +108,7 @@ def ring_shift(mesh, axis: str, per_shard: Sequence[torch.Tensor]) -> List[torch
     calls["ring_shift"] += 1
     devices = _shard_devices(mesh, axis, per_shard, "ring_shift")
     n = len(devices)
+    nbytes["ring_shift"] += tensor_bytes(per_shard[0])
     return [per_shard[(i - 1) % n].to(dev) for i, dev in enumerate(devices)]
 
 
@@ -129,7 +138,9 @@ def reduce_across_shards(mesh, axis: str, per_shard, op: str = "sum") -> torch.T
                          f"over {axis}={n}")
     k = rows.shape[0] // n
     partial = [local(rows[i * k:(i + 1) * k].to(dev)) for i, dev in enumerate(devices)]
-    return local(gather(mesh, axis, partial))
+    out = local(_stack_on(partial, devices[0]))
+    nbytes["reduce_across_shards"] += tensor_bytes(out)
+    return out
 
 
 def sum_across_shards(mesh, axis: str, per_shard) -> torch.Tensor:

@@ -8,6 +8,7 @@ their registry entries; ``seqparallel`` through its registry entry on a
 CPU mesh; and the error paths (the backend not ported yet, the planned
 ``parallel`` route past the scan kernels' states, non-finite input, no
 card)."""
+import contextlib
 import dataclasses
 import zlib
 
@@ -177,7 +178,13 @@ def test_planner_names_the_reference_backend(case):
         assert "pinned by caller" in plan.reason
     if plan.backend == "tiled":
         assert "long-conv-tiled" in plan.reason and plan.ctx.tiles >= 1
-    assert plan.predicted_costs() is None
+    # a plan is costed exactly where the reference's is, except that the
+    # port's parallel route (the scan kernels) takes at most 4096 states:
+    # the big trellis's decode raises, so its plan cannot be costed
+    refused = case.startswith("big")
+    with pytest.raises(ValueError) if refused else contextlib.nullcontext():
+        plan.decoder(pspec, torch.zeros((1, 8, pspec.table_width)), ctx=plan.ctx)
+    assert (plan.predicted_costs() is None) == (ref.predicted_costs() is None or refused)
     assert plan.backend in plan.explain() and plan.device_kind == "cpu"
 
 

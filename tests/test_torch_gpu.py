@@ -1589,7 +1589,8 @@ def test_launcher_runs_on_the_card_by_default(card, path):
     out = json.loads("\n".join(lines[max(i for i, x in enumerate(lines) if x == "{"):]))
     assert out["device"].startswith("cuda")
     if path == "viterbi":
-        assert out["backend"] == "fused_packed" and "cost: no cost model yet" in proc.stdout
+        assert out["backend"] == "fused_packed" and "cost: ~" in proc.stdout
+        assert "flops/byte" in proc.stdout
     else:
         assert out["new_tokens"] == 32 and out["arch"] == "qwen2.5-smoke"
 
@@ -1974,3 +1975,43 @@ def test_encdec_decode_loop_makes_no_host_sync(card):
     first = run(syncs)
     assert syncs == [], syncs
     assert torch.equal(first, run())
+
+
+# --------------------------------------------------------------------------- #
+# the cost model: meta counts against card runs                                #
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,shape,tiles", [
+    ("fused_packed", (300, 70), None), ("tiled", (64, 1030), 4), ("tiled", (8, 1030), None)])
+def test_predicted_costs_equal_the_card_run_count(card, backend, shape, tiles):
+    """``predicted_costs()`` (counted on meta) equals the same decode
+    counted on the card with real inputs; counting it launches no kernel,
+    runs no plain version, makes no host sync and allocates nothing."""
+    import warnings
+
+    from repro_torch.decode import plan_decode
+    from repro_torch.roofline import count_fn_costs
+
+    spec = CodecSpec(code=CODE_K7_NASA, metric="soft")
+    gen = torch.Generator(device=card).manual_seed(5)
+    bm = torch.rand(shape + (spec.table_width,), generator=gen, device=card)
+    plan = plan_decode(spec, shape, backend=backend, ctx=DecodeContext(tiles=tiles))
+    torch.cuda.synchronize()
+    reset_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pred = plan.predicted_costs()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchronizing" in str(w.message)]
+    assert not launch_counts and not plain_counts
+    assert torch.cuda.max_memory_allocated() == torch.cuda.memory_allocated() == base
+    got = count_fn_costs(lambda t: plan.decoder(spec, t, ctx=plan.ctx).bits, bm)
+    assert got == pred and pred["flops"] > 0
+    assert sum(launch_counts.values()) >= 2 and not plain_counts

@@ -539,7 +539,7 @@ def test_launcher_viterbi_path_on_cpu():
     assert out["backend"] == "fused_packed" and out["device"] == "cpu"
     assert out["batch"] == 8 and out["bits"] == 64 and 0.0 <= out["ber"] < 0.1
     assert "plan: backend='fused_packed'" in proc.stdout
-    assert "cost: no cost model yet" in proc.stdout and "flops" not in proc.stdout
+    assert "cost: ~" in proc.stdout and "flops/byte" in proc.stdout
 
 
 def test_launcher_defaults_to_the_card():

@@ -161,7 +161,12 @@ def test_product_wrapper_contract():
     with pytest.raises(TypeError, match="float32"):
         minplus.minplus_matmul(a.double(), b.double())
     with pytest.raises(ValueError, match="device"):
-        minplus.minplus_matmul(a.to("meta"), b.to("meta"))
+        minplus.minplus_matmul(a, b.to("meta"))  # operands on two devices
+    # meta operands take the shape route: an empty output, nothing run
+    plains = dict(plain_counts)
+    out = minplus.minplus_matmul(a.to("meta"), b.to("meta"))
+    assert out.device.type == "meta" and out.shape == minplus.minplus_matmul(a, b).shape
+    assert plain_counts["minplus_matmul"] == plains["minplus_matmul"] + 1
 
 
 # --------------------------------------------------------------------------- #
