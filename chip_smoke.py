@@ -184,6 +184,25 @@ Phases (any failure raises and exits non-zero):
                the model-FLOP share of the bf16 peak, peak memory against the
                prediction, the optimizer update's own time; then ``train()``
                for 3 steps on ``make_data_iter``.
+ 15b. lm_mesh — the LM's data-parallel mesh path at qwen2.5-3b's full
+               width, phases 13 and 15's weights and batches, over a (2, 1)
+               (data, model) mesh of two cells on cuda:0: ``ServeEngine(mesh=)``
+               (B=4, prompts of 16, 32 greedy tokens; parameters placed
+               without a new byte, no host sync a token, float32-compute
+               tokens equal to the one-device engine's, each shard's prefill
+               and decode-step logits at phase 13's tolerances in bf16 and
+               float32; decode time a token, tokens/s, peak memory); the
+               data-parallel train step (B=2 x 4096, one row a shard: the
+               step-0 loss equal to the one-device step's within rtol 1e-5,
+               updated parameters within 3e-2 relative L2 a leaf, one host
+               sync a step, peak memory no higher than phase 15's; step
+               time); a checkpoint of the one-device step (full width, 2
+               layers) restored onto the mesh by ``reshard_restored``, its
+               next step equal to the one-device model's; and
+               ``flash_decode_sharded`` at the decode shapes (B=4, 16 heads,
+               2 KV, head_dim 128, 4096 cache rows, 4093 filled) over
+               ``model`` = 1, 2, 4 cells against ``_masked_decode`` (rtol =
+               atol = 2e-4).
  16. lm_serve_moe — the MoE family (qwen3-moe-30b-a3b: d=2048, GQA 32/4,
                qk-norm, 128 experts top 8 of width 768, vocab 151936) at 16
                of its 48 layers (the float32 weights of 48 do not fit the
@@ -3340,10 +3359,12 @@ def phase_lm_train(smi, seed):
         del params_c, x
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     step_fn = make_train_step(model, opt, cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP,
                                                         LM_TRAIN_STEPS))
     history, times, syncs, sites = _train_steps(step_fn, params, state, batch, LM_TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated() - live0
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
     losses = [h["loss"] for h in history]
     norms = [h["grad_norm"] for h in history]
     step_ms = statistics.median(times[2:])
@@ -3360,7 +3381,7 @@ def phase_lm_train(smi, seed):
           f"of steps 2-{LM_TRAIN_STEPS - 1} {step_ms!r} ms = {tokens / (step_ms / 1e3)!r} "
           f"tokens/s; model FLOPs {flops_token * tokens!r} a step = {mfu!r} of the "
           f"{BF16_FLOPS_PER_S!r} FLOP/s bf16 peak; peak {peak} bytes above the phase's start "
-          f"(predicted {LM_TRAIN_PEAK_PREDICTED}) ({smi})")
+          f"(predicted {LM_TRAIN_PEAK_PREDICTED}), allocator retries {retries} ({smi})")
     if abs(losses[0] - ref_loss) > LM_LOSS_RTOL * abs(ref_loss):
         _fail(f"lm_train: step-0 loss {losses[0]!r} against the no-grad forward's {ref_loss!r}")
     if not all(math.isfinite(v) for v in losses + norms):
@@ -3411,6 +3432,381 @@ def phase_lm_train(smi, seed):
         "optimizer_ms": statistics.median(opt_ms), "optimizer_rounds_ms": opt_ms,
         "train_loop": loop, "costs": costs, "card": smi,
     }
+
+
+#: phase 15b (lm_mesh): qwen2.5-3b over a (LM_MESH_DATA, 1) (data, model)
+#: mesh of cells on cuda:0, with phases 13 and 15's weights and batches;
+#: the flash decode at its decode shapes over these ``model`` sizes
+LM_MESH_DATA = 2
+LM_MESH_FLASH_MODELS = (1, 2, 4)
+#: the flash decode against ``_masked_decode`` in float32 (the reference's
+#: own test's tolerance)
+LM_MESH_FLASH_TOL = 2e-4
+#: the decode cache for the flash check: 4096 rows, the first 4093 filled
+LM_MESH_FLASH_S, LM_MESH_FLASH_FILLED = 4096, 4093
+#: the mesh step's updated parameters against the one-device step's: the
+#: bf16 gradient tolerance, relative L2 a leaf; the step-0 loss by rtol
+LM_MESH_PARAM_TOL, LM_MESH_LOSS_RTOL = 3e-2, 1e-5
+#: the checkpoint check's model: full width, 2 layers (the full model's
+#: parameters and AdamW state are 37e9 bytes to write and read back)
+LM_MESH_CKPT_LAYERS = 2
+LM_MESH_TRAIN_STEPS = 3
+
+
+def _mesh_step_logits(model, params, prompts, mesh=None):
+    """Prefill logits and the next decode step's logits (the prefill's
+    greedy tokens fed back) of ``model``, on one device or shard by shard
+    over ``mesh`` (each shard's rows on its device, its cells as ``mesh=``),
+    gathered on cuda:0."""
+    import torch
+
+    from repro_torch.parallel import sharding
+
+    B, S = prompts.shape
+    shards = sharding.data_shards(mesh, B) if mesh is not None else [None]
+    pre, dec = [], []
+    with torch.inference_mode():
+        for s in shards:
+            rows = slice(0, B) if s is None else s.rows
+            kw = {} if s is None else {"mesh": s.mesh}
+            p = params if s is None else sharding.block_tree(params, s.cell)
+            dev = model.device if s is None else s.device
+            caches = model.init_cache(rows.stop - rows.start, S + 1, device=dev)
+            logits, _ = model.prefill(p, {"tokens": prompts[rows].to(dev)}, caches, **kw)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            pos = torch.full((tok.shape[0],), S, dtype=torch.int32, device=tok.device)
+            step, _ = model.decode_step(p, tok, pos, caches, **kw)
+            pre.append(logits.float().to("cuda:0"))
+            dec.append(step.float().to("cuda:0"))
+    return torch.cat(pre), torch.cat(dec)
+
+
+def _near_ties(model, params, prompts, want, got):
+    """For each row where the token lists ``got`` and ``want`` differ: the
+    first step that differs, and the one-device full forward's logits over
+    the prompt and the tokens both share up to it — how far below their
+    maximum the logit of ``got``'s token lies."""
+    import torch
+
+    atol, rtol = LM_TF_TOL["float32"]
+    out = []
+    with torch.inference_mode():
+        for r in range(want.shape[0]):
+            diff = (want[r] != got[r]).nonzero()
+            if not len(diff):
+                continue
+            t = int(diff[0])
+            seq = torch.cat([prompts[r], want[r, :t].to(prompts.dtype)])[None]
+            caches = model.init_cache(1, seq.shape[1])
+            logits, _ = model.prefill(params, {"tokens": seq}, caches)
+            logits = logits[0].float()
+            out.append({"row": r, "step": t, "got": int(got[r, t]), "want": int(want[r, t]),
+                        "max": logits.max().item(),
+                        "below_max": (logits.max() - logits[int(got[r, t])]).item(),
+                        "atol": atol, "rtol": rtol})
+    return out
+
+
+def _lm_mesh_serve(model, params, prompts, mesh, smi):
+    """The data-parallel engine against the one-device engine at full width."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.serve import ServeEngine
+
+    cfg = model.cfg
+    max_len = LM_PROMPT + LM_NEW
+    one = ServeEngine(model, params, max_len=max_len)
+    want = one.generate(prompts, LM_NEW)["tokens"]
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(model, params, max_len=max_len, mesh=mesh)
+    placed_bytes = torch.cuda.memory_allocated() - live
+    engine.generate(prompts, LM_NEW)  # warm-up
+    torch.cuda.synchronize()
+    out, syncs, sites = _host_syncs(lambda: engine.generate(prompts, LM_NEW))
+    _, syncs_half, _ = _host_syncs(lambda: engine.generate(prompts, LM_NEW // 2))
+    gen_ms = _event_ms(lambda: engine.generate(prompts, LM_NEW), 1, 3, warmup=0)
+    half_ms = _event_ms(lambda: engine.generate(prompts, LM_NEW // 2), 1, 3, warmup=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live
+    tokens = out["tokens"]
+    bf16_equal = int((tokens == want).all(dim=1).sum())
+    # bf16: each shard's prefill and decode-step logits held to phase 13's
+    # tolerance against the one-device model's
+    pre1, dec1 = _mesh_step_logits(model, params, prompts)
+    prem, decm = _mesh_step_logits(model, params, prompts, mesh)
+    tf_bf16 = {k: _tf_stats(f"lm_mesh bf16 {k}", got, ref, *LM_TF_TOL["bfloat16"])
+               for k, got, ref in (("prefill", prem, pre1), ("decode", decm, dec1))}
+    # float32 compute: the greedy tokens equal, the logits at phase 13's
+    # float32 tolerance with the same argmax
+    m32 = Model(cfg=dataclasses.replace(cfg, compute_dtype="float32"), part=model.part,
+                param_specs=model.param_specs, device=model.device)
+    want32 = ServeEngine(m32, params, max_len=max_len).generate(prompts, LM_NEW)["tokens"]
+    got32 = ServeEngine(m32, params, max_len=max_len, mesh=mesh).generate(prompts, LM_NEW)[
+        "tokens"]
+    pre1, dec1 = _mesh_step_logits(m32, params, prompts)
+    prem, decm = _mesh_step_logits(m32, params, prompts, mesh)
+    tf_fp32 = {k: _tf_stats(f"lm_mesh float32 {k}", got, ref, *LM_TF_TOL["float32"])
+               for k, got, ref in (("prefill", prem, pre1), ("decode", decm, dec1))}
+    del pre1, dec1, prem, decm
+    per_token = (statistics.median(gen_ms) - statistics.median(half_ms)) / (LM_NEW - LM_NEW // 2)
+    row = {
+        "mesh": dict(mesh.shape), "batch": LM_B, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+        "host_syncs_generate": syncs, "host_syncs_half": syncs_half, "sync_sites": sites,
+        "generate_ms": statistics.median(gen_ms), "generate_rounds": gen_ms,
+        "generate_half_ms": statistics.median(half_ms), "generate_half_rounds": half_ms,
+        "decode_ms_per_token": per_token,
+        "tokens_per_s": LM_B * LM_NEW / (statistics.median(gen_ms) / 1e3),
+        "placed_bytes": placed_bytes, "peak_bytes_above_params": peak,
+        "bf16_rows_equal": bf16_equal, "teacher_bf16": tf_bf16,
+        "float32_tokens_equal": bool(torch.equal(got32, want32)), "teacher_float32": tf_fp32,
+        "card": smi,
+    }
+    print(f"[lm_mesh] serve over {dict(mesh.shape)} (cells {[str(d) for d in mesh.devices.flat]}"
+          f"): host syncs in generate {syncs} for {LM_NEW} tokens, {syncs_half} for "
+          f"{LM_NEW // 2} (sites {sites}); generate {row['generate_ms']!r} ms (rounds {gen_ms}), "
+          f"{LM_NEW // 2} tokens {row['generate_half_ms']!r} ms (rounds {half_ms}): decode "
+          f"{per_token!r} ms a token (eager, both shards), {row['tokens_per_s']!r} tokens/s; "
+          f"parameters placed with {placed_bytes} new bytes, peak {peak} bytes above the "
+          f"parameters; bf16 rows equal to one device {bf16_equal}/{LM_B}, float32 tokens "
+          f"equal {row['float32_tokens_equal']} ({smi})")
+    print(f"[lm_mesh] logits against one device: bf16 {tf_bf16}; float32 {tf_fp32} ({smi})")
+    if syncs != syncs_half:
+        _fail(f"lm_mesh: generate syncs per token ({syncs} for {LM_NEW}, {syncs_half} for "
+              f"{LM_NEW // 2})")
+    if placed_bytes != 0:
+        _fail(f"lm_mesh: placing the parameters on cells of one card allocated {placed_bytes} B")
+    if not row["float32_tokens_equal"]:
+        # the mesh's decode takes the flash decode (the reference's mesh
+        # numerics: unnormalized probabilities rounded to the bf16 caches'
+        # dtype), so a near-tie may break the other way: at each row's first
+        # difference the mesh's token must be a maximum of the one-device
+        # model's logits up to phase 13's float32 tolerance
+        ties = _near_ties(m32, params, prompts, want32, got32)
+        row["float32_first_differences"] = ties
+        print(f"[lm_mesh] float32 tokens differ from one device's at {ties} ({smi})")
+        if any(t["below_max"] > t["atol"] + t["rtol"] * abs(t["max"]) for t in ties):
+            _fail(f"lm_mesh: float32 tokens differ beyond a near-tie: {ties}\n{got32}\n{want32}")
+    for dtype, tf in (("bfloat16", tf_bf16), ("float32", tf_fp32)):
+        for k, st in tf.items():
+            if st["over_tolerance"] or max(st["decode_argmax_below_max"]) > st["atol"]:
+                _fail(f"lm_mesh {dtype} {k}: logits beyond phase 13's tolerance: {st}")
+            if dtype == "float32" and not all(st["argmax_equal"]):
+                _fail(f"lm_mesh float32 {k}: argmax differs: {st}")
+    del engine, one, out
+    return row
+
+
+def _lm_mesh_train(bundle, batch, mesh, lm_train, seed, smi):
+    """The data-parallel step against the one-device step at full width."""
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import make_train_step, read_metrics
+    from repro_torch.train.tree import tree_leaves
+
+    model = build(bundle)
+    opt = adamw()
+    lr = cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP, LM_TRAIN_STEPS)
+    # the one-device step 0, its updated parameters kept on the host
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    state = opt.init(params)
+    one = read_metrics(make_train_step(model, opt, lr)(params, state, batch, 0)[2])
+    want = [p.cpu() for p in tree_leaves(params)]
+    del params, state
+    _free_card()
+    live0 = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    step_fn = make_train_step(model, opt, lr, mesh=mesh)
+    history, times, syncs, sites = [], [], None, None
+    for i in range(LM_MESH_TRAIN_STEPS):
+        def one_step(i=i):
+            out = step_fn(params, state, batch, i)
+            return out, read_metrics(out[2])
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 1:
+            (out, met), syncs, sites = _host_syncs(one_step)
+        else:
+            out, met = one_step()
+        times.append((time.perf_counter() - t0) * 1e3)
+        params, state = out[0], out[1]
+        history.append(met)
+        if i == 0:  # the updated parameters against the one-device step's
+            errs = []
+            for got, ref in zip(tree_leaves(params), want):
+                g = got.gather().float()
+                r = ref.to("cuda:0").float()
+                errs.append(((g - r).norm() / r.norm().clamp_min(1e-30)).item())
+                del g, r
+            del want
+    peak = torch.cuda.max_memory_allocated() - live0
+    # the allocator's retries (a full cache freed and allocated again, a
+    # device sync each): what the steps' time may include
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    step_ms = statistics.median(times[1:])
+    row = {
+        "mesh": dict(mesh.shape), "batch": LM_TRAIN_B, "seq_len": LM_TRAIN_S,
+        "step0_loss": history[0]["loss"], "one_device_step0_loss": one["loss"],
+        "phase15_step0_loss": lm_train["losses"][0], "losses": [h["loss"] for h in history],
+        "max_param_rel_err": max(errs), "param_tol": LM_MESH_PARAM_TOL,
+        "step_ms": step_ms, "step_rounds_ms": times, "tokens_per_s": tokens / (step_ms / 1e3),
+        "host_syncs_step": syncs, "sync_sites": sites, "peak_bytes_above_phase_start": peak,
+        "phase15_peak": lm_train["peak_bytes_above_phase_start"], "alloc_retries": retries,
+        "card": smi,
+    }
+    print(f"[lm_mesh] train over {dict(mesh.shape)}, B={LM_TRAIN_B} x {LM_TRAIN_S} (one row a "
+          f"shard): losses {row['losses']}; step-0 loss {row['step0_loss']!r} against the "
+          f"one-device step's {one['loss']!r} (phase 15's {lm_train['losses'][0]!r}); updated "
+          f"parameters' largest relative L2 error {max(errs)!r} (tol {LM_MESH_PARAM_TOL}); host "
+          f"syncs in step 1 {syncs} (sites {sites}); step times {times} ms, {step_ms!r} ms = "
+          f"{row['tokens_per_s']!r} tokens/s; peak {peak} bytes above the phase's start "
+          f"(phase 15's {lm_train['peak_bytes_above_phase_start']}), allocator retries "
+          f"{retries} ({smi})")
+    if abs(row["step0_loss"] - one["loss"]) > LM_MESH_LOSS_RTOL * abs(one["loss"]):
+        _fail(f"lm_mesh: step-0 loss {row['step0_loss']!r} against one device's {one['loss']!r}")
+    if max(errs) > LM_MESH_PARAM_TOL:
+        _fail(f"lm_mesh: updated parameters off the one-device step's: {errs}")
+    if syncs != 1:
+        _fail(f"lm_mesh: {syncs} host syncs in a mesh step (sites {sites}), expected 1")
+    if peak > lm_train["peak_bytes_above_phase_start"]:
+        _fail(f"lm_mesh: peak {peak} above phase 15's {lm_train['peak_bytes_above_phase_start']}")
+    if not all(math.isfinite(h["loss"]) for h in history):
+        _fail(f"lm_mesh: non-finite losses {history}")
+    del params, state, step_fn, out
+    return row
+
+
+def _lm_mesh_checkpoint(bundle, batch, mesh, seed, smi):
+    """A checkpoint of the one-device step restored onto the mesh with
+    ``reshard_restored`` gives the one-device model's next step (full width,
+    LM_MESH_CKPT_LAYERS layers)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.parallel import sharding
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import _opt_shardings, make_train_step, read_metrics
+    from repro_torch.train.tree import tree_leaves
+
+    model = build(dataclasses.replace(bundle, model=dataclasses.replace(
+        bundle.model, n_layers=LM_MESH_CKPT_LAYERS)))
+    opt = adamw()
+    lr = cosine_warmup(LM_TRAIN_LR, LM_TRAIN_WARMUP, LM_TRAIN_STEPS)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    state = opt.init(params)
+    step = make_train_step(model, opt, lr)
+    step(params, state, batch, 0)
+    where = tempfile.mkdtemp(prefix="_lm_mesh_ckpt_", dir=Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    try:
+        saver = ckpt.AsyncCheckpointer(where, keep=1)
+        saver.save(1, params, state)
+        saver.wait()
+        save_s = time.perf_counter() - t0
+        want = read_metrics(step(params, state, batch, 1)[2])
+        want_p = [p.clone() for p in tree_leaves(params)]
+        like = (sharding.place_tree(params, model.param_shardings(mesh)),
+                sharding.place_tree(state, _opt_shardings(model, opt, mesh)))
+        t0 = time.perf_counter()
+        p2, s2, at = ckpt.reshard_restored(saver.restore_latest(block=True), *like)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    del like, params, state
+    got = read_metrics(make_train_step(model, opt, lr, mesh=mesh)(p2, s2, batch, at)[2])
+    errs = [((g.gather().float() - w.float()).norm() / w.float().norm().clamp_min(1e-30)).item()
+            for g, w in zip(tree_leaves(p2), want_p)]
+    row = {"layers": LM_MESH_CKPT_LAYERS, "restored_step": at, "loss": got["loss"],
+           "one_device_loss": want["loss"], "max_param_rel_err": max(errs),
+           "save_s": save_s, "restore_s": restore_s, "card": smi}
+    print(f"[lm_mesh] checkpoint of the one-device step ({LM_MESH_CKPT_LAYERS} layers at full "
+          f"width) restored onto {dict(mesh.shape)}: step {at} loss {got['loss']!r} against the "
+          f"one-device model's {want['loss']!r}; updated parameters' largest relative L2 error "
+          f"{max(errs)!r}; save {save_s!r} s, restore {restore_s!r} s ({smi})")
+    if at != 1 or abs(got["loss"] - want["loss"]) > LM_MESH_LOSS_RTOL * abs(want["loss"]) or \
+            max(errs) > LM_MESH_PARAM_TOL:
+        _fail(f"lm_mesh: the restored mesh step differs from the one-device step: {row}")
+    return row
+
+
+def _lm_mesh_flash(cfg, smi):
+    """``flash_decode_sharded`` at qwen2.5-3b's decode shapes over ``model``
+    meshes of cells on cuda:0 against ``_masked_decode``, float32."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.attention import _masked_decode, flash_decode_sharded
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = torch.randn((LM_B, H, hd), generator=g, device="cuda")
+    k = torch.randn((LM_B, LM_MESH_FLASH_S, KV, hd), generator=g, device="cuda")
+    v = torch.randn((LM_B, LM_MESH_FLASH_S, KV, hd), generator=g, device="cuda")
+    lo = torch.zeros((LM_B,), dtype=torch.int32, device="cuda")
+    hi = torch.full((LM_B,), LM_MESH_FLASH_FILLED, dtype=torch.int32, device="cuda")
+    want = _masked_decode(q, k, v, lo, hi, 0.0)
+    masked_ms = _event_ms(lambda: _masked_decode(q, k, v, lo, hi, 0.0), 10, 3)
+    out = {"shape": [LM_B, H, KV, hd, LM_MESH_FLASH_S, LM_MESH_FLASH_FILLED],
+           "masked_ms": statistics.median(masked_ms), "card": smi}
+    for n in LM_MESH_FLASH_MODELS:
+        mesh = make_mesh((1, n), ("data", "model"), devices=["cuda:0"] * n)
+        got = flash_decode_sharded(q, k, v, lo, hi, 0.0, mesh, ("pod", "data"))
+        err = ((got - want).abs() / (LM_MESH_FLASH_TOL + LM_MESH_FLASH_TOL * want.abs())).max()
+        ms = _event_ms(lambda: flash_decode_sharded(q, k, v, lo, hi, 0.0, mesh, ("pod", "data")),
+                       10, 3)
+        out[f"model_{n}"] = {"max_abs_err": (got - want).abs().max().item(),
+                             "worst_over_tol": err.item(), "ms": statistics.median(ms)}
+        if err.item() > 1.0:
+            _fail(f"lm_mesh: flash_decode_sharded over model={n} off _masked_decode: {out}")
+    print(f"[lm_mesh] flash_decode_sharded (B, H, KV, hd, cache rows, filled) {out['shape']} "
+          f"against _masked_decode (rtol = atol = {LM_MESH_FLASH_TOL}): {out} ({smi})")
+    return out
+
+
+def phase_lm_mesh(smi, seed, lm_train):
+    """Phase 15b: qwen2.5-3b at full width over a (2, 1) (data, model) mesh
+    of two cells on cuda:0, with phases 13 and 15's weights and batches."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build
+
+    _free_card()
+    mesh = make_mesh((LM_MESH_DATA, 1), ("data", "model"), devices=["cuda:0"] * LM_MESH_DATA)
+    bundle = get_arch(LM_ARCH)
+    model = build(bundle)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen)  # phase 13's weights, then its prompts
+    prompts = torch.randint(0, model.cfg.vocab, (LM_B, LM_PROMPT), generator=gen, device="cuda")
+    serve = _lm_mesh_serve(model, params, prompts, mesh, smi)
+    del params
+    _free_card()
+    batch = SyntheticLM(model.cfg.vocab, LM_TRAIN_S, LM_TRAIN_B, seed=seed)(0)  # phase 15's
+    train = _lm_mesh_train(bundle, batch, mesh, lm_train, seed, smi)
+    _free_card()
+    restored = _lm_mesh_checkpoint(bundle, batch, mesh, seed, smi)
+    _free_card()
+    flash = _lm_mesh_flash(model.cfg, smi)
+    return {"serve": serve, "train": train, "checkpoint": restored, "flash_decode": flash}
 
 
 def _roofline_row(cfg, shape, meta):
@@ -4422,6 +4818,8 @@ def main(argv=None) -> int:
     mark("lm_serve, serve_scenario")
     lm_train = phase_lm_train(smi, args.seed)
     mark("lm_train")
+    lm_mesh = phase_lm_mesh(smi, args.seed, lm_train)
+    mark("lm_mesh")
     lm_moe = phase_lm_serve_moe(smi, args.seed)
     mark("lm_serve_moe")
     lm_train_moe = phase_lm_train_moe(smi, args.seed)
@@ -4435,7 +4833,7 @@ def main(argv=None) -> int:
     lm_train_encdec = phase_lm_train_encdec(smi, args.seed)
     mark("lm_train_encdec")
     print(json.dumps({"costs": costs, "analysis": analysis, "paper": paper, "lm_serve": lm,
-                      "serve_scenario": scenario, "lm_train": lm_train,
+                      "serve_scenario": scenario, "lm_train": lm_train, "lm_mesh": lm_mesh,
                       "lm_serve_moe": lm_moe, "lm_train_moe": lm_train_moe,
                       "lm_serve_recurrent": lm_recurrent,
                       "lm_train_recurrent": lm_train_recurrent,

@@ -12,9 +12,13 @@ attention + MoE jamba-v0.1-52b, whose losses add the router's aux terms,
 the mLSTM + sLSTM xlstm-350m, and the encoder-decoder seamless-m4t, whose
 batches carry ``frames``: seq_len frames, seq_len // dec_ratio tokens).
 
-Runs on the card; ``--device cpu`` runs the CPU.  One process on one
-device: a ``--mesh`` other than ``none`` and ``--distributed`` wait for
-ROADMAP item 9b.  Weights are random, drawn from a seeded generator on the
+Runs on the card; ``--device cpu`` runs the CPU.  One process: ``--mesh
+host`` trains data-parallel over ``launch/mesh.smoke_mesh`` (every visible
+card; with ``--device cpu`` the CPU), ``--mesh single`` and ``--mesh
+multi`` over ``make_production_mesh`` (which raises ``ValueError`` naming
+the device count when the cards are too few; a placement it cannot run
+data-parallel raises naming item 9b.3); ``--distributed`` (one process a
+host) waits for ROADMAP item 9b.3.  Weights are random, drawn from a seeded generator on the
 device; data is ``SyntheticLM`` at the ``train_4k`` shape (``--smoke``:
 128 tokens x 4).  Logs the device, then the run's report as one JSON object,
 the reference launcher's.
@@ -44,20 +48,19 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--mesh", default="none", choices=("none", "single", "multi", "host"))
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process training (waits for ROADMAP item 9b)")
+                    help="multi-process training (waits for ROADMAP item 9b.3)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     from repro_torch.models import common as cm
 
     if args.distributed:
-        cm._needs_mesh("--distributed")
-    if args.mesh != "none":
-        cm._needs_mesh(f"--mesh {args.mesh}")
+        cm._needs_mesh("--distributed (multi-process training)")
 
     from repro_torch.configs.base import SHAPES, get_arch, get_smoke_arch
     from repro_torch.data.pipeline import make_data_iter
     from repro_torch.kernels.common import resolve_device
+    from repro_torch.launch.mesh import make_production_mesh, smoke_mesh
     from repro_torch.models.model_zoo import build
     from repro_torch.train.train_loop import train
 
@@ -73,11 +76,20 @@ def main(argv=None):
     if args.smoke and not args.seq_len:
         shape = dataclasses.replace(shape, seq_len=128, global_batch=4)
 
+    mesh = None
+    if args.mesh == "single":
+        mesh = make_production_mesh()
+    elif args.mesh == "multi":
+        mesh = make_production_mesh(multi_pod=True)
+    elif args.mesh == "host":
+        mesh = smoke_mesh(str(dev))
+
     data = make_data_iter(model, shape)
-    log.info(f"training {model.cfg.name} on {model.device}: {shape.global_batch} x "
+    where = model.device if mesh is None else mesh
+    log.info(f"training {model.cfg.name} on {where}: {shape.global_batch} x "
              f"{shape.seq_len} tokens a step, {args.steps} steps")
     report = train(
-        model, data, steps=args.steps, lr=args.lr, warmup=args.warmup,
+        model, data, steps=args.steps, lr=args.lr, warmup=args.warmup, mesh=mesh,
         checkpoint_dir=args.checkpoint_dir or None,
         checkpoint_every=args.checkpoint_every,
     )

@@ -18,14 +18,17 @@ rounded there before the softcap and the cast to float32; the mask value is
 Caches are written in place: prefill copies K (after RoPE) and V into the
 cache in its dtype, a decode step writes each row's entry at its position.
 ``cross_attention`` / ``cross_kv`` serve the encoder-decoder family
-(``models/encdec.py``).  The reference's seq-sharded
-``flash_decode_sharded`` waits for a device mesh (ROADMAP item 9b).
+(``models/encdec.py``).  ``flash_decode_sharded`` is the reference's
+seq-sharded decode over a single-controller mesh (``parallel/mesh.py``):
+each (batch, ``model``) shard's partial softmax on its device, merged
+after ``collectives.all_gather``.
 """
 from __future__ import annotations
 
 import functools
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -163,9 +166,92 @@ def _masked_decode(q1, k_cache, v_cache, lo, hi, softcap):
     return out.to(q1.dtype)
 
 
+def _on(t: torch.Tensor, dev) -> torch.Tensor:
+    """``t`` on ``dev``: itself when it lies there (no op dispatched)."""
+    return t if t.device == dev else t.to(dev)
+
+
+def _flash_partial(q, k, v, lo, hi, softcap, offset: int):
+    """One sequence shard's partial softmax: (m, l, o) float32 for the keys
+    at positions ``offset + [0, S_loc)`` (q: (B, H, D); k, v: (B, S_loc,
+    KV, *)), heads grouped (B, KV, G) as the reference's shard function."""
+    B, H, D = q.shape
+    S_loc, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    kpos = offset + torch.arange(S_loc, device=q.device)
+    valid = (kpos[None, :] < hi[:, None]) & (kpos[None, :] >= lo[:, None])
+    dt = torch.promote_types(q.dtype, k.dtype)  # jnp.einsum promotes
+    q4 = (q * cm.scalar(D ** -0.5, q.dtype)).reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", q4.to(dt), k.to(dt))
+    s = _softcap(s, softcap).to(torch.float32)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype), v).to(torch.float32)
+    return m, l, o
+
+
 def flash_decode_sharded(q1, k_cache, v_cache, lo, hi, softcap, mesh, batch_axes):
-    """Seq-sharded decode over a device mesh: waits for item 9b."""
-    cm._needs_mesh("flash_decode_sharded")
+    """Seq-sharded flash decode: the KV cache split on its seq dim over the
+    ``model`` mesh axis (and the batch over ``batch_axes`` where it
+    divides); each shard computes a partial softmax (o, m, l) on its device;
+    the partials are LSE-merged after an all-gather over ``model``.
+
+    Takes whole tensors (q1: (B, H, D); caches (B, S, KV, *); lo, hi: (B,))
+    and returns (B, H, Dv) in q1's dtype on the mesh's first device.  A
+    cache length that does not divide over ``model`` takes
+    ``_masked_decode``, as the reference.  Each batch shard's merge runs
+    once, on its first ``model`` shard's device (the reference computes it
+    on every ``model`` shard, to the same values); a mesh of one cell
+    merges one partial, whose weight is 1: ``o / l``, no gather.
+    """
+    from repro_torch.parallel import collectives
+
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    n_shard = mesh.shape["model"]
+    if S % n_shard != 0:
+        return _masked_decode(q1, k_cache, v_cache, lo, hi, softcap)
+    S_loc = S // n_shard
+    B, H = q1.shape[0], q1.shape[1]
+    ba = tuple(a for a in batch_axes if a in mesh.shape)
+    nb = 1
+    for a in ba:
+        nb *= mesh.shape[a]
+    if B % nb != 0:  # e.g. global_batch=1 long-context decode
+        ba, nb = (), 1
+    Bl = B // nb
+    if nb == 1 and n_shard == 1:
+        # one partial: the merge's weight is exp(0) = 1, so its result is
+        # o / l exactly, with no gather
+        dev = mesh.devices.flat[0]
+        m, l, o = _flash_partial(*(_on(t, dev) for t in (q1, k_cache, v_cache, lo, hi)),
+                                 softcap, 0)
+        return (o / torch.clamp_min(l[..., None], 1e-30)).reshape(B, H, v_cache.shape[-1]).to(
+            q1.dtype)
+    outs = []
+    for i in range(nb):
+        idx = np.unravel_index(i, [mesh.shape[a] for a in ba]) if ba else ()
+        sub = mesh.sub({a: int(j) for a, j in zip(ba, idx)})
+        rows = slice(i * Bl, (i + 1) * Bl)
+        parts = []
+        for j, dev in enumerate(sub.shard_devices("model")):
+            seq = slice(j * S_loc, (j + 1) * S_loc)
+            parts.append(_flash_partial(
+                _on(q1[rows], dev), _on(k_cache[rows, seq], dev), _on(v_cache[rows, seq], dev),
+                _on(lo[rows], dev), _on(hi[rows], dev), softcap, j * S_loc))
+        # LSE merge across the model axis
+        om, ol, oo = (collectives.all_gather(sub, "model", [p[k] for p in parts])[0]
+                      for k in range(3))
+        m_g = om.amax(dim=0)
+        w = torch.exp(om - m_g[None])
+        l_g = (ol * w).sum(dim=0)
+        o_g = (oo * w[..., None]).sum(dim=0)
+        out = o_g / torch.clamp_min(l_g[..., None], 1e-30)
+        outs.append(out.reshape(Bl, H, v_cache.shape[-1]).to(q1.dtype))
+    if not ba:
+        return outs[0]
+    return collectives.gather(mesh, ba, outs).reshape((B,) + outs[0].shape[1:])
 
 
 # ---------------------------------------------------------------------------- #
@@ -214,9 +300,8 @@ def self_attention(
     """Full-sequence self-attention (prefill).
 
     x: (B, S, d).  If ``cache`` is given, K/V are written into it in place
-    and it is returned."""
-    if mesh is not None:
-        cm._needs_mesh("self_attention(mesh=...)")
+    and it is returned.  ``mesh`` changes nothing: the reference's GSPMD
+    computes the same values."""
     cd = cm.dtype_of(cfg.compute_dtype)
     hd = cfg.resolved_head_dim
     S = x.shape[1]
@@ -273,9 +358,9 @@ def self_attention_decode(
     mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token decode: write the new K/V into ``cache`` at
-    ``positions`` (in place), attend over it."""
-    if mesh is not None:
-        cm._needs_mesh("self_attention_decode(mesh=...)")
+    ``positions`` (in place), attend over it: over a mesh with a ``model``
+    axis through ``flash_decode_sharded`` when the partition asks for the
+    flash decode (the reference's route), else ``_masked_decode``."""
     cd = cm.dtype_of(cfg.compute_dtype)
     hd = cfg.resolved_head_dim
     q, k_new, v_new = _qkv(params, cfg, x, cd)  # (B,1,H,hd), (B,1,KV,hd)
@@ -289,7 +374,11 @@ def self_attention_decode(
         lo = torch.clamp_min(hi - cfg.window, 0)
     else:
         lo = torch.zeros_like(hi)
-    out = _masked_decode(q[:, 0], k_cache, v_cache, lo, hi, cfg.logit_softcap)
+    if part.flash_decode and mesh is not None and "model" in mesh.shape:
+        out = flash_decode_sharded(q[:, 0], k_cache, v_cache, lo, hi, cfg.logit_softcap, mesh,
+                                   ("pod", "data"))
+    else:
+        out = _masked_decode(q[:, 0], k_cache, v_cache, lo, hi, cfg.logit_softcap)
     y = cm.dense(params["wo"], out[:, None], "...hk,hkd->...d", cd)
     return y, cache
 
@@ -313,9 +402,8 @@ def cross_attention(
 
     ``decode``: one query token (x: (B, 1, d)) attends over every row of
     ``enc_kv``, the zero rows of a cross cache longer than the encoder's
-    frames included (the reference's ``hi = S_enc``)."""
-    if mesh is not None:
-        cm._needs_mesh("cross_attention(mesh=...)")
+    frames included (the reference's ``hi = S_enc``).  ``mesh`` changes
+    nothing, as in the reference."""
     cd = cm.dtype_of(cfg.compute_dtype)
     q = cm.dense(params["wq"], x, "...d,dhk->...hk", cd)
     if cfg.qk_norm:

@@ -6,10 +6,12 @@ initializer.  The spec tree gives, without any allocation, the tensors'
 shapes and bytes (``spec_leaves``; ``serve.kv_cache.cache_bytes``) and a
 tree of shape-and-dtype stand-ins on the ``meta`` device (``abstract``, the
 reference's ``ShapeDtypeStruct`` tree), and ``init_params(specs,
-generator)`` materializes them on the generator's device.  The reference's
-sharding helpers (``resolve_axes``, ``shardings``, ``logical_sharding``,
-``constrain``) need a device mesh, which the port does not have yet: they
-raise naming ROADMAP item 9b.
+generator)`` materializes them on the generator's device.  The logical
+axes resolve to mesh placements as the reference's do (``resolve_axes``,
+``shardings``, ``logical_sharding``: ``parallel/placement.py``'s
+``PartitionSpec``/``NamedSharding``, from ``mesh.shape`` alone);
+``constrain`` is the identity on values and checks the placement is one
+this port executes (data parallelism; the rest waits for item 9b.3).
 
 Numerics follow the reference's order of rounding: ``dense`` casts kernel
 and input to the compute dtype, multiplies, then adds the bias cast to the
@@ -19,11 +21,13 @@ compute dtype; the norms compute in float32 and cast back; RoPE casts
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.placement import NamedSharding, PartitionSpec
 
 # ---------------------------------------------------------------------------- #
 # Param specs                                                                   #
@@ -120,34 +124,151 @@ def init_params(specs, generator: torch.Generator, device=None):
 
 
 # ---------------------------------------------------------------------------- #
-# Logical-axis -> mesh resolution (item 9b)                                     #
+# Logical-axis -> mesh resolution                                               #
 # ---------------------------------------------------------------------------- #
+
+# Default logical rules.  Values are mesh axis names (or tuples).  An axis is
+# only actually sharded if the dim size divides the mesh axis size (maybe-shard
+# semantics) — this is what makes e.g. kv_heads=2 resolve under model=16.
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "embed": None,
+    "ff": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "vocab": "model",
+    "expert": "model",
+    "expert_ff": None,
+    "kv_lora": None,
+    "seq": None,
+    "seq_shard": "model",  # activations under Megatron-SP
+    "dstate": None,
+    "dinner": "model",  # mamba/xlstm inner dim
+    "layers": None,
+    "conv": None,
+    "capacity": None,
+    "frontend": None,
+}
+
+FSDP_RULES_OVERRIDE: Dict[str, Any] = {
+    # ZeRO-3: additionally shard the embed dim of weights over the data axis
+    "embed": "data",
+}
+
+#: the mesh axes a batch dimension may be split over in this port's
+#: execution (data parallelism); any other split waits for item 9b.3
+BATCH_MESH_AXES = ("pod", "data")
 
 
 def _needs_mesh(name: str):
     raise NotImplementedError(
-        f"{name} needs a device mesh, which repro_torch does not support yet "
-        "(ROADMAP.md queue 1, item 9b)"
+        f"{name}: not supported by repro_torch yet (ROADMAP.md queue 1, item 9b.3: "
+        "tensor-parallel and FSDP/ZeRO execution, multi-process meshes)"
     )
 
 
-def resolve_axes(mesh, rules, shape, axes):
-    _needs_mesh("resolve_axes")
+def _mesh_axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        out = 1
+        for a in axis:
+            out *= _mesh_axis_size(mesh, a)
+        return out
+    return mesh.shape[axis] if axis in mesh.shape else 1
 
 
-def shardings(specs, mesh, rules=None):
-    _needs_mesh("shardings")
+def resolve_axes(mesh, rules: Dict[str, Any], shape, axes) -> PartitionSpec:
+    """Logical axes -> PartitionSpec with divisibility (maybe-shard) checks
+    and no mesh axis used twice.  Reads nothing of ``mesh`` but
+    ``mesh.shape``."""
+    used = set()
+    out = []
+    for size, name in zip(shape, axes):
+        mesh_axis = rules.get(name) if name else None
+        if mesh_axis is None:
+            out.append(None)
+            continue
+        axes_tuple = mesh_axis if isinstance(mesh_axis, tuple) else (mesh_axis,)
+        # drop axes missing from mesh, already used, or non-dividing
+        kept = [a for a in axes_tuple if a in mesh.shape and a not in used]
+        if not kept:
+            out.append(None)
+            continue
+        total = 1
+        for a in kept:
+            total *= mesh.shape[a]
+        if size % total != 0:
+            # try progressively shorter prefixes
+            while kept:
+                kept = kept[:-1]
+                total = 1
+                for a in kept:
+                    total *= mesh.shape[a]
+                if kept and size % total == 0:
+                    break
+            if not kept:
+                out.append(None)
+                continue
+        used.update(kept)
+        out.append(tuple(kept) if len(kept) > 1 else kept[0])
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
 
 
-def logical_sharding(mesh, rules, shape, axes):
-    _needs_mesh("logical_sharding")
+def shardings(specs, mesh, rules: Optional[Dict[str, Any]] = None):
+    """NamedSharding tree for a spec tree."""
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    return map_specs(lambda s: NamedSharding(mesh, resolve_axes(mesh, rules, s.shape, s.axes)),
+                     specs)
+
+
+def logical_sharding(mesh, rules, shape, axes) -> NamedSharding:
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    return NamedSharding(mesh, resolve_axes(mesh, rules, shape, axes))
+
+
+def split_refusal(sharding: NamedSharding, axes) -> Optional[str]:
+    """Why a tensor of logical ``axes`` placed by ``sharding`` cannot run in
+    this port's data-parallel execution (None when it can): a dimension cut
+    into more than one piece other than a ``batch`` dimension cut over
+    ``BATCH_MESH_AXES``."""
+    for d, entry in enumerate(sharding.spec):
+        if sharding.pieces(d) == 1:
+            continue
+        name = axes[d] if d < len(axes) else None
+        cut = sharding.spec.axes(d)
+        if name == "batch" and set(cut) <= set(BATCH_MESH_AXES):
+            continue
+        kind = "FSDP/ZeRO" if set(cut) <= set(BATCH_MESH_AXES) else "tensor-parallel"
+        return f"dim {d} ({name}) split over {cut} ({kind})"
+    return None
+
+
+def require_data_parallel(mesh, rules, shape, axes, what: str) -> NamedSharding:
+    """The placement of a tensor of ``shape``/``axes`` on ``mesh``; raises
+    ``NotImplementedError`` naming item 9b.3 when it splits anything but a
+    batch dimension over the batch axes."""
+    sh = logical_sharding(mesh, rules, shape, axes)
+    why = split_refusal(sh, axes)
+    if why is not None:
+        _needs_mesh(f"{what}: {why}")
+    return sh
 
 
 def constrain(x, mesh, rules, axes):
-    """Identity off-mesh (as the reference's); a mesh raises (item 9b)."""
+    """The reference's ``with_sharding_constraint`` by logical axes: the
+    identity on values, on any mesh and off it.  On a mesh it validates
+    that ``axes`` name each dimension of ``x`` and resolve to a placement
+    this port executes (a batch split at most; else item 9b.3)."""
     if mesh is None:
         return x
-    _needs_mesh("constrain")
+    if len(axes) != x.dim():
+        raise ValueError(f"constrain: {len(axes)} logical axes for a {x.dim()}-dim tensor")
+    require_data_parallel(mesh, rules, tuple(x.shape), axes, "constrain")
+    return x
 
 
 # ---------------------------------------------------------------------------- #

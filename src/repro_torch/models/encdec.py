@@ -21,7 +21,9 @@ parameters (the reference's ``lax.scan``), checkpointed by the partition's
 enabled, and the caches are written in place: prefill writes the self
 caches and the cross K/V (cast to bf16, then to the cache's dtype) into the
 first ``S_enc`` rows of the cross cache; a decode step writes its self-cache
-row and leaves the cross cache as it is.  A device mesh waits for item 9b.
+row and leaves the cross cache as it is.  On a mesh the functions compute
+what they compute off it on the tensors they are given (the decode step's
+self-attention takes the flash decode when the partition asks for it).
 """
 from __future__ import annotations
 
@@ -101,14 +103,13 @@ def encdec_cache_specs(cfg, part, B: int, S: int) -> Dict[str, Any]:
 
 def encode_frames(params, cfg, part, frames, mesh=None, rules=None):
     """frames: (B, S_enc, frontend_dim) -> (B, S_enc, d)."""
-    if mesh is not None:
-        cm._needs_mesh("encode_frames(mesh=...)")
     cd = cm.dtype_of(cfg.compute_dtype)
     x = cm.dense(params["frontend_proj"], frames, "...f,fd->...d", cd)
+    x = cm.constrain(x, mesh, rules, ("batch", None, None))
 
     def layer_fn(x, lp):
         h = _norm(lp["ln1"], cfg, x)
-        y, _ = self_attention(lp["attn"], cfg, part, h, kind="attn_bidir")
+        y, _ = self_attention(lp["attn"], cfg, part, h, kind="attn_bidir", mesh=mesh)
         x = x + y
         h = _norm(lp["ln2"], cfg, x)
         return x + mlp_apply(lp["mlp"], cfg, h)
@@ -134,17 +135,17 @@ def encode_cross_kv(params, cfg, enc_out):
 # --------------------------------------------------------------------------- #
 
 
-def _dec_layer_full(lp, cfg, part, x, enc_out, self_cache):
+def _dec_layer_full(lp, cfg, part, x, enc_out, self_cache, mesh=None):
     """One decoder layer.  Cross K/V are computed here from ``enc_out`` in
     the compute dtype (and recomputed in the backward under remat): all
     layers' cross K/V computed up front would keep L x 2 (B, S_enc, KV, hd)
     tensors alive."""
     h = _norm(lp["ln1"], cfg, x)
-    y, _ = self_attention(lp["self"], cfg, part, h, kind="attn", cache=self_cache)
+    y, _ = self_attention(lp["self"], cfg, part, h, kind="attn", cache=self_cache, mesh=mesh)
     x = x + y
     h = _norm(lp["ln_cross"], cfg, x)
     kv = cross_kv(lp["cross"], cfg, enc_out)
-    x = x + cross_attention(lp["cross"], cfg, part, h, enc_kv=kv)
+    x = x + cross_attention(lp["cross"], cfg, part, h, enc_kv=kv, mesh=mesh)
     h = _norm(lp["ln2"], cfg, x)
     return x + mlp_apply(lp["mlp"], cfg, h)
 
@@ -154,13 +155,11 @@ def decoder_forward(params, cfg, part, tokens, enc_out, *,
     """Teacher-forced decoder.  tokens: (B, S_dec); enc_out: (B, S_enc, d).
     Writes the self caches in place when given.  Returns (hidden, the self
     caches or None)."""
-    if mesh is not None:
-        cm._needs_mesh("decoder_forward(mesh=...)")
     x = cm.embed_lookup(params["embed"], tokens, cm.dtype_of(cfg.compute_dtype))
 
     def layer_fn(x, xs):
         lp, sc = xs
-        return _dec_layer_full(lp, cfg, part, x, enc_out, sc)
+        return _dec_layer_full(lp, cfg, part, x, enc_out, sc, mesh)
 
     policy = _remat_policy(part)
     x = remat_scan(_checkpointed(layer_fn, policy), x, (params["decoder"], self_caches),
@@ -207,18 +206,17 @@ def encdec_decode_step(params, cfg, part, tokens, positions, caches, *,
     """One decoder token.  tokens: (B, 1); positions: (B,); caches:
     {"self", "cross"} stacked over layers.  Writes the self caches in place;
     returns (logits (B, V), caches)."""
-    if mesh is not None:
-        cm._needs_mesh("encdec_decode_step(mesh=...)")
     x = cm.embed_lookup(params["embed"], tokens, cm.dtype_of(cfg.compute_dtype))
     for layer in range(cfg.n_layers):
         lp = _group(params["decoder"], layer)
         h = _norm(lp["ln1"], cfg, x)
         y, _ = self_attention_decode(lp["self"], cfg, part, h, kind="attn",
-                                     positions=positions, cache=_group(caches["self"], layer))
+                                     positions=positions, cache=_group(caches["self"], layer),
+                                     mesh=mesh)
         x = x + y
         h = _norm(lp["ln_cross"], cfg, x)
         x = x + cross_attention(lp["cross"], cfg, part, h,
-                                enc_kv=_group(caches["cross"], layer), decode=True)
+                                enc_kv=_group(caches["cross"], layer), decode=True, mesh=mesh)
         h = _norm(lp["ln2"], cfg, x)
         x = x + mlp_apply(lp["mlp"], cfg, h)
     x = _norm(params["final_norm"], cfg, x)

@@ -13,7 +13,13 @@ with the ``mlp``, ``moe`` or ``none`` ffn) and the encoder-decoder family
 (``models/encdec.py``: seamless-m4t; its batches carry ``frames``).
 ``abstract_params``, ``abstract_cache`` and the dry-run inputs
 (``input_specs``) give shape-and-dtype trees on the ``meta`` device (no
-allocation); the sharding methods and ``mesh=`` wait for item 9b.
+allocation).  The sharding methods (``param_shardings``,
+``cache_shardings``, ``batch_shardings``) give the reference's placements
+(``_rules``: ZeRO-1 and ``zero_stage``, ``flash_decode``'s ``kv_seq``); the
+steps take a ``mesh=`` whose placement of the parameters splits nothing
+(data parallelism, the serving engine and the train step run it) and
+compute on the tensors they are given what they compute off the mesh;
+any other placement raises naming item 9b.3.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
+from repro_torch.parallel.placement import NamedSharding, PartitionSpec
+from repro_torch.train.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -48,7 +56,35 @@ class Model:
         return cm.abstract(self.param_specs)
 
     def param_shardings(self, mesh, rules=None):
-        cm._needs_mesh("param_shardings")
+        return cm.shardings(self.param_specs, mesh, self._rules(rules))
+
+    def _rules(self, rules=None, for_opt=False):
+        r = dict(cm.DEFAULT_RULES)
+        if self.part.fsdp and (for_opt or self.part.zero_stage >= 3):
+            # ZeRO-1: optimizer state shards over data, params stay
+            # replicated on data (sharded on model only)
+            r.update(cm.FSDP_RULES_OVERRIDE)
+        if self.part.flash_decode:
+            r["kv_seq"] = "model"
+        if rules:
+            r.update(rules)
+        return r
+
+    def _check_mesh(self, mesh, rules, what: str):
+        """The resolved rules; on a mesh, first the check that the
+        parameters' placement is one this port executes (nothing split:
+        item 9b.3 otherwise), made once per (mesh, rules)."""
+        r = self._rules(rules)
+        if mesh is not None:
+            key = (mesh, tuple(sorted(r.items(), key=lambda kv: kv[0])))
+            checked = self.__dict__.setdefault("_checked_meshes", set())
+            if key not in checked:
+                from repro_torch.parallel.sharding import require_data_parallel_tree
+
+                require_data_parallel_tree(self.param_shardings(mesh, rules), self.param_specs,
+                                           f"{what}: the {self.cfg.name} parameters")
+                checked.add(key)
+        return r
 
     # ---------------- caches ---------------- #
 
@@ -62,14 +98,17 @@ class Model:
         return cm.abstract(self.cache_specs(B, S))
 
     def cache_shardings(self, mesh, B: int, S: int, rules=None):
-        cm._needs_mesh("cache_shardings")
+        return cm.shardings(self.cache_specs(B, S), mesh, self._rules(rules))
 
-    def init_cache(self, B: int, S: int):
+    def init_cache(self, B: int, S: int, device=None):
+        """Caches for B rows of S positions on ``device`` (default: the
+        model's)."""
+        device = self.device if device is None else torch.device(device)
         if self.cfg.family == "encdec":
             return cm.map_specs(
-                lambda s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
+                lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
                 self.cache_specs(B, S))
-        return tf.init_cache(self.cfg, self.part, B, S, self.device)
+        return tf.init_cache(self.cfg, self.part, B, S, device)
 
     # ---------------- steps ---------------- #
 
@@ -77,6 +116,7 @@ class Model:
         """batch: {"tokens", "labels"} (+ "patches" for a VLM, "frames" for
         the encoder-decoder family).  Returns (loss, metrics),
         differentiable with respect to ``params``."""
+        rules = self._check_mesh(mesh, rules, "train_loss")
         if self.cfg.family == "encdec":
             return ed.encdec_train_loss(params, self.cfg, self.part, batch, mesh, rules)
         return tf.lm_train_loss(params, self.cfg, self.part, batch, mesh=mesh, rules=rules)
@@ -85,6 +125,7 @@ class Model:
         """batch: {"tokens": (B, S)} (+ "patches" for a VLM, "frames" for
         the encoder-decoder family).  Writes the caches in place; returns
         (last logits (B, V), caches)."""
+        rules = self._check_mesh(mesh, rules, "prefill")
         if self.cfg.family == "encdec":
             return ed.encdec_prefill(params, self.cfg, self.part, batch, caches,
                                      mesh=mesh, rules=rules)
@@ -94,6 +135,7 @@ class Model:
     def decode_step(self, params, tokens, positions, caches, mesh=None, rules=None):
         """tokens: (B, 1); positions: (B,).  Updates the caches in place;
         returns (logits (B, V), caches)."""
+        rules = self._check_mesh(mesh, rules, "decode_step")
         if self.cfg.family == "encdec":
             return ed.encdec_decode_step(params, self.cfg, self.part, tokens, positions,
                                          caches, mesh=mesh, rules=rules)
@@ -131,7 +173,28 @@ class Model:
         return {"batch": batch, "caches": self.abstract_cache(B, S)}
 
     def batch_shardings(self, mesh, tree, rules=None):
-        cm._needs_mesh("batch_shardings")
+        """NamedShardings for an input_specs()-shaped tree: leading dim of
+        every leaf is batch (replicated where it does not divide over the
+        batch axes)."""
+        batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+        def shard_leaf(leaf):
+            if leaf.ndim == 0:
+                return NamedSharding(mesh, PartitionSpec())
+            spec = [None] * leaf.ndim
+            if leaf.shape[0] % max(1, _prod(mesh.shape[a] for a in batch_axes)) == 0:
+                spec[0] = batch_axes if len(batch_axes) > 1 else (
+                    batch_axes[0] if batch_axes else None)
+            return NamedSharding(mesh, PartitionSpec(*spec))
+
+        return tree_map(shard_leaf, tree)
+
+
+def _prod(it):
+    out = 1
+    for x in it:
+        out *= x
+    return out
 
 
 def build(bundle: ArchBundle, device=None) -> Model:

@@ -25,8 +25,9 @@ The expert products are plain batched products (``torch.einsum`` on the
 bf16 casts of the float32 expert kernels, cast per call as ``dense``
 does).  Aux losses (float32): the switch load-balance loss ``E ·
 sum(ce · me)`` with ``ce`` counted over all picks, kept and dropped, and
-the router z-loss ``mean(logsumexp(logits)**2)``.  A device mesh waits for
-ROADMAP item 9b.
+the router z-loss ``mean(logsumexp(logits)**2)``.  On a mesh the rows'
+dispatch is what it is off it; expert parallelism waits for ROADMAP item
+9b.3.
 """
 from __future__ import annotations
 
@@ -143,9 +144,14 @@ def router(params, cfg, x: torch.Tensor):
 
 def moe_apply(params, cfg, x: torch.Tensor,
               mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, S, d) -> (y, aux) with aux = {load_balance_loss, router_z_loss}."""
+    """x: (B, S, d) -> (y, aux) with aux = {load_balance_loss, router_z_loss}.
+
+    On a mesh the dispatch is per row, as off it (the reference's
+    shard_map over the batch axes computes the same); experts split over a
+    ``model`` axis (expert parallelism) wait for item 9b.3."""
     if mesh is not None:
-        cm._needs_mesh("moe_apply(mesh=...)")
+        cm.require_data_parallel(mesh, cm.DEFAULT_RULES, (cfg.moe.n_experts,), ("expert",),
+                                 "moe_apply")
     cd = cm.dtype_of(cfg.compute_dtype)
     moe = cfg.moe
     B, S, d = x.shape

@@ -27,8 +27,13 @@ cache is its state (``ssm``/``conv``; ``C``/``n``/``m``/``conv``;
 the attention caches are.  The MoE aux losses travel with the activations:
 each block returns its sums as outputs (of its checkpoint, when one runs),
 and the group loop carries their running totals beside ``x``, so a
-recompute in the backward never adds them twice.  A device mesh waits for
-item 9b.
+recompute in the backward never adds them twice.  On a mesh (``mesh=``)
+the functions compute what they compute off it on the tensors they are
+given (the serving engine and the train step hand each data-parallel shard
+its rows); ``constrain`` checks the logical placements, the decode's
+attention takes the flash decode (``attention.flash_decode_sharded``) when
+the partition asks for it, as the reference's, and the vocab-sharded loss
+waits for item 9b.3.
 """
 from __future__ import annotations
 
@@ -241,8 +246,6 @@ def apply_block_full(bp, cfg, part, mixer: str, ffn: str, x, *, positions=None, 
                      mesh=None, rules=None):
     """Full-sequence block (training / prefill).  Returns (x, cache, aux)."""
     h = _norm(bp["ln1"], cfg, x)
-    if (mixer == "mla" or mixer in RECURRENT) and mesh is not None:
-        cm._needs_mesh("apply_block_full(mesh=...)")
     if mixer == "mla":
         y, new_cache = mla_mod.mla_attention(bp["mixer"], cfg, part, h, positions=positions,
                                              cache=cache)
@@ -255,6 +258,8 @@ def apply_block_full(bp, cfg, part, mixer: str, ffn: str, x, *, positions=None, 
         y = _norm(bp["ln1_post"], cfg, y)
     x = x + y
     x, aux = _ffn(bp, cfg, ffn, x, mesh)
+    if part.seq_shard_activations and mesh is not None:
+        x = cm.constrain(x, mesh, rules, ("batch", "seq_shard", None))
     return x, new_cache, aux
 
 
@@ -298,8 +303,6 @@ def apply_block_decode(bp, cfg, part, mixer: str, ffn: str, x, *, positions, cac
                        rules=None):
     """Single-token block.  x: (B, 1, d).  Returns (x, cache)."""
     h = _norm(bp["ln1"], cfg, x)
-    if (mixer in ("attn_local", "mla") or mixer in RECURRENT) and mesh is not None:
-        cm._needs_mesh("apply_block_decode(mesh=...)")
     if mixer in RECURRENT:
         y, new_cache = RECURRENT[mixer][2](bp["mixer"], cfg, h, cache=cache)
     elif mixer == "attn_local":
@@ -483,10 +486,13 @@ def softmax_xent(logits, labels, valid=None, z_weight: float = 0.0, mesh=None):
     """Cross-entropy in float32.  logits: (B,S,V); labels: (B,S) int.
 
     The mean of ``logsumexp - gold`` over the ``valid`` positions (all when
-    None), plus ``z_weight`` times the mean squared logsumexp.  The
-    reference's vocab-sharded form on a mesh waits for item 9b."""
-    if mesh is not None:
-        cm._needs_mesh("softmax_xent(mesh=...)")
+    None), plus ``z_weight`` times the mean squared logsumexp.  On a mesh
+    whose ``model`` axis has size 1 the loss is this plain one; a vocab
+    split over a larger ``model`` axis (the reference's ``_xent_sharded``)
+    waits for item 9b.3."""
+    if mesh is not None and cm._mesh_axis_size(mesh, "model") > 1 and \
+            logits.shape[-1] % mesh.shape["model"] == 0:
+        cm._needs_mesh("softmax_xent over a vocab split across the model axis (_xent_sharded)")
     lg = logits.to(torch.float32)
     lse = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
@@ -504,17 +510,16 @@ def lm_train_loss(params, cfg, part, batch, mesh=None, rules=None):
     "valid" to mask positions).  Returns (loss, metrics): with MoE blocks the
     loss adds ``aux_loss_weight`` times the load-balance sum and 1e-3 times
     the z-loss sum; ``metrics["loss"]`` is the plain cross-entropy."""
-    if mesh is not None:
-        cm._needs_mesh("lm_train_loss(mesh=...)")
     x = embed_tokens(params, cfg, batch["tokens"], batch.get("patches"))
-    x, _, aux = run_stack_full(params["blocks"], cfg, part, x, rules=rules)
+    x = cm.constrain(x, mesh, rules, ("batch", None, None))
+    x, _, aux = run_stack_full(params["blocks"], cfg, part, x, mesh=mesh, rules=rules)
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps,
                    compute_dtype=cm.dtype_of(cfg.compute_dtype))
     logits = lm_head(params, cfg, x)
     if cfg.modality == "vision" and cfg.n_prefix_tokens:
         # patch positions carry no next-token target
         logits = logits[:, cfg.n_prefix_tokens:]
-    loss = softmax_xent(logits, batch["labels"], batch.get("valid"))
+    loss = softmax_xent(logits, batch["labels"], batch.get("valid"), mesh=mesh)
     total = loss
     if cfg.moe is not None:
         total = total + cfg.moe.aux_loss_weight * aux["load_balance_loss"] \

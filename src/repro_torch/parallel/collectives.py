@@ -1,5 +1,6 @@
 """Collectives over a single-controller mesh, and the sequence-parallel
-Viterbi decoder built on them.
+Viterbi decoder built on them.  (The LM's data-parallel train step reduces
+its gradients with ``all_reduce``; ``psum_scalar`` sums per-shard scalars.)
 
 The Viterbi forward pass is a product in the (min,+) semiring, which is
 associative, so a length-T decode splits across the ``model`` mesh axis:
@@ -146,6 +147,86 @@ def reduce_across_shards(mesh, axis: str, per_shard, op: str = "sum") -> torch.T
 def sum_across_shards(mesh, axis: str, per_shard) -> torch.Tensor:
     """reduce_across_shards with op='sum'."""
     return reduce_across_shards(mesh, axis, per_shard, op="sum")
+
+
+_REDUCERS = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
+
+
+def all_reduce(mesh, axis, per_shard: Sequence[Optional[torch.Tensor]],
+               op: str = "sum") -> List[torch.Tensor]:
+    """``jax.lax.psum`` (``pmax``, ``pmin``) over ``axis``: one tensor per
+    shard, each on its shard's device (None: the shard holds no part),
+    reduced; entry i of the result is the reduced tensor on shard i's
+    device.  Shards that share a device share one result.
+
+    Reduce, then broadcast: each device first reduces its own shards'
+    tensors in shard order; the first device then adds each other device's
+    part in device order, received one at a time (a device holds the
+    result and at most one received tensor); the result is then copied to
+    every other device.  So every device ends with the same bits, which
+    keeps replicas that update from them equal.
+    """
+    calls["all_reduce"] += 1
+    out = _reduce_broadcast(mesh, axis, per_shard, op)
+    nbytes["all_reduce"] += tensor_bytes(out[0])
+    return out
+
+
+def _reduce_broadcast(mesh, axis, per_shard, op: str) -> List[torch.Tensor]:
+    try:
+        fn = _REDUCERS[op]
+    except KeyError:
+        raise ValueError(f"op must be 'sum', 'max' or 'min', got {op!r}") from None
+    devices = _shard_devices(mesh, axis, per_shard, "all_reduce")
+    local: Dict[torch.device, Optional[torch.Tensor]] = {}
+    fresh = set()  # devices whose part is a buffer of this call's own
+    for t, dev in zip(per_shard, devices):
+        part = local.get(dev)
+        if t is None:
+            local.setdefault(dev, None)
+        elif part is None:
+            local[dev] = t
+        elif dev in fresh:
+            _accumulate(part, t, op)
+        else:
+            local[dev] = fn(part, t)
+            fresh.add(dev)
+    order = list(local)
+    home = order[0]
+    total, own = local[home], home in fresh
+    for dev in order[1:]:
+        if local[dev] is None:
+            continue
+        received = local[dev].to(home)
+        if total is None:
+            total, own = received, True
+        elif own:
+            _accumulate(total, received, op)
+        else:
+            total, own = fn(total, received), True
+        del received
+    if total is None:
+        raise ValueError("all_reduce: no shard holds a part")
+    results = {home: total}
+    for dev in order[1:]:
+        results[dev] = total.to(dev)
+    return [results[dev] for dev in devices]
+
+
+def _accumulate(acc: torch.Tensor, t: torch.Tensor, op: str) -> None:
+    if op == "sum":
+        acc.add_(t)
+    else:
+        torch.maximum(acc, t, out=acc) if op == "max" else torch.minimum(acc, t, out=acc)
+
+
+def psum_scalar(mesh, axis, per_shard: Sequence[Optional[torch.Tensor]]) -> List[torch.Tensor]:
+    """The sum of the shards' scalars (0-dim tensors, one per shard of
+    ``axis``), on every shard's device: :func:`all_reduce` of scalars."""
+    calls["psum_scalar"] += 1
+    out = _reduce_broadcast(mesh, axis, per_shard, "sum")
+    nbytes["psum_scalar"] += tensor_bytes(out[0])
+    return out
 
 
 def viterbi_decode_seqparallel(

@@ -70,14 +70,37 @@ class Mesh:
             raise ValueError(f"mesh mixes device types {sorted(types)}")
         return types.pop()
 
-    def shard_devices(self, axis: str) -> Tuple[torch.device, ...]:
+    def shard_devices(self, axis) -> Tuple[torch.device, ...]:
         """One device per index of ``axis``, taken at index 0 of every other
-        axis (the other axes replicate what ``axis`` shards)."""
-        if axis not in self.axis_names:
-            raise ValueError(f"mesh {dict(self.shape)} has no axis {axis!r}")
-        k = self.axis_names.index(axis)
-        index = tuple(slice(None) if i == k else 0 for i in range(len(self.axis_names)))
-        return tuple(self.devices[index])
+        axis (the other axes replicate what ``axis`` shards).  ``axis`` may
+        be a tuple of names, whose indices run row-major (the first
+        slowest), as a dimension split over several axes is; the empty
+        tuple gives the first cell's device."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        for a in names:
+            if a not in self.axis_names:
+                raise ValueError(f"mesh {dict(self.shape)} has no axis {a!r}")
+        if not names:
+            return (self.devices.flat[0],)
+        ks = [self.axis_names.index(a) for a in names]
+        index = tuple(slice(None) if i in ks else 0 for i in range(len(self.axis_names)))
+        block = self.devices[index]  # its axes in mesh order
+        block = block.transpose([sorted(ks).index(k) for k in ks])
+        return tuple(block.reshape(-1))
+
+    def sub(self, index) -> "Mesh":
+        """The mesh at ``index`` ({axis name: position}) of the named axes,
+        each kept with size 1 (the cells one shard of those axes runs on)."""
+        for a in index:
+            if a not in self.axis_names:
+                raise ValueError(f"mesh {dict(self.shape)} has no axis {a!r}")
+        sel = tuple(slice(index[a], index[a] + 1) if a in index else slice(None)
+                    for a in self.axis_names)
+        return Mesh(self.devices[sel], self.axis_names)
+
+    def distinct_devices(self) -> Tuple[torch.device, ...]:
+        """The mesh's devices without repeats, in cell order."""
+        return tuple(dict.fromkeys(self.devices.flat))
 
     def _key(self):
         return self.axis_names, self.devices.shape, tuple(map(str, self.devices.flat))

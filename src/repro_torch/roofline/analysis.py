@@ -32,6 +32,8 @@ COLLECTIVE_KIND_OF = {
     "all_gather": "all-gather",
     "ring_shift": "collective-permute",
     "reduce_across_shards": "all-reduce",
+    "all_reduce": "all-reduce",
+    "psum_scalar": "all-reduce",
 }
 
 

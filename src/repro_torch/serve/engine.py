@@ -9,8 +9,25 @@ donates the caches).  The loop keeps ``done`` and the tokens on the device,
 so it makes no host sync a token.  Temperature sampling draws from a torch
 generator on the model's device seeded from ``seed`` (Gumbel-max, as
 ``jax.random.categorical`` samples): the sampled tokens are not the
-reference's for the same seed; greedy tokens are.  ``mesh=`` (a sharded
-engine) waits for ROADMAP item 9b.
+reference's for the same seed; greedy tokens are.
+
+On a mesh (``mesh=``, a ``parallel.Mesh`` of the model's device type) the
+engine is data-parallel.  The parameters are placed once, at construction,
+by ``Model.param_shardings`` (one copy a distinct device); each
+``generate`` splits the batch over the batch axes (``pod``, ``data``) and
+gives each shard caches of its rows (``Model.cache_shardings``' blocks) on
+its device.  The loop over tokens is outside and the loop over shards
+inside, so distinct cards overlap; each shard's model calls take the cells
+at its batch index as their ``mesh=`` (the decode's attention takes the
+flash decode there, as the reference's).  The tokens are gathered once, at
+the end, onto the mesh's first device (``collectives.gather``).  A batch
+that does not divide over the batch axes is replicated and runs once, on
+the first cell.  With temperature, each distinct device draws the whole
+batch's noise a step from a generator seeded with ``seed`` and each shard
+takes its rows, so a seed gives the tokens of the one-device engine.  A
+placement that splits anything but the batch (tensor parallelism, FSDP,
+a seq-sharded cache) raises ``NotImplementedError`` naming item 9b.3 before
+anything is allocated.
 
 The engine prefills from tokens alone, so it refuses the encoder-decoder
 family (whose prefill needs the encoder's ``frames``) with ``ValueError``
@@ -36,21 +53,37 @@ class ServeEngine:
     eos: int = 0
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=...) is not ported to repro_torch yet "
-                "(ROADMAP.md queue 1, item 9b)")
         if self.model.cfg.family == "encdec":
             raise ValueError(
                 f"ServeEngine prefills from tokens alone; {self.model.cfg.name} (encoder-"
                 "decoder) needs the encoder's frames: serve it through Model.prefill and "
                 "Model.decode_step")
+        if self.mesh is not None:
+            from repro_torch.parallel import sharding
 
-    def _sample(self, logits, gen: torch.Generator):
+            m = self.model
+            sharding.check_mesh(self.mesh, m.device.type, "ServeEngine(mesh=...)")
+            p_sh = m.param_shardings(self.mesh)
+            sharding.require_data_parallel_tree(p_sh, m.param_specs,
+                                                f"ServeEngine: the {m.cfg.name} parameters")
+            self._check_caches(sharding.data_parallel_size(self.mesh))
+            self.params = sharding.place_tree(self.params, p_sh)
+
+    def _check_caches(self, B: int):
+        from repro_torch.parallel import sharding
+
+        m = self.model
+        sharding.require_data_parallel_tree(
+            m.cache_shardings(self.mesh, B, self.max_len), m.cache_specs(B, self.max_len),
+            f"ServeEngine: the {m.cfg.name} caches")
+
+    def _sample(self, logits, gen: torch.Generator, noise=None):
+        """Greedy, or Gumbel-max at the temperature: the noise of
+        ``logits``' shape drawn from ``gen``, or ``noise`` where given."""
         if self.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         z = logits.to(torch.float32) / self.temperature
-        u = torch.rand(z.shape, generator=gen, device=z.device)
+        u = torch.rand(z.shape, generator=gen, device=z.device) if noise is None else noise
         return torch.argmax(z - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
 
     @torch.inference_mode()
@@ -62,7 +95,9 @@ class ServeEngine:
     ) -> Dict[str, torch.Tensor]:
         """Greedy/temperature generation for a batch of equal-length prompts.
         Returns {"tokens": (B, max_new_tokens) int32, "done": (B,) bool} on
-        the model's device."""
+        the model's device (on a mesh: its first device)."""
+        if self.mesh is not None:
+            return self._generate_on_mesh(prompts, max_new_tokens, seed)
         dev = self.model.device
         prompts = torch.as_tensor(prompts, device=dev)
         B, S_p = prompts.shape
@@ -82,3 +117,51 @@ class ServeEngine:
             tok = nxt
             positions = positions + 1
         return {"tokens": torch.cat(out, dim=1), "done": done}
+
+    def _generate_on_mesh(self, prompts, max_new_tokens: int, seed: int):
+        from repro_torch.parallel import collectives, sharding
+
+        m, mesh = self.model, self.mesh
+        prompts = torch.as_tensor(prompts)
+        B, S_p = prompts.shape
+        self._check_caches(B)
+        shards = sharding.data_shards(mesh, B)
+        Bl = shards[0].rows.stop - shards[0].rows.start
+        params = [sharding.block_tree(self.params, s.cell) for s in shards]
+        caches = [m.init_cache(Bl, self.max_len, device=s.device) for s in shards]
+        gens = {s.device: torch.Generator(device=s.device).manual_seed(seed) for s in shards}
+        V = m.cfg.vocab
+
+        def noise():  # each distinct device draws the whole batch's noise once a step
+            if self.temperature <= 0.0:
+                return {}
+            return {d: torch.rand((B, V), generator=g, device=d) for d, g in gens.items()}
+
+        def sample(logits, s, u):
+            return self._sample(logits, None, u[s.device][s.rows] if u else None)[:, None]
+
+        u = noise()
+        tok, out, done, positions = [], [], [], []
+        for s, p, c in zip(shards, params, caches):
+            logits, _ = m.prefill(p, {"tokens": prompts[s.rows].to(s.device)}, c, mesh=s.mesh)
+            tok.append(sample(logits, s, u))
+            out.append([tok[-1]])
+            positions.append(torch.full((Bl,), S_p, dtype=torch.int32, device=s.device))
+            done.append(torch.zeros((Bl,), dtype=torch.bool, device=s.device))
+        for _ in range(max_new_tokens - 1):
+            u = noise()
+            for i, (s, p, c) in enumerate(zip(shards, params, caches)):
+                logits, _ = m.decode_step(p, tok[i], positions[i], c, mesh=s.mesh)
+                nxt = sample(logits, s, u)
+                done[i] = done[i] | (tok[i][:, 0] == self.eos)
+                nxt = torch.where(done[i][:, None], self.eos, nxt)
+                out[i].append(nxt)
+                tok[i] = nxt
+                positions[i] = positions[i] + 1
+        tokens = [torch.cat(o, dim=1) for o in out]
+        if len(shards) == 1:
+            return {"tokens": tokens[0].to(mesh.devices.flat[0]),
+                    "done": done[0].to(mesh.devices.flat[0])}
+        ba = sharding.batch_axes(mesh)
+        return {"tokens": collectives.gather(mesh, ba, tokens).reshape(B, max_new_tokens),
+                "done": collectives.gather(mesh, ba, done).reshape(B)}

@@ -1,7 +1,8 @@
 """Training runtime: optimizers, the train-step builder, the fault-tolerant
 loop, async checkpointing, straggler detection and the elastic mesh
-rebuild (``fault_tolerance.elastic_mesh``).  The step runs on one device;
-sharded steps wait for ROADMAP item 9b."""
+rebuild (``fault_tolerance.elastic_mesh``).  The step runs on one device
+or data-parallel over a mesh (``make_train_step(mesh=...)``); sharded
+parameters (tensor parallelism, FSDP/ZeRO) wait for ROADMAP item 9b.3."""
 from repro_torch.train.fault_tolerance import StragglerDetector
 from repro_torch.train.optimizer import adafactor, adamw, cosine_warmup
 from repro_torch.train.train_loop import make_train_step, train

@@ -6,8 +6,11 @@ the other): one ``step_<N>/`` directory per checkpoint holding
 order: dict keys sorted at every level, ``train/tree.py``), a
 ``manifest.json`` with the step, the leaf count and the tree's structure,
 and a ``COMMITTED`` marker written last, so a partly written checkpoint is
-never restored.  ``reshard_restored`` puts each loaded array on the device
-of the like tensor, in its dtype.
+never restored.  ``reshard_restored`` puts each loaded array where the
+like leaf is, in its dtype: on its device, or placed on its mesh by its
+sharding (a ``parallel.placement.Placed`` leaf) — elastic restore onto
+another mesh.  Saving a placed tree writes one replica of each leaf (the
+whole tensor, gathered).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.parallel.placement import Placed
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten, treedef_str
 
 
@@ -31,6 +35,8 @@ class SimulatedFailure(RuntimeError):
 def _host_copy(x) -> np.ndarray:
     """A numpy copy of a tensor or array that later in-place updates of the
     tensor do not reach."""
+    if isinstance(x, Placed):
+        x = x.gather()
     if isinstance(x, torch.Tensor):
         arr = x.detach().cpu().numpy()
         return arr.copy() if x.device.type == "cpu" else arr
@@ -115,12 +121,16 @@ class AsyncCheckpointer:
 
 
 def reshard_restored(path_or_tree, params_like, opt_like):
-    """Load a checkpoint and put each array on the device of the like
-    tensor in ``params_like``/``opt_like``, in its dtype.  Returns (params,
+    """Load a checkpoint and put each array where the like leaf of
+    ``params_like``/``opt_like`` is, in its dtype: on the like tensor's
+    device, or placed on its mesh by its sharding (a ``Placed`` leaf: one
+    copy a distinct device of a replicated leaf).  Returns (params,
     opt_state, step)."""
     (params, opt_state), step = load_pytree(path_or_tree, (params_like, opt_like))
 
     def put(arr, like):
+        if isinstance(like, Placed):
+            return like.sharding.place(torch.from_numpy(arr).to(dtype=like.dtype))
         return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
 
     return tree_map(put, params, params_like), tree_map(put, opt_state, opt_like), step

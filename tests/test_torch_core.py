@@ -233,7 +233,10 @@ def test_import_loads_neither_jax_nor_reference():
         "repro_torch.serve.engine, repro_torch.launch.serve, "
         "repro_torch.train.optimizer, repro_torch.train.train_loop, "
         "repro_torch.train.checkpoint, repro_torch.data, repro_torch.launch.train, "
-        "repro_torch.parallel, repro_torch.parallel.collectives, repro_torch.launch.mesh\n"
+        "repro_torch.parallel, repro_torch.parallel.collectives, repro_torch.launch.mesh, "
+        "repro_torch.parallel.sharding, repro_torch.parallel.placement, "
+        "repro_torch.models.common, repro_torch.models.attention, repro_torch.models.encdec, "
+        "repro_torch.models.transformer, repro_torch.models.model_zoo\n"
         "bad = [k for k in sys.modules if k.startswith('jax') or k == 'repro' "
         "or k.startswith('repro.')]\n"
         "assert not bad, bad\n"

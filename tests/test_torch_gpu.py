@@ -2015,3 +2015,146 @@ def test_predicted_costs_equal_the_card_run_count(card, backend, shape, tiles):
     got = count_fn_costs(lambda t: plan.decoder(spec, t, ctx=plan.ctx).bits, bm)
     assert got == pred and pred["flops"] > 0
     assert sum(launch_counts.values()) >= 2 and not plain_counts
+
+
+# --------------------------------------------------------------------------- #
+# the LM's data-parallel mesh path (ServeEngine(mesh=), the train step)       #
+# --------------------------------------------------------------------------- #
+
+
+def _count_syncs(fn):
+    """(fn(), the synchronizing CUDA calls it made)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+@pytest.mark.gpu
+def test_lm_mesh_engine_makes_no_host_sync_and_equals_one_device(card):
+    """``ServeEngine`` over a (2, 1) mesh of two cells on the card: no sync
+    at any length, greedy tokens equal to the same engine on a (1, 1) mesh
+    (the same flash-decode numerics a row), the first step's logits within
+    phase 13's float32 tolerance of the one-device model's."""
+    from repro_torch.serve import ServeEngine
+
+    _, _, model, params = _lm_models("qwen2_5_3b", card, "float32")
+    prompts = torch.randint(1, model.cfg.vocab, (4, 8), device=card)
+    engine = ServeEngine(model, params, max_len=40, mesh=make_mesh(
+        (2, 1), ("data", "model"), devices=[card] * 2))
+    engine.generate(prompts, 4)  # warm
+    counts = [_count_syncs(lambda n=n: engine.generate(prompts, n))[1] for n in (8, 24)]
+    assert counts == [0, 0], counts
+    unit = ServeEngine(model, params, max_len=40, mesh=make_mesh((1, 1), ("data", "model"),
+                                                                 devices=[card]))
+    got = engine.generate(prompts, 24)
+    assert torch.equal(got["tokens"], unit.generate(prompts, 24)["tokens"])
+    assert got["tokens"].device.type == "cuda"
+    with torch.inference_mode():
+        caches = model.init_cache(4, 9)
+        want, _ = model.prefill(params, {"tokens": prompts}, caches)
+        step_w, _ = model.decode_step(params, got["tokens"][:, :1], torch.full(
+            (4,), 8, dtype=torch.int32, device=card), caches)
+        caches = model.init_cache(4, 9)
+        mesh = make_mesh((1, 1), ("data", "model"), devices=[card])
+        model.prefill(params, {"tokens": prompts}, caches, mesh=mesh)
+        step_m, _ = model.decode_step(params, got["tokens"][:, :1], torch.full(
+            (4,), 8, dtype=torch.int32, device=card), caches, mesh=mesh)
+    # the flash decode rounds unnormalized probabilities to the bf16 caches'
+    # dtype where _masked_decode rounds normalized ones: chip_smoke.py phase
+    # 13's float32 teacher-forcing tolerance
+    np.testing.assert_allclose(step_m.cpu().numpy(), step_w.cpu().numpy(), rtol=2e-2, atol=5e-2)
+
+
+def _mesh_step_runs(card, meshes, steps=2):
+    """``steps`` AdamW steps of the bf16 smoke qwen2.5 (remat "full") on one
+    device and over each mesh of ``meshes``, from the same weights and
+    batch: [(metrics a step, params, state)] in that order, the second
+    step's host syncs counted."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import make_train_step, read_metrics
+
+    model = _smoke_trainer(card, compute_dtype="bfloat16", remat="full")
+    batch = SyntheticLM(model.cfg.vocab, 64, 4, seed=1, device=str(card))(0)
+    runs = []
+    for mesh in (None,) + tuple(meshes):
+        params = model.init(torch.Generator(device=card).manual_seed(0))
+        opt = adamw()
+        state = opt.init(params)
+        step = make_train_step(model, opt, cosine_warmup(1e-3, 1, 10), mesh=mesh)
+        mets, syncs = [], None
+        for i in range(steps):
+            (params, state, met), n = _count_syncs(lambda i=i: step(params, state, batch, i))
+            syncs = n if i == 1 else syncs
+            mets.append(read_metrics(met))
+        runs.append((mets, params, state, syncs))
+    return runs
+
+
+def _mesh_runs_close(got, want, tol=3e-2):
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.train.tree import tree_leaves
+
+    (gm, gp, gs, _), (wm, wp, ws, _) = got, want
+    for g, w in zip(gm, wm):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-3)
+    np.testing.assert_allclose(gm[0]["loss"], wm[0]["loss"], rtol=1e-5)
+    for key in gs:  # AdamW's mu; nu by its square root (linear in the gradients)
+        for g, w in zip(tree_leaves(gather_tree(gs[key])), tree_leaves(gather_tree(ws[key]))):
+            g, w = (g, w) if key == "mu" else (g.sqrt(), w.sqrt())
+            assert _rel_l2(g, w) < tol, key
+
+
+@pytest.mark.gpu
+def test_lm_mesh_train_step_on_two_cells_equals_one_cell(card):
+    """The data-parallel step over two cells of the card (a row a shard)
+    against the one-device step on the whole batch (bf16 gradients summed
+    over the shards: 3e-2 relative L2 a moment leaf), no sync inside the
+    step, and its parameters one replica shared by the two cells."""
+    from repro_torch.parallel.placement import Placed
+    from repro_torch.train.tree import tree_leaves
+
+    two = make_mesh((2, 1), ("data", "model"), devices=[card] * 2)
+    one, mesh_run = _mesh_step_runs(card, [two])
+    _mesh_runs_close(mesh_run, one)
+    assert mesh_run[3] == 0
+    leaves = tree_leaves(mesh_run[1])
+    assert all(isinstance(x, Placed) and len(x.distinct()) == 1 for x in leaves)
+    assert all(x.blocks.flat[0].device.type == "cuda" for x in leaves)
+
+
+@pytest.mark.gpu
+def test_lm_mesh_over_two_cards_equals_two_cells_of_one(card):
+    """Over cuda:0 and cuda:1 each replica lies on its own card, the
+    served tokens equal two cells of one card's and the train step matches
+    them (the tied embedding's bf16 scatter-add sums in no fixed order).
+    Skips below two cards."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.tree import tree_leaves
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    first, second = torch.device("cuda", 0), torch.device("cuda", 1)
+    torch.cuda.set_device(first)
+    one_card = make_mesh((2, 1), ("data", "model"), devices=[first] * 2)
+    two_cards = make_mesh((2, 1), ("data", "model"), devices=[first, second])
+    _, _, model, params = _lm_models("qwen2_5_3b", first, "float32")
+    prompts = torch.randint(1, model.cfg.vocab, (4, 8), device=first)
+    want = ServeEngine(model, params, max_len=24, mesh=one_card).generate(prompts, 12)
+    engine = ServeEngine(model, params, max_len=24, mesh=two_cards)
+    got = engine.generate(prompts, 12)
+    assert torch.equal(got["tokens"], want["tokens"]) and got["tokens"].device == first
+    leaf = tree_leaves(engine.params)[0]
+    assert [t.device for t in leaf.blocks.flat] == [first, second]
+    _, on_one, on_two = _mesh_step_runs(first, [one_card, two_cards])
+    _mesh_runs_close(on_two, on_one, tol=1e-2)
+    assert [t.device for t in tree_leaves(on_two[1])[0].blocks.flat] == [first, second]
+    assert torch.cuda.current_device() == 0

@@ -412,11 +412,25 @@ def test_mesh_rules():
 
 
 def test_lm_sharding_helpers_raise_naming_item_9b():
+    """The LM's sharding helpers give placements on any mesh (PR 32 ported
+    them; ``tests/test_torch_lm_mesh.py`` holds them against the
+    reference); what they place is executed data-parallel only, and a
+    tensor-parallel placement raises naming item 9b.3."""
+    from repro_torch.configs.base import PartitionConfig, get_smoke_arch
+    from repro_torch.models import build
     from repro_torch.parallel import sharding
 
-    for call in (lambda: sharding.make_rules(None), lambda: sharding.batch_spec(None, 2),
-                 lambda: sharding.named_sharding(None, None),
-                 lambda: sharding.shard_batch_tree(None, {}),
-                 lambda: sharding.step_shardings(None, None, "train", 1, 1)):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            call()
+    mesh = _cpu_mesh((2, 2))
+    rules = sharding.make_rules(PartitionConfig())
+    assert rules["kv_seq"] == "model" and rules["batch"] == ("pod", "data")
+    assert tuple(sharding.batch_spec(mesh, 2)) == ("data", None)
+    assert sharding.named_sharding(mesh, sharding.batch_spec(mesh, 2)).shard_shape((4, 3)) == (2, 3)
+    assert [tuple(s.spec) for s in sharding.shard_batch_tree(mesh, {"a": torch.zeros(4, 2),
+                                                                    "b": torch.zeros(3)}).values()
+            ] == [("data", None), ()]
+    model = build(get_smoke_arch("qwen2_5_3b"), device="cpu")
+    p_sh, c_sh = sharding.step_shardings(model, mesh, "decode", 4, 16)
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        sharding.require_data_parallel_tree(p_sh, model.param_specs, "params")
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        sharding.require_data_parallel_tree(c_sh, model.cache_specs(4, 16), "caches")

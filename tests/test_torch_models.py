@@ -472,20 +472,38 @@ def test_refused_families_raise_naming_item_11(arch):
     assert got == want and len(got) > 1
 
 
+def _tp_mesh():
+    """A (1, 2) (data, model) CPU mesh: the smoke model's heads and ff split
+    over model — tensor parallelism, item 9b.3."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
+
+
+def _tp_params_refused(pm):
+    from repro_torch.parallel.sharding import require_data_parallel_tree
+
+    require_data_parallel_tree(pm.param_shardings(_tp_mesh()), pm.param_specs, "params")
+
+
 MESH_CALLS = {
-    "engine": lambda pm, pp: ServeEngine(pm, pp, max_len=8, mesh=object()),
+    "engine": lambda pm, pp: ServeEngine(pm, pp, max_len=8, mesh=_tp_mesh()),
     "prefill": lambda pm, pp: pm.prefill(pp, {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
-                                         pm.init_cache(1, 8), mesh=object()),
+                                         pm.init_cache(1, 8), mesh=_tp_mesh()),
     "decode_step": lambda pm, pp: pm.decode_step(
         pp, torch.zeros((1, 1), dtype=torch.int64), torch.zeros(1, dtype=torch.int32),
-        pm.init_cache(1, 8), mesh=object()),
-    "param_shardings": lambda pm, pp: pm.param_shardings(object()),
-    "constrain": lambda pm, pp: PM.constrain(torch.zeros(1), object(), None, ("batch",)),
+        pm.init_cache(1, 8), mesh=_tp_mesh()),
+    "param_shardings": lambda pm, pp: _tp_params_refused(pm),
+    "constrain": lambda pm, pp: PM.constrain(torch.zeros(2, 4), _tp_mesh(), None,
+                                             ("batch", "heads")),
 }
 
 
 @pytest.mark.parametrize("call", sorted(MESH_CALLS))
 def test_mesh_raises_naming_item_9b(call):
+    """A mesh whose placement would split the model (tensor parallelism)
+    raises naming item 9b.3; data-parallel meshes run
+    (``tests/test_torch_lm_mesh.py``)."""
     _, _, _, _, pm, pp = _pair("qwen2_5_3b", "float32")
     with pytest.raises(NotImplementedError, match="item 9b"):
         MESH_CALLS[call](pm, pp)
@@ -494,13 +512,15 @@ def test_mesh_raises_naming_item_9b(call):
 def test_training_waits_for_item_11():
     """Training is ported (``tests/test_torch_train.py``) and so are item
     11's dry-run inputs (``input_specs`` of a train step equals the
-    reference's); training on a mesh waits for item 9b."""
+    reference's); training split over a ``model`` axis waits for item
+    9b.3."""
     rm, _, _, _, pm, pp = _pair("qwen2_5_3b", "float32")
     got, want = _input_leaves(pm.input_specs(PCB.SHAPES["train_4k"]),
                               rm.input_specs(RCB.SHAPES["train_4k"]))
     assert got == want == [((256, 4096), "int32")] * 2
-    for call in (lambda: pm.train_loss(pp, {}, mesh=object()),
-                 lambda: PT.softmax_xent(None, None, mesh=object())):
+    for call in (lambda: pm.train_loss(pp, {}, mesh=_tp_mesh()),
+                 lambda: PT.softmax_xent(torch.zeros(1, 1, 4), torch.zeros(1, 1, dtype=torch.int32),
+                                         mesh=_tp_mesh())):
         with pytest.raises(NotImplementedError, match="item 9b"):
             call()
     x = torch.ones(2)

@@ -6,8 +6,8 @@ cycle model, held against the reference on identical inputs.
   both aux losses in float32 (``FP32``, rtol 1e-5), with ample capacity,
   with capacity overflow (every token routed to experts 0 and 1: the
   dropped tokens' output is exactly zero), with a zero router (every token
-  ties: experts 0..k-1), with shared experts, and at S = 1; a mesh raises
-  naming item 9b.
+  ties: experts 0..k-1), with shared experts, and at S = 1; experts split
+  over a mesh's ``model`` axis raise naming item 9b.3.
 * ``mla_attention`` (the expanded prefill) and ``mla_attention_decode``
   (the absorbed form) and the two cache tensors they write, in float32
   compute (the caches are bf16: ``ONE_BF16_ULP``; decode outputs read them,
@@ -203,9 +203,14 @@ def test_moe_apply_bf16_matches_reference():
 
 
 def test_moe_apply_on_a_mesh_raises_naming_item_9b():
+    """Experts split over a ``model`` axis (expert parallelism) raise naming
+    item 9b.3; on a data mesh the dispatch is per row, as off it."""
+    from repro_torch.launch.mesh import make_mesh
+
     _, pcfg = _cfg()
+    tp = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="item 9b"):
-        PMOE.moe_apply({}, pcfg, torch.zeros((1, 2, pcfg.d_model)), mesh=object())
+        PMOE.moe_apply({}, pcfg, torch.zeros((1, 2, pcfg.d_model)), mesh=tp)
 
 
 # --------------------------------------------------------------------------- #

@@ -557,8 +557,11 @@ def test_launcher_smoke_on_cpu(tmp_path):
     assert os.listdir(tmp_path) == ["step_00000002"]
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "single"], ["--mesh", "host"], ["--distributed"]])
+@pytest.mark.parametrize("flags", [["--distributed", "--mesh", "single"],
+                                   ["--distributed", "--mesh", "host"], ["--distributed"]])
 def test_launcher_refuses_a_mesh_naming_item_9b(flags):
+    """``--distributed`` (multi-process) waits for item 9b.3 with any mesh;
+    ``--mesh host`` runs data-parallel (``tests/test_torch_lm_mesh.py``)."""
     from repro_torch.launch.train import main
 
     with pytest.raises(NotImplementedError, match="item 9b"):
@@ -578,14 +581,26 @@ def test_launcher_defaults_to_the_card():
         SyntheticLM(64, 8, 2)(0)
 
 
+def _mesh(shape):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, ("data", "model"), devices=["cpu"] * int(np.prod(shape)))
+
+
+# tensor parallelism (a (1, 2) mesh splits heads, ff and vocab) and FSDP (the
+# embed dim over data) raise naming item 9b.3; data parallelism runs
+# (tests/test_torch_lm_mesh.py), and so do ``rules`` off the mesh
 MESH_CALLS = {
-    "train_loss": lambda pm, pp, opt: pm.train_loss(pp, {}, mesh=object()),
+    "train_loss": lambda pm, pp, opt: pm.train_loss(pp, {}, mesh=_mesh((1, 2))),
     "softmax_xent": lambda pm, pp, opt: PT.softmax_xent(torch.zeros(1, 1, 4),
                                                          torch.zeros(1, 1, dtype=torch.int32),
-                                                         mesh=object()),
-    "build_step_fn": lambda pm, pp, opt: build_step_fn(pm, opt, lambda s: 0.0, mesh=object()),
-    "make_train_step": lambda pm, pp, opt: make_train_step(pm, opt, lambda s: 0.0, rules={}),
-    "train": lambda pm, pp, opt: train(pm, None, steps=1, mesh=object()),
+                                                         mesh=_mesh((1, 2))),
+    "build_step_fn": lambda pm, pp, opt: build_step_fn(pm, opt, lambda s: 0.0,
+                                                       mesh=_mesh((1, 2))),
+    "make_train_step": lambda pm, pp, opt: make_train_step(pm, opt, lambda s: 0.0,
+                                                           mesh=_mesh((2, 1)),
+                                                           rules={"embed": "data"}),
+    "train": lambda pm, pp, opt: train(pm, None, steps=1, mesh=_mesh((1, 2))),
 }
 
 

@@ -2,7 +2,7 @@
 """The mesh paths over the cards of one host: a mesh of n distinct cards
 against the same n shards on one card (bits and metrics equal), both timed.
 
-    python3 tools/mesh_measure.py [seq] [sched] [--seed N] [--out chiprun_out/mesh.jsonl]
+    python3 tools/mesh_measure.py [seq] [sched] [lm] [--seed N] [--out chiprun_out/mesh.jsonl]
 
 ``seq`` (the default runs both) — ``seqparallel``; the planner picks it
 from the mesh in every case:
@@ -31,6 +31,20 @@ clock from the first open to the last result (through a synchronize of
 every card), 2 rounds each, one card and n cards in turns, after a warm-up
 run; tick time p50/p99 from the scheduler's histogram.
 
+``lm`` (run only when named) — the LM's data-parallel mesh path at
+qwen2.5-3b's full width, weak-scaled over n = 1, 2, 4 ``data`` shards, on
+an (n, 1) (data, model) mesh of n cells on cuda:0 and of n distinct cards:
+``ServeEngine(mesh=)`` on 4 rows a shard (prompts of 16, 32 greedy tokens:
+the tokens must be equal on the two; generate time of 32 and of 16 tokens,
+3 rounds each after a warm-up, decode time a token from their
+difference, tokens/s) and the data-parallel train step on 2 x 4096 rows a
+shard (AdamW, remat "full", lr 1e-4, warm-up 2: the step-0 loss equal on
+the two, the updated parameters within 1e-2 relative L2 a leaf — the tied
+embedding's bf16 scatter-add gradient sums in no fixed order on the card —
+and the later losses within rtol 1e-3; step time, host clock through a
+synchronize of every card, of steps 1-2 after step 0, tokens/s).  Each
+card's name and power limit are printed.
+
 Exits non-zero without a card or when a check fails.
 """
 from __future__ import annotations
@@ -49,6 +63,13 @@ SRC = Path(__file__).resolve().parent.parent / "src"
 SCHED_SHARDS = (1, 2, 4)
 SCHED_INFO = 16384
 SCHED_ROUNDS = 2
+
+#: ``lm``: shard counts; serving rows a shard, prompt, new tokens; training
+#: rows a shard, sequence, steps (the first untimed); the equality bounds
+LM_SHARDS = (1, 2, 4)
+LM_SERVE_ROWS, LM_PROMPT, LM_NEW = 4, 16, 32
+LM_TRAIN_ROWS, LM_SEQ, LM_STEPS = 2, 4096, 3
+LM_PARAM_TOL, LM_LOSS_RTOL = 1e-2, 1e-3
 
 #: (label, K, B, info bits, BSC flip probability, shard counts)
 CASES = (("nasa_1030", 7, 1024, 1024, 0.03, (1, 2)),
@@ -164,15 +185,114 @@ def _sched_rows(torch, args, cards, n_cards) -> list:
     return rows
 
 
+def _free(torch):
+    import gc
+
+    gc.collect()
+    _sync_all(torch)
+    torch.cuda.empty_cache()
+
+
+def _lm_rows(torch, args, cards, n_cards) -> list:
+    """The ``lm`` case's rows (see the module doc); raises on a check."""
+    import statistics as st
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.optimizer import adamw, cosine_warmup
+    from repro_torch.train.train_loop import make_train_step, read_metrics
+    from repro_torch.train.tree import tree_leaves
+
+    card0 = torch.device("cuda", 0)
+    model = build(get_arch("qwen2_5_3b"), device=card0)
+    rows = []
+    for n in LM_SHARDS:
+        if n > n_cards:
+            print(f"[lm] {n} shards: not run, {n_cards} cards")
+            continue
+        layouts = {"one_card": make_mesh((n, 1), ("data", "model"), devices=[card0] * n),
+                   "n_cards": make_mesh((n, 1), ("data", "model"))}
+        row = dict(case="lm", shards=n, serve_rows=LM_SERVE_ROWS * n,
+                   train_rows=LM_TRAIN_ROWS * n, seq=LM_SEQ)
+        gen = torch.Generator(device=card0).manual_seed(args.seed)
+        params = model.init(gen)
+        prompts = torch.randint(0, model.cfg.vocab, (LM_SERVE_ROWS * n, LM_PROMPT),
+                                generator=gen, device=card0)
+        tokens = {}
+        for name, mesh in layouts.items():
+            engine = ServeEngine(model, params, max_len=LM_PROMPT + LM_NEW, mesh=mesh)
+            tokens[name] = engine.generate(prompts, LM_NEW)["tokens"].cpu()
+            full = _rounds(torch, lambda: engine.generate(prompts, LM_NEW), 3)
+            half = _rounds(torch, lambda: engine.generate(prompts, LM_NEW // 2), 3)
+            row[f"{name}_generate_ms"], row[f"{name}_generate_half_ms"] = full, half
+            row[f"{name}_decode_ms_per_token"] = (st.median(full) - st.median(half)) / (
+                LM_NEW - LM_NEW // 2)
+            row[f"{name}_serve_tokens_per_s"] = LM_SERVE_ROWS * n * LM_NEW / (st.median(full) / 1e3)
+            del engine
+        if not torch.equal(tokens["one_card"], tokens["n_cards"]):
+            raise RuntimeError(f"lm x{n}: served tokens differ on {n} cards")
+        del params
+        _free(torch)
+        batch = SyntheticLM(model.cfg.vocab, LM_SEQ, LM_TRAIN_ROWS * n, seed=args.seed,
+                            device=str(card0))(0)
+        ref = None
+        for name, mesh in layouts.items():
+            opt = adamw()
+            params = model.init(torch.Generator(device=card0).manual_seed(args.seed))
+            state = opt.init(params)
+            step = make_train_step(model, opt, cosine_warmup(1e-4, 2, LM_STEPS), mesh=mesh)
+            losses, times = [], []
+            for i in range(LM_STEPS):
+                _sync_all(torch)
+                t0 = time.perf_counter()
+                params, state, met = step(params, state, batch, i)
+                losses.append(read_metrics(met)["loss"])
+                _sync_all(torch)
+                times.append((time.perf_counter() - t0) * 1e3)
+                if i == 0 and ref is None:
+                    ref = [p.gather().to("cpu", copy=True) for p in tree_leaves(params)]
+                elif i == 0:
+                    errs = [((p.gather(card0).float() - r.to(card0).float()).norm()
+                             / r.to(card0).float().norm().clamp_min(1e-30)).item()
+                            for p, r in zip(tree_leaves(params), ref)]
+                    row["max_param_rel_err"] = max(errs)
+            row[f"{name}_losses"], row[f"{name}_step_ms"] = losses, times
+            row[f"{name}_train_tokens_per_s"] = LM_TRAIN_ROWS * n * LM_SEQ / (
+                st.median(times[1:]) / 1e3)
+            del params, state, step, met
+            _free(torch)
+        del ref, batch
+        _free(torch)
+        one, many = row["one_card_losses"], row["n_cards_losses"]
+        if one[0] != many[0] or row["max_param_rel_err"] > LM_PARAM_TOL or any(
+                abs(a - b) > LM_LOSS_RTOL * abs(a) for a, b in zip(one, many)):
+            raise RuntimeError(f"lm x{n}: training on {n} cards differs from one card: {row}")
+        print(f"[lm] qwen2.5-3b over {n} shards: serving {LM_SERVE_ROWS * n} x {LM_PROMPT} + "
+              f"{LM_NEW} tokens, tokens equal; decode ms a token one card "
+              f"{row['one_card_decode_ms_per_token']!r}, {n} cards "
+              f"{row['n_cards_decode_ms_per_token']!r}; tokens/s "
+              f"{row['one_card_serve_tokens_per_s']!r} vs {row['n_cards_serve_tokens_per_s']!r}; "
+              f"training {LM_TRAIN_ROWS * n} x {LM_SEQ}: "
+              f"losses {one} vs {many}, updated parameters' largest relative L2 error "
+              f"{row['max_param_rel_err']!r}; step ms {row['one_card_step_ms']} vs "
+              f"{row['n_cards_step_ms']}; tokens/s {row['one_card_train_tokens_per_s']!r} vs "
+              f"{row['n_cards_train_tokens_per_s']!r} ({cards[:n]})")
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("cases", nargs="*", help="seq and/or sched (default: both)")
+    ap.add_argument("cases", nargs="*", help="seq, sched and/or lm (default: seq and sched)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="JSON lines file of the rows")
     args = ap.parse_args(argv)
     args.cases = args.cases or ["seq", "sched"]
-    if set(args.cases) - {"seq", "sched"}:
-        ap.error(f"unknown cases {sorted(set(args.cases) - {'seq', 'sched'})}")
+    if set(args.cases) - {"seq", "sched", "lm"}:
+        ap.error(f"unknown cases {sorted(set(args.cases) - {'seq', 'sched', 'lm'})}")
 
     import torch
 
@@ -186,7 +306,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.common import launch_counts, plain_counts, reset_counts
     from repro_torch.launch.mesh import make_mesh
 
-    _build.build_all()
+    if {"seq", "sched"} & set(args.cases):  # the lm case launches no kernel of the port's
+        _build.build_all()
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -231,6 +352,8 @@ def main(argv=None) -> int:
             rows.append(row)
     if "sched" in args.cases:
         rows += _sched_rows(torch, args, cards, n_cards)
+    if "lm" in args.cases:
+        rows += _lm_rows(torch, args, cards, n_cards)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "w") as f:
