@@ -203,6 +203,22 @@ Phases (any failure raises and exits non-zero):
                2 KV, head_dim 128, 4096 cache rows, 4093 filled) over
                ``model`` = 1, 2, 4 cells against ``_masked_decode`` (rtol =
                atol = 2e-4).
+ 15c. lm_tp — tensor-parallel serving at full width on cells of cuda:0:
+               qwen2.5-3b (phases 13's weights and requests) over (1, 2) and
+               (2, 2) (data, model) meshes, then qwen3-moe-30b-a3b at 16 of
+               48 layers (phase 16's weights, placed leaf by leaf with each
+               whole leaf released, so the card never holds two copies) over
+               (1, 4): heads, ff, vocab and experts split over ``model``, the
+               48-row caches split on sequence (the flash decode's partials).
+               ``ServeEngine(mesh=)`` against the one-device engine of the
+               same run: no host sync a token, two calls bit-equal, the
+               collective calls of a decode step equal to
+               ``Model.decode_collective_calls``, prefill and decode-step
+               logits at phase 13's tolerances in bf16 and float32 compute
+               (the MoE's rows whose routes agree, phase 16's rule), float32
+               tokens equal or a near-tie; bytes placed and peak memory above
+               them, decode time a token, tokens/s; the mesh's tokens through
+               phase 14's serving scenario (#1 and #2, exact at flip 0).
  16. lm_serve_moe — the MoE family (qwen3-moe-30b-a3b: d=2048, GQA 32/4,
                qk-norm, 128 experts top 8 of width 768, vocab 151936) at 16
                of its 48 layers (the float32 weights of 48 do not fit the
@@ -3809,6 +3825,225 @@ def phase_lm_mesh(smi, seed, lm_train):
     return {"serve": serve, "train": train, "checkpoint": restored, "flash_decode": flash}
 
 
+#: phase 15c (lm_tp): qwen2.5-3b's meshes, then the MoE's (arch, layers,
+#: mesh), all of cells on cuda:0
+LM_TP_MESHES = ((1, 2), (2, 2))
+LM_TP_MOE = ("qwen3_moe_30b_a3b", 16, (1, 4))
+#: the host-sync count's generate lengths (0 a token: equal counts), and the
+#: decode step's timed calls (reps a round, rounds): a mesh step is
+#: 150-350 ms eager on one card, so the phase times steps, not generates
+LM_TP_SYNC_TOKENS = (8, 4)
+LM_TP_STEP_REPS = (4, 2)
+
+
+def _tp_step_logits(model, params, prompts, mesh=None):
+    """Prefill logits and the next decode step's (the prefill's greedy
+    tokens fed back) against caches of the engine's LM_PROMPT + LM_NEW
+    rows: one device, or over ``mesh`` from placed ``params``; with the
+    decode's routes of an MoE (``_routes_recorded``'s last len // 2)."""
+    import torch
+
+    B = prompts.shape[0]
+    with torch.inference_mode(), _routes_recorded() as routes:
+        kw = {} if mesh is None else {"mesh": mesh}
+        caches = model.init_cache(B, LM_PROMPT + LM_NEW, **kw)
+        logits, _ = model.prefill(params, {"tokens": prompts}, caches, **kw)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        pos = torch.full((B,), LM_PROMPT, dtype=torch.int32, device=tok.device)
+        step, _ = model.decode_step(params, tok, pos, caches, **kw)
+    del caches
+    return logits.float(), step.float(), routes[len(routes) // 2:]
+
+
+def _tp_counted(engine, prompts, n):
+    """``engine.generate(prompts, n)`` and the collective calls it made."""
+    from repro_torch.parallel import collectives
+
+    collectives.calls.clear()
+    out = engine.generate(prompts, n)
+    return out, dict(collectives.calls)
+
+
+def _lm_tp_serve(model, params, prompts, mesh, smi, label, consume=False):
+    """The tensor-parallel engine against the one-device engine (see phase
+    15c).  With ``consume`` the whole ``params`` are placed in place and
+    released leaf by leaf (run last: the one-device readings come first)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.serve import ServeEngine
+
+    cfg = model.cfg
+    max_len = LM_PROMPT + LM_NEW
+    m32 = Model(cfg=dataclasses.replace(cfg, compute_dtype="float32"), part=model.part,
+                param_specs=model.param_specs, device=model.device)
+    # one device first: the consumed tree is gone after placing
+    want = ServeEngine(model, params, max_len=max_len).generate(prompts, LM_NEW)["tokens"]
+    with _routes_recorded() as routes32:
+        want32 = ServeEngine(m32, params, max_len=max_len).generate(prompts, LM_NEW)["tokens"]
+    one = {dt: _tp_step_logits(m, params, prompts) for dt, m in (("bfloat16", model),
+                                                                 ("float32", m32))}
+    whole = None if consume else params
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(model, params, max_len=max_len, mesh=mesh, consume=consume)
+    torch.cuda.synchronize()
+    placed_bytes = torch.cuda.memory_allocated() - live
+    place_peak = torch.cuda.max_memory_allocated() - live
+    del params
+    placed = engine.params
+    # a decode step's calls: a generate of 2 tokens less one of 1 (the warm-up)
+    _, one_calls = _tp_counted(engine, prompts, 1)
+    _, two_calls = _tp_counted(engine, prompts, 2)
+    calls = {k: v - one_calls.get(k, 0) for k, v in two_calls.items()
+             if v != one_calls.get(k, 0)}
+    formula = {k: v for k, v in model.decode_collective_calls(mesh, LM_B, max_len).items() if v}
+    torch.cuda.synchronize()
+    n_sync, n_half = LM_TP_SYNC_TOKENS
+    _, syncs, sites = _host_syncs(lambda: engine.generate(prompts, n_sync))
+    _, syncs_half, _ = _host_syncs(lambda: engine.generate(prompts, n_half))
+    runs = []  # two timed generates: the tokens, bit-equal, tokens/s
+    gen_ms = _event_ms(lambda: runs.append(engine.generate(prompts, LM_NEW)["tokens"]), 1, 2,
+                       warmup=0)
+    tokens = runs[0]
+    with torch.inference_mode():
+        caches = model.init_cache(LM_B, max_len, mesh=mesh)
+        model.prefill(placed, {"tokens": prompts}, caches, mesh=mesh)
+        tok = tokens[:, :1]
+        pos = torch.full((LM_B,), LM_PROMPT, dtype=torch.int32, device=tok.device)
+        step_ms = _event_ms(lambda: model.decode_step(placed, tok, pos, caches, mesh=mesh),
+                            *LM_TP_STEP_REPS)
+        del caches
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live - placed_bytes
+    with _routes_recorded() as routes:
+        got32 = ServeEngine(m32, placed, max_len=max_len, mesh=mesh).generate(prompts, LM_NEW)[
+            "tokens"]
+    # rows whose float32 routes differ anywhere in the generate (an MoE)
+    flipped32 = sorted({r for a, b in zip(routes32, routes) for r in range(LM_B)
+                        if not torch.equal(a[r], b[r])})
+    tf, flips = {}, {}
+    for dtype, m in (("bfloat16", model), ("float32", m32)):
+        pre, dec, routes = _tp_step_logits(m, placed, prompts, mesh)
+        pre1, dec1, routes1 = one[dtype]
+        flips[dtype] = [(layer, r) for layer in range(len(routes)) for r in range(LM_B)
+                        if not torch.equal(routes[layer][r], routes1[layer][r])]
+        tf[dtype] = {k: _tf_stats(f"{label} {dtype} {k}", got, ref, *LM_TF_TOL[dtype])
+                     for k, got, ref in (("prefill", pre, pre1), ("decode", dec, dec1))}
+    per_token = statistics.median(step_ms)
+    row = {
+        "arch": cfg.name, "layers": cfg.n_layers, "mesh": dict(mesh.shape), "batch": LM_B,
+        "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+        "sync_tokens": LM_TP_SYNC_TOKENS, "host_syncs_generate": syncs,
+        "host_syncs_half": syncs_half, "sync_sites": sites,
+        "generate_bit_equal": bool(torch.equal(runs[0], runs[1])),
+        "collective_calls_a_decode_step": calls, "formula": formula,
+        "generate_ms": statistics.median(gen_ms), "generate_rounds": gen_ms,
+        "decode_ms_per_token": per_token, "decode_rounds": step_ms,
+        "tokens_per_s": LM_B * LM_NEW / (statistics.median(gen_ms) / 1e3),
+        "placed_bytes": placed_bytes, "placing_peak_bytes": place_peak,
+        "peak_bytes_above_placed": peak, "consumed": consume,
+        "bf16_rows_equal": int((tokens == want).all(dim=1).sum()),
+        "float32_tokens_equal": bool(torch.equal(got32, want32)),
+        "float32_generate_rows_with_route_flips": flipped32,
+        "route_flips": flips, "logits": tf, "card": smi,
+    }
+    print(f"[{label}] {cfg.name} ({cfg.n_layers} layers) over {dict(mesh.shape)} (cells "
+          f"{[str(d) for d in mesh.devices.flat]}): host syncs in generate {syncs} for {n_sync} "
+          f"tokens, {syncs_half} for {n_half} (sites {sites}); two calls bit-equal "
+          f"{row['generate_bit_equal']}; collective calls a decode step {calls} (formula "
+          f"{formula}); generate of {LM_NEW} {row['generate_ms']!r} ms (rounds {gen_ms}) = "
+          f"{row['tokens_per_s']!r} tokens/s; decode step {per_token!r} ms (eager, every shard; "
+          f"rounds {step_ms}); placed "
+          f"{placed_bytes} new bytes (peak while placing {place_peak}, consumed {consume}), "
+          f"peak {peak} bytes above them; bf16 rows equal to one device "
+          f"{row['bf16_rows_equal']}/{LM_B}, float32 tokens equal "
+          f"{row['float32_tokens_equal']}; route flips against one device {flips} ({smi})")
+    print(f"[{label}] logits against one device: {tf} ({smi})")
+    if syncs != syncs_half:
+        _fail(f"{label}: generate syncs per token ({syncs} for {n_sync}, {syncs_half} for "
+              f"{n_half}, sites {sites})")
+    if not row["generate_bit_equal"]:
+        _fail(f"{label}: two generate calls differ")
+    if calls != formula:
+        _fail(f"{label}: collective calls a decode step {calls}, formula {formula}")
+    if not row["float32_tokens_equal"]:
+        # the flash decode's numerics (the reference's on a mesh) may break a
+        # near-tie the other way (phase 15b's rule); an MoE's row may route
+        # differently (phase 16's rule: reported, its other rows held)
+        differ = [r for r in range(LM_B) if not torch.equal(got32[r], want32[r])]
+        if whole is not None:
+            row["float32_first_differences"] = ties = _near_ties(m32, whole, prompts, want32,
+                                                                 got32)
+            if any(t["below_max"] > t["atol"] + t["rtol"] * abs(t["max"]) for t in ties):
+                _fail(f"{label}: float32 tokens differ beyond a near-tie: {ties}")
+        elif set(differ) - set(flipped32):
+            _fail(f"{label}: float32 tokens differ in rows {differ} whose routes agree "
+                  f"(route flips in rows {flipped32})\n{got32}\n{want32}")
+        print(f"[{label}] float32 tokens differ from one device's in rows {differ} "
+              f"({row.get('float32_first_differences', 'routes flipped')}) ({smi})")
+    for dtype in tf:
+        rows = sorted({r for _, r in flips[dtype]})
+        for k, st in tf[dtype].items():
+            over = sum(n for r, n in enumerate(st["over_by_row"]) if r not in rows)
+            below = max([st["decode_argmax_below_max"][r] for r in range(LM_B) if r not in rows],
+                        default=0.0)
+            if over or below > st["atol"]:
+                _fail(f"{label} {dtype} {k}: logits beyond phase 13's tolerance in rows whose "
+                      f"routes agree: {st}")
+            if dtype == "float32" and not all(st["argmax_equal"][r] for r in range(LM_B)
+                                              if r not in rows):
+                _fail(f"{label} float32 {k}: argmax differs: {st}")
+    return row, engine, tokens
+
+
+def phase_lm_tp(smi, seed):
+    """Phase 15c: tensor-parallel serving on cells of cuda:0 (see the module
+    doc)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build
+
+    def cells(shape):
+        return make_mesh(shape, ("data", "model"), devices=["cuda:0"] * (shape[0] * shape[1]))
+
+    _free_card()
+    model = build(get_arch(LM_ARCH))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen)  # phase 13's weights, then its prompts
+    prompts = torch.randint(0, model.cfg.vocab, (LM_B, LM_PROMPT), generator=gen, device="cuda")
+    out = {}
+    for shape in LM_TP_MESHES:
+        row, engine, tokens = _lm_tp_serve(model, params, prompts, cells(shape), smi, "lm_tp")
+        out[f"{LM_ARCH}_{shape[0]}x{shape[1]}"] = row
+        del engine
+    del params
+    _free_card()
+    row["scenario"] = phase_serve_scenario(tokens, smi, label="serve_scenario_tp")
+    arch, layers, shape = LM_TP_MOE
+    bundle = get_arch(arch)
+    bundle = dataclasses.replace(bundle, model=dataclasses.replace(bundle.model, n_layers=layers))
+    model = build(bundle)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen)  # phase 16's weights and prompts
+    prompts = torch.randint(0, model.cfg.vocab, (LM_B, LM_PROMPT), generator=gen, device="cuda")
+    row, engine, tokens = _lm_tp_serve(model, params, prompts, cells(shape), smi, "lm_tp",
+                                       consume=True)
+    del params, engine
+    _free_card()
+    row["scenario"] = phase_serve_scenario(tokens, smi, _bits_per_token(model.cfg.vocab),
+                                           f"serve_scenario_tp_{arch}")
+    out[f"{arch}_{shape[0]}x{shape[1]}"] = row
+    return out
+
+
 def _roofline_row(cfg, shape, meta):
     """``model_flops`` and the roofline report of a one-card count."""
     from repro_torch.roofline import model_flops, roofline_report
@@ -4820,6 +5055,8 @@ def main(argv=None) -> int:
     mark("lm_train")
     lm_mesh = phase_lm_mesh(smi, args.seed, lm_train)
     mark("lm_mesh")
+    lm_tp = phase_lm_tp(smi, args.seed)
+    mark("lm_tp")
     lm_moe = phase_lm_serve_moe(smi, args.seed)
     mark("lm_serve_moe")
     lm_train_moe = phase_lm_train_moe(smi, args.seed)
@@ -4833,7 +5070,7 @@ def main(argv=None) -> int:
     lm_train_encdec = phase_lm_train_encdec(smi, args.seed)
     mark("lm_train_encdec")
     print(json.dumps({"costs": costs, "analysis": analysis, "paper": paper, "lm_serve": lm,
-                      "serve_scenario": scenario, "lm_train": lm_train, "lm_mesh": lm_mesh,
+                      "serve_scenario": scenario, "lm_train": lm_train, "lm_mesh": lm_mesh, "lm_tp": lm_tp,
                       "lm_serve_moe": lm_moe, "lm_train_moe": lm_train_moe,
                       "lm_serve_recurrent": lm_recurrent,
                       "lm_train_recurrent": lm_train_recurrent,

@@ -17,8 +17,8 @@ host`` trains data-parallel over ``launch/mesh.smoke_mesh`` (every visible
 card; with ``--device cpu`` the CPU), ``--mesh single`` and ``--mesh
 multi`` over ``make_production_mesh`` (which raises ``ValueError`` naming
 the device count when the cards are too few; a placement it cannot run
-data-parallel raises naming item 9b.3); ``--distributed`` (one process a
-host) waits for ROADMAP item 9b.3.  Weights are random, drawn from a seeded generator on the
+data-parallel raises naming its sub-item of item 9b.3); ``--distributed``
+(one process a host) waits for ROADMAP item 9b.3f.  Weights are random, drawn from a seeded generator on the
 device; data is ``SyntheticLM`` at the ``train_4k`` shape (``--smoke``:
 128 tokens x 4).  Logs the device, then the run's report as one JSON object,
 the reference launcher's.
@@ -48,14 +48,14 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--mesh", default="none", choices=("none", "single", "multi", "host"))
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process training (waits for ROADMAP item 9b.3)")
+                    help="multi-process training (waits for ROADMAP item 9b.3f)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     from repro_torch.models import common as cm
 
     if args.distributed:
-        cm._needs_mesh("--distributed (multi-process training)")
+        cm._needs_mesh("--distributed (multi-process training)", "9b.3f")
 
     from repro_torch.configs.base import SHAPES, get_arch, get_smoke_arch
     from repro_torch.data.pipeline import make_data_iter

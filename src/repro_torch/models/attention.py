@@ -21,7 +21,9 @@ cache in its dtype, a decode step writes each row's entry at its position.
 (``models/encdec.py``).  ``flash_decode_sharded`` is the reference's
 seq-sharded decode over a single-controller mesh (``parallel/mesh.py``):
 each (batch, ``model``) shard's partial softmax on its device, merged
-after ``collectives.all_gather``.
+after ``collectives.all_gather``.  ``self_attention_tp`` and
+``self_attention_decode_tp`` serve tensor parallel: each model shard's
+query heads, its block of a cache split on sequence or KV heads.
 """
 from __future__ import annotations
 
@@ -192,6 +194,16 @@ def _flash_partial(q, k, v, lo, hi, softcap, offset: int):
     return m, l, o
 
 
+def _lse_merge(om, ol, oo):
+    """The shards' partials (m, l, o) stacked along a leading shard axis,
+    merged by their log-sum-exp: the softmax-weighted output."""
+    m_g = om.amax(dim=0)
+    w = torch.exp(om - m_g[None])
+    l_g = (ol * w).sum(dim=0)
+    o_g = (oo * w[..., None]).sum(dim=0)
+    return o_g / torch.clamp_min(l_g[..., None], 1e-30)
+
+
 def flash_decode_sharded(q1, k_cache, v_cache, lo, hi, softcap, mesh, batch_axes):
     """Seq-sharded flash decode: the KV cache split on its seq dim over the
     ``model`` mesh axis (and the batch over ``batch_axes`` where it
@@ -241,13 +253,8 @@ def flash_decode_sharded(q1, k_cache, v_cache, lo, hi, softcap, mesh, batch_axes
                 _on(q1[rows], dev), _on(k_cache[rows, seq], dev), _on(v_cache[rows, seq], dev),
                 _on(lo[rows], dev), _on(hi[rows], dev), softcap, j * S_loc))
         # LSE merge across the model axis
-        om, ol, oo = (collectives.all_gather(sub, "model", [p[k] for p in parts])[0]
-                      for k in range(3))
-        m_g = om.amax(dim=0)
-        w = torch.exp(om - m_g[None])
-        l_g = (ol * w).sum(dim=0)
-        o_g = (oo * w[..., None]).sum(dim=0)
-        out = o_g / torch.clamp_min(l_g[..., None], 1e-30)
+        out = _lse_merge(*(collectives.all_gather(sub, "model", [p[k] for p in parts])[0]
+                           for k in range(3)))
         outs.append(out.reshape(Bl, H, v_cache.shape[-1]).to(q1.dtype))
     if not ba:
         return outs[0]
@@ -281,14 +288,17 @@ def _rope_theta_for(cfg, kind: str) -> float:
     return cfg.rope_local_theta if kind == "attn_local" else cfg.rope_theta
 
 
+def _proj(params, cfg, x, cd, name: str):
+    """One of the q, k, v projections (``name``), qk-normed where the
+    config says so."""
+    y = cm.dense(params["w" + name], x, "...d,dhk->...hk", cd)
+    if cfg.qk_norm and name != "v":
+        y = cm.headwise_rmsnorm(params["qknorm"][f"{name}_scale"], y, cfg.norm_eps)
+    return y
+
+
 def _qkv(params, cfg, x, cd):
-    q = cm.dense(params["wq"], x, "...d,dhk->...hk", cd)
-    k = cm.dense(params["wk"], x, "...d,dhk->...hk", cd)
-    v = cm.dense(params["wv"], x, "...d,dhk->...hk", cd)
-    if cfg.qk_norm:
-        q = cm.headwise_rmsnorm(params["qknorm"]["q_scale"], q, cfg.norm_eps)
-        k = cm.headwise_rmsnorm(params["qknorm"]["k_scale"], k, cfg.norm_eps)
-    return q, k, v
+    return tuple(_proj(params, cfg, x, cd, name) for name in "qkv")
 
 
 def self_attention(
@@ -390,6 +400,202 @@ def _scatter_cache(cache, new, pos):
     B = cache.shape[0]
     cache[torch.arange(B, device=cache.device), pos.long()] = new[:, 0].to(cache.dtype)
     return cache
+
+
+def _scatter_cache_range(cache, new, pos, offset: int):
+    """``_scatter_cache`` into a block of the cache's sequence that holds
+    positions ``offset + [0, S_blk)``: a row whose position lies outside
+    it keeps its entry (a masked write on every block, no host sync)."""
+    B, S_blk = cache.shape[:2]
+    local = pos.long() - offset
+    inside = (local >= 0) & (local < S_blk)
+    rows = torch.arange(B, device=cache.device)
+    idx = torch.where(inside, local, torch.zeros_like(local))
+    cache[rows, idx] = torch.where(inside[:, None, None], new[:, 0].to(cache.dtype),
+                                   cache[rows, idx])
+    return cache
+
+
+# ---------------------------------------------------------------------------- #
+# Tensor-parallel serving: heads over the model shards                          #
+# ---------------------------------------------------------------------------- #
+#
+# The functions below take one value a model shard (``group``: a
+# ``parallel.sharding.ModelShards``): parameter blocks, cache blocks, and
+# replicated activations (shards that share a device share the tensor).
+# Query heads are split when ``wq``'s block holds fewer than H heads; K/V
+# heads when ``wk``'s holds fewer than KV (the maybe-shard rule keeps them
+# whole where they do not divide: each shard then computes them whole, and
+# query head h reads KV head h // (H / KV)).  ``wo`` contracts the heads:
+# its partial products are summed by ``collectives.all_reduce`` only where
+# the heads are split.  The cache's placement (``split``) is "seq" (its
+# sequence over the shards), "kv" (its KV heads) or None (whole).
+
+
+def _kv_for(k, j: int, Hl: int, H: int, KV: int):
+    """The KV heads (dim -2 of ``k``) that query heads ``[j·Hl, (j+1)·Hl)``
+    read, grouped as ``chunked_attention`` and the decodes group them
+    (query head i of the shard reads KV head i // (Hl / heads returned)).
+    ``k`` holds the shard's own KV heads when they are split with the
+    query heads (returned as they are), else all KV."""
+    if k.shape[-2] != KV or Hl == H:
+        return k
+    G = H // KV
+    lo = j * Hl
+    if Hl % G == 0:  # whole groups
+        return k[..., lo // G:(lo + Hl) // G, :]
+    if G % Hl == 0:  # inside one group
+        return k[..., lo // G:lo // G + 1, :]
+    return k.index_select(-2, torch.arange(lo, lo + Hl, device=k.device) // G)
+
+
+def _head_split(ps, cfg):
+    """(query heads a shard, query heads split, KV heads split)."""
+    Hl = ps[0]["wq"]["kernel"].shape[-2]
+    return Hl, Hl < cfg.n_heads, ps[0]["wk"]["kernel"].shape[-2] < cfg.n_kv_heads
+
+
+def _qkv_tp(ps, cfg, hs, group, angles, cd):
+    """Each shard's roped q (its heads) and (k roped, v) (its KV heads, or
+    all KV once a device where they are whole)."""
+    _, _, kv_split = _head_split(ps, cfg)
+    qs = group.each(lambda p, h, a: cm.apply_rope(_proj(p, cfg, h, cd, "q"), *a), ps, hs, angles)
+    kvs = (group.each if kv_split else group.once)(
+        lambda p, h, a: (cm.apply_rope(_proj(p, cfg, h, cd, "k"), *a), _proj(p, cfg, h, cd, "v")),
+        ps, hs, angles)
+    return qs, kvs
+
+
+def self_attention_tp(ps, cfg, part, hs, group, *, kind: str, caches=None, split=None):
+    """``self_attention`` (prefill from position 0) over the model shards:
+    each shard attends its query heads over the prompt, ``wo`` is row
+    parallel.  The cache: split on sequence, each shard writes its rows of
+    the prompt's K/V (gathered over the KV heads where they are split);
+    on KV heads, its own heads; whole, once a device."""
+    from repro_torch.parallel import collectives
+
+    cd = cm.dtype_of(cfg.compute_dtype)
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    S = hs[0].shape[1]
+    Hl, heads_split, kv_split = _head_split(ps, cfg)
+    theta = _rope_theta_for(cfg, kind)
+    angles = group.once(
+        lambda h: cm.rope_angles(torch.arange(S, device=h.device)[None, :], hd, theta), hs)
+    qs, kvs = _qkv_tp(ps, cfg, hs, group, angles, cd)
+
+    def attend(j, q, kv):
+        k, v = (_kv_for(t, j, Hl, H, KV) for t in kv)
+        return chunked_attention(q, k, v, causal=(kind != "attn_bidir"),
+                                 window=cfg.window if kind == "attn_local" else 0,
+                                 chunk_q=part.attn_chunk_q, chunk_kv=part.attn_chunk_kv,
+                                 softcap=cfg.logit_softcap)
+
+    outs = (group.each if heads_split else group.once)(attend, range(group.n), qs, kvs)
+    ys = cm.dense_row_parallel(group, [p["wo"] for p in ps], outs, "...hk,hkd->...d", cd,
+                               heads_split)
+    if caches is None:
+        return ys
+    if "pos" in caches[0]:  # a ring: its KV heads split or whole, never its sequence
+
+        def ring(c, kv):
+            for name, t in _ring_from_prefill(c, *kv).items():
+                c[name].copy_(t)
+
+        (group.each if split == "kv" else group.once)(ring, caches, kvs)
+    elif split == "seq":
+        full = kvs
+        if kv_split:  # each shard's (2, B, S, KV/n, hd) joined along the heads
+            full = collectives.all_gather(group.mesh, "model",
+                                          [torch.stack(kv) for kv in kvs], dim=3)
+        for j, (c, kv) in enumerate(zip(caches, full)):
+            S_blk = c["k"].shape[1]
+            lo = j * S_blk
+            n = min(max(S - lo, 0), S_blk)
+            if n:
+                c["k"][:, :n] = kv[0][:, lo:lo + n].to(c["k"].dtype)
+                c["v"][:, :n] = kv[1][:, lo:lo + n].to(c["v"].dtype)
+    else:
+
+        def write(c, kv):
+            c["k"][:, :S] = kv[0].to(c["k"].dtype)
+            c["v"][:, :S] = kv[1].to(c["v"].dtype)
+
+        (group.each if split == "kv" else group.once)(write, caches, kvs)
+    return ys
+
+
+def self_attention_decode_tp(ps, cfg, part, hs, group, *, kind: str, positions, caches, split):
+    """``self_attention_decode`` over the model shards.  A cache split on
+    sequence takes the flash decode: q (and k, v where their heads are
+    split) gathered over the heads, the new row written where each row's
+    position falls (a masked write on every shard), each shard's partial
+    softmax over its rows for every head, the partials LSE-merged on each
+    device as ``flash_decode_sharded`` merges them, each shard's heads of
+    the result into the row-parallel ``wo``.  A cache split on KV heads,
+    or whole, takes ``_masked_decode`` of each shard's heads (the
+    reference's route where the sequence does not divide)."""
+    from repro_torch.parallel import collectives
+
+    cd = cm.dtype_of(cfg.compute_dtype)
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    Hl, heads_split, kv_split = _head_split(ps, cfg)
+    theta = _rope_theta_for(cfg, kind)
+    angles = group.once(lambda pos: cm.rope_angles(pos[:, None], hd, theta), positions)
+    qs, kvs = _qkv_tp(ps, cfg, hs, group, angles, cd)
+    his = group.once(lambda pos: pos + 1, positions)
+    los = group.once(lambda hi: torch.clamp_min(hi - cfg.window, 0)
+                     if kind == "attn_local" and cfg.window > 0 else torch.zeros_like(hi), his)
+    if split == "seq":
+        if heads_split:
+            KVl = kvs[0][0].shape[2] if kv_split else 0
+            got = collectives.all_gather(group.mesh, "model", [
+                torch.cat([q, *kv], dim=2) if kv_split else q for q, kv in zip(qs, kvs)])
+
+            def heads(g, w0, w):  # (n, B, 1, ., hd) -> (B, 1, n·w, hd)
+                part_ = g[:, :, :, w0:w0 + w]
+                return part_.movedim(0, 2).reshape(part_.shape[1], 1, -1, hd)
+
+            q_full = group.once(lambda g: heads(g, 0, Hl), got)
+            if kv_split:
+                kvs = group.once(lambda g: (heads(g, Hl, KVl), heads(g, Hl + KVl, KVl)), got)
+        else:
+            q_full = qs
+
+        def partial(j, q, kv, c, pos, lo, hi):
+            S_blk = c["k"].shape[1]
+            _scatter_cache_range(c["k"], kv[0], pos, j * S_blk)
+            _scatter_cache_range(c["v"], kv[1], pos, j * S_blk)
+            m, l, o = _flash_partial(q[:, 0], c["k"], c["v"], lo, hi, cfg.logit_softcap,
+                                     j * S_blk)
+            return torch.cat([o, m[..., None], l[..., None]], dim=-1)
+
+        parts = group.each(partial, range(group.n), q_full, kvs, caches, positions, los, his)
+        got = collectives.all_gather(group.mesh, "model", parts)
+        Dv = got[0].shape[-1] - 2
+
+        def merge(g, q):
+            out = _lse_merge(g[..., Dv], g[..., Dv + 1], g[..., :Dv])
+            return out.reshape(out.shape[0], H, Dv).to(q.dtype)
+
+        merged = group.once(merge, got, q_full)
+        outs = [o[:, j * Hl:(j + 1) * Hl] for j, o in enumerate(merged)] if heads_split \
+            else merged
+    else:
+
+        def write(c, kv, pos):
+            _scatter_cache(c["k"], kv[0], pos)
+            _scatter_cache(c["v"], kv[1], pos)
+
+        (group.each if split == "kv" else group.once)(write, caches, kvs, positions)
+
+        def attend(j, q, c, lo, hi):
+            k, v = (_kv_for(c[name], j, Hl, H, KV) for name in ("k", "v"))
+            return _masked_decode(q[:, 0], k, v, lo, hi, cfg.logit_softcap)
+
+        outs = (group.each if heads_split else group.once)(attend, range(group.n), qs, caches,
+                                                             los, his)
+    return cm.dense_row_parallel(group, [p["wo"] for p in ps], [o[:, None] for o in outs],
+                                 "...hk,hkd->...d", cd, heads_split)
 
 
 def cross_attention(

@@ -11,7 +11,10 @@ axes resolve to mesh placements as the reference's do (``resolve_axes``,
 ``shardings``, ``logical_sharding``: ``parallel/placement.py``'s
 ``PartitionSpec``/``NamedSharding``, from ``mesh.shape`` alone);
 ``constrain`` is the identity on values and checks the placement is one
-this port executes (data parallelism; the rest waits for item 9b.3).
+this port executes.  What runs: data parallelism everywhere, and for
+serving (prefill and decode) the ``model`` splits of heads, KV heads, ff,
+vocab, experts and the cache's sequence (``split_refusal(serving=True)``);
+the rest waits for the sub-items of item 9b.3 (``SUBITEMS``).
 
 Numerics follow the reference's order of rounding: ``dense`` casts kernel
 and input to the compute dtype, multiplies, then adds the bias cast to the
@@ -108,19 +111,22 @@ def init_params(specs, generator: torch.Generator, device=None):
     zeros; ones), drawn from torch's generator, so the numbers are not the
     reference's."""
     device = generator.device if device is None else device
+    return map_specs(lambda spec: init_block(spec, spec.shape, generator, device), specs)
 
-    def one(spec: ParamSpec):
-        if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-        if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-        std = spec.scale
-        if spec.fan_in and spec.init != "embed":
-            std = spec.scale / np.sqrt(spec.fan_in)
-        t = torch.randn(spec.shape, generator=generator, device=device, dtype=torch.float32)
-        return t.mul_(float(std)).to(spec.dtype)
 
-    return map_specs(one, specs)
+def init_block(spec: ParamSpec, shape, generator: torch.Generator, device) -> torch.Tensor:
+    """A tensor of ``shape`` (the spec's, or a block of it) drawn from
+    ``spec``'s distribution on ``device`` (its std from the whole spec's
+    fan-in)."""
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=spec.dtype, device=device)
+    std = spec.scale
+    if spec.fan_in and spec.init != "embed":
+        std = spec.scale / np.sqrt(spec.fan_in)
+    t = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return t.mul_(float(std)).to(spec.dtype)
 
 
 # ---------------------------------------------------------------------------- #
@@ -157,14 +163,27 @@ FSDP_RULES_OVERRIDE: Dict[str, Any] = {
 }
 
 #: the mesh axes a batch dimension may be split over in this port's
-#: execution (data parallelism); any other split waits for item 9b.3
+#: execution (data parallelism)
 BATCH_MESH_AXES = ("pod", "data")
+#: the logical axes tensor-parallel serving splits over ``model``
+SERVE_MODEL_AXES = ("heads", "kv_heads", "ff", "vocab", "expert", "kv_seq")
+#: the block kinds tensor-parallel serving runs (mixers; ffns)
+SERVE_MIXERS, SERVE_FFNS = ("attn", "attn_local"), ("mlp", "moe", "none")
+
+#: ROADMAP.md item 9b.3's sub-items still open, each a refusal's reason
+SUBITEMS = {
+    "9b.3b": "tensor-parallel training: _xent_sharded, seq_shard_activations",
+    "9b.3c": "FSDP/ZeRO execution over the batch axes",
+    "9b.3d": "MLA, Mamba, xLSTM and the encoder-decoder family over model",
+    "9b.3e": "the MoE data-parallel train step's aux exchange",
+    "9b.3f": "multi-process meshes (--distributed)",
+}
 
 
-def _needs_mesh(name: str):
+def _needs_mesh(name: str, item: str = "9b.3b"):
     raise NotImplementedError(
-        f"{name}: not supported by repro_torch yet (ROADMAP.md queue 1, item 9b.3: "
-        "tensor-parallel and FSDP/ZeRO execution, multi-process meshes)"
+        f"{name}: not supported by repro_torch yet (ROADMAP.md queue 1, item {item}: "
+        f"{SUBITEMS[item]})"
     )
 
 
@@ -230,11 +249,15 @@ def logical_sharding(mesh, rules, shape, axes) -> NamedSharding:
     return NamedSharding(mesh, resolve_axes(mesh, rules, shape, axes))
 
 
-def split_refusal(sharding: NamedSharding, axes) -> Optional[str]:
+def split_refusal(sharding: NamedSharding, axes,
+                  serving: bool = False) -> Optional[Tuple[str, str]]:
     """Why a tensor of logical ``axes`` placed by ``sharding`` cannot run in
-    this port's data-parallel execution (None when it can): a dimension cut
-    into more than one piece other than a ``batch`` dimension cut over
-    ``BATCH_MESH_AXES``."""
+    this port's execution, and the sub-item of 9b.3 that takes it (None
+    when it can run).  A ``batch`` dimension cut over ``BATCH_MESH_AXES``
+    always runs; with ``serving`` so does a dimension of
+    ``SERVE_MODEL_AXES`` cut over ``model`` alone (tensor-parallel
+    serving).  Any other cut over the batch axes is FSDP/ZeRO (9b.3c); any
+    other cut is tensor-parallel training's (9b.3b)."""
     for d, entry in enumerate(sharding.spec):
         if sharding.pieces(d) == 1:
             continue
@@ -242,20 +265,41 @@ def split_refusal(sharding: NamedSharding, axes) -> Optional[str]:
         cut = sharding.spec.axes(d)
         if name == "batch" and set(cut) <= set(BATCH_MESH_AXES):
             continue
-        kind = "FSDP/ZeRO" if set(cut) <= set(BATCH_MESH_AXES) else "tensor-parallel"
-        return f"dim {d} ({name}) split over {cut} ({kind})"
+        if serving and name in SERVE_MODEL_AXES and cut == ("model",):
+            continue
+        if set(cut) <= set(BATCH_MESH_AXES):
+            return f"dim {d} ({name}) split over {cut} (FSDP/ZeRO)", "9b.3c"
+        return f"dim {d} ({name}) split over {cut} (tensor-parallel)", "9b.3b"
     return None
 
 
 def require_data_parallel(mesh, rules, shape, axes, what: str) -> NamedSharding:
     """The placement of a tensor of ``shape``/``axes`` on ``mesh``; raises
-    ``NotImplementedError`` naming item 9b.3 when it splits anything but a
-    batch dimension over the batch axes."""
+    ``NotImplementedError`` naming its sub-item of 9b.3 when it splits
+    anything but a batch dimension over the batch axes."""
     sh = logical_sharding(mesh, rules, shape, axes)
     why = split_refusal(sh, axes)
     if why is not None:
-        _needs_mesh(f"{what}: {why}")
+        _needs_mesh(f"{what}: {why[0]}", why[1])
     return sh
+
+
+def require_servable(cfg, part, mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` naming its sub-item of 9b.3 when the
+    configuration cannot be served tensor-parallel on ``mesh`` (its
+    ``model`` axis above 1): the encoder-decoder family, a block kind
+    other than ``SERVE_MIXERS``/``SERVE_FFNS`` (9b.3d), or
+    ``seq_shard_activations`` (9b.3b)."""
+    if _mesh_axis_size(mesh, "model") <= 1:
+        return
+    n = mesh.shape["model"]
+    if cfg.family == "encdec":
+        _needs_mesh(f"{what}: {cfg.name} (encoder-decoder) over model={n}", "9b.3d")
+    for mixer, ffn in cfg.pattern:
+        if mixer not in SERVE_MIXERS or ffn not in SERVE_FFNS:
+            _needs_mesh(f"{what}: {cfg.name}'s {mixer!r}/{ffn!r} blocks over model={n}", "9b.3d")
+    if part.seq_shard_activations:
+        _needs_mesh(f"{what}: seq_shard_activations over model={n}", "9b.3b")
 
 
 def constrain(x, mesh, rules, axes):
@@ -315,6 +359,25 @@ def dense(params, x, spec: str, compute_dtype=torch.bfloat16):
     return y
 
 
+def dense_row_parallel(group, ps, xs, spec: str, compute_dtype, split: bool):
+    """A dense layer over a group of model shards (``parallel.sharding.
+    ModelShards``; ``ps`` each shard's parameter block, ``xs`` its input).
+    Where the contracted dimension is ``split``, each shard's partial
+    product of its blocks, summed by ``collectives.all_reduce`` (every
+    shard gets the same bits), then the bias, if any; else the whole layer,
+    once a device and never summed (a sum would count it n times)."""
+    if not split:
+        return group.once(lambda p, x: dense(p, x, spec, compute_dtype), ps, xs)
+    from repro_torch.parallel import collectives
+
+    parts = group.each(lambda p, x: torch.einsum(spec, x.to(compute_dtype),
+                                                 p["kernel"].to(compute_dtype)), ps, xs)
+    out = collectives.all_reduce(group.mesh, "model", parts)
+    if "bias" in ps[0]:
+        out = group.once(lambda p, y: y + p["bias"].to(compute_dtype), ps, out)
+    return out
+
+
 def norm_spec(d: int, *, stack: int = 0, style: str = "rms"):
     shape, axes = (d,), ("embed",)
     if stack:
@@ -354,6 +417,19 @@ def embed_lookup(params, tokens, compute_dtype=torch.bfloat16):
     """Rows of the table in the compute dtype.  Gathering before the cast
     gives the same values as the reference's cast of the whole table."""
     return params["embedding"][tokens].to(compute_dtype)
+
+
+def embed_lookup_range(params, tokens, start: int, compute_dtype=torch.bfloat16):
+    """The lookup in a block of the table that holds the vocabulary's rows
+    ``[start, start + rows)``: each token's row there in the compute dtype,
+    zeros for a token outside it (the blocks' lookups sum to the whole
+    table's lookup exactly: one term a token is not zero)."""
+    table = params["embedding"]
+    local = tokens - start
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, torch.zeros_like(local))].to(compute_dtype)
+    return torch.where(inside[..., None], rows, torch.zeros((), dtype=compute_dtype,
+                                                            device=rows.device))
 
 
 def qknorm_spec(head_dim: int, stack: int = 0):

@@ -26,8 +26,12 @@ bf16 casts of the float32 expert kernels, cast per call as ``dense``
 does).  Aux losses (float32): the switch load-balance loss ``E ·
 sum(ce · me)`` with ``ce`` counted over all picks, kept and dropped, and
 the router z-loss ``mean(logsumexp(logits)**2)``.  On a mesh the rows'
-dispatch is what it is off it; expert parallelism waits for ROADMAP item
-9b.3.
+dispatch is what it is off it.  ``moe_apply`` takes whole experts: over a
+``model`` axis that splits them it is tensor-parallel training's route
+(item 9b.3b) and refuses.  Serving splits them: ``moe_apply_tp`` (expert
+parallelism) gathers the router's expert columns, routes on every shard
+alike, runs each shard's experts on their rows of the dispatch buffer and
+gathers the experts' outputs for the ordered combine.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models import common as cm
-from repro_torch.models.mlp import mlp_apply, mlp_specs
+from repro_torch.models.mlp import mlp_apply, mlp_apply_tp, mlp_specs
 
 
 def moe_specs(cfg, stack: int) -> Dict[str, Any]:
@@ -132,14 +136,26 @@ def router(params, cfg, x: torch.Tensor):
     and (gates, expert ids) (B, S, k): the router product in the compute
     dtype, then float32, softmax, top-k, the gates renormalized when the
     config says so."""
-    moe = cfg.moe
     logits = cm.dense(params["router"], x, "bsd,de->bse",
                       cm.dtype_of(cfg.compute_dtype)).to(torch.float32)
+    return (logits,) + _gates(logits, cfg.moe)
+
+
+def _gates(logits, moe):
+    """(probs, gates, expert ids) of float32 router logits."""
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = route(probs, moe.top_k)
     if moe.renormalize:
         gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
-    return logits, probs, gate_vals, expert_idx
+    return probs, gate_vals, expert_idx
+
+
+def _experts(params, buf, act, cd):
+    """The experts of ``params`` on their rows ``buf`` (B, E, C, d) of the
+    dispatch buffer."""
+    g = torch.einsum("becd,edf->becf", buf, params["gate"]["kernel"].to(cd))
+    u = torch.einsum("becd,edf->becf", buf, params["up"]["kernel"].to(cd))
+    return torch.einsum("becf,efd->becd", act(g) * u, params["down"]["kernel"].to(cd))
 
 
 def moe_apply(params, cfg, x: torch.Tensor,
@@ -147,8 +163,9 @@ def moe_apply(params, cfg, x: torch.Tensor,
     """x: (B, S, d) -> (y, aux) with aux = {load_balance_loss, router_z_loss}.
 
     On a mesh the dispatch is per row, as off it (the reference's
-    shard_map over the batch axes computes the same); experts split over a
-    ``model`` axis (expert parallelism) wait for item 9b.3."""
+    shard_map over the batch axes computes the same); whole experts over a
+    ``model`` axis that would split them refuse (tensor-parallel training,
+    item 9b.3b; serving runs ``moe_apply_tp``)."""
     if mesh is not None:
         cm.require_data_parallel(mesh, cm.DEFAULT_RULES, (cfg.moe.n_experts,), ("expert",),
                                  "moe_apply")
@@ -164,10 +181,7 @@ def moe_apply(params, cfg, x: torch.Tensor,
     slot, tok, order = dispatch_slots(expert_idx, E, C)
     buf = _dispatch(x, slot, tok, E, C, cd)
 
-    g = torch.einsum("becd,edf->becf", buf, params["gate"]["kernel"].to(cd))
-    u = torch.einsum("becd,edf->becf", buf, params["up"]["kernel"].to(cd))
-    yb = torch.einsum("becf,efd->becd", act(g) * u, params["down"]["kernel"].to(cd))
-    y = _combine(yb, slot, order, expert_idx, gate_vals, cd)
+    y = _combine(_experts(params, buf, act, cd), slot, order, expert_idx, gate_vals, cd)
 
     if moe.n_shared:
         y = y + mlp_apply(params["shared"], cfg, x)
@@ -180,3 +194,50 @@ def moe_apply(params, cfg, x: torch.Tensor,
     lb = E * torch.sum(ce * me)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return y, {"load_balance_loss": lb, "router_z_loss": z}
+
+
+def moe_apply_tp(ps, cfg, xs, group):
+    """``moe_apply``'s output over the model shards of ``group`` (``ps`` each
+    shard's block of the parameters, ``xs`` the replicated input; no aux
+    losses: serving reads none).  Where the experts are split (the
+    router's block narrower than E): the router's expert columns gathered
+    before top-k, so every shard routes alike; the dispatch once a device;
+    each shard's E/n experts on their rows of the buffer; the experts'
+    outputs gathered, and the ordered combine (each token's k slots in
+    ascending expert order) once a device.  Else the whole layer once a
+    device.  Shared experts are an MLP over the shards."""
+    from repro_torch.parallel import collectives
+
+    cd = cm.dtype_of(cfg.compute_dtype)
+    moe = cfg.moe
+    E, k = moe.n_experts, moe.top_k
+    act = cm.activation(cfg.act)
+    El = ps[0]["router"]["kernel"].shape[-1]
+    split = El < E
+
+    def router_logits(p, x):
+        return cm.dense(p["router"], x, "bsd,de->bse", cd).to(torch.float32)
+
+    logits = (group.each if split else group.once)(router_logits, ps, xs)
+    if split:
+        logits = collectives.all_gather(group.mesh, "model", logits, dim=-1)
+
+    def plan(lg, x):
+        _, gate_vals, expert_idx = _gates(lg, moe)
+        C = capacity(x.shape[1], k, E, moe.capacity_factor)
+        slot, tok, order = dispatch_slots(expert_idx, E, C)
+        return gate_vals, expert_idx, slot, order, _dispatch(x, slot, tok, E, C, cd)
+
+    plans = group.once(plan, logits, xs)
+    if split:
+        ybs = group.each(lambda j, p, pl: _experts(p, pl[4][:, j * El:(j + 1) * El], act, cd),
+                         range(group.n), ps, plans)
+        yb = collectives.all_gather(group.mesh, "model", ybs, dim=1)
+    else:
+        yb = group.once(lambda p, pl: _experts(p, pl[4], act, cd), ps, plans)
+    ys = group.once(lambda y, pl: _combine(y, pl[2], pl[3], pl[1], pl[0], cd), yb, plans)
+    if moe.n_shared:
+        shared = mlp_apply_tp([p["shared"] for p in ps], cfg, xs, group,
+                              d_ff=(moe.d_expert or cfg.d_ff) * moe.n_shared)
+        ys = group.once(torch.add, ys, shared)
+    return ys

@@ -33,7 +33,8 @@ given (the serving engine and the train step hand each data-parallel shard
 its rows); ``constrain`` checks the logical placements, the decode's
 attention takes the flash decode (``attention.flash_decode_sharded``) when
 the partition asks for it, as the reference's, and the vocab-sharded loss
-waits for item 9b.3.
+waits for item 9b.3b.  Tensor-parallel serving (a ``model`` axis above 1)
+is ``lm_prefill_tp``/``lm_decode_step_tp``, at the end of the module.
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ from repro_torch.models.attention import (
     self_attention,
     self_attention_decode,
 )
-from repro_torch.models.mlp import mlp_apply, mlp_specs
+from repro_torch.models.mlp import mlp_apply, mlp_apply_tp, mlp_specs
 
 ATTN_KINDS = ("attn", "attn_bidir", "attn_local")
 #: the recurrent mixers' (specs, full-sequence, single-token) functions
@@ -200,21 +201,28 @@ def cache_specs(cfg, part, B: int, S: int) -> Dict[str, Any]:
     }
 
 
-def init_cache(cfg, part, B: int, S: int, device):
-    """Zero caches on ``device`` (an ``attn_local`` ring's pos at -1, the
-    mLSTM's ``m`` and the sLSTM's ``state.m`` at -1e30)."""
-    specs = cache_specs(cfg, part, B, S)
-    caches = cm.map_specs(
-        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), specs)
+def cache_fills(cfg, part, B: int, S: int):
+    """Each cache leaf's initial value, in a tree of the caches' keys: 0,
+    an ``attn_local`` ring's pos -1, the mLSTM's ``m`` and the sLSTM's
+    ``state.m`` -1e30."""
+    fills = cm.map_specs(lambda s: 0, cache_specs(cfg, part, B, S))
     for i, (mixer, _) in enumerate(cfg.pattern):
-        c = caches[f"p{i}"]
+        c = fills[f"p{i}"]
         if mixer == "attn_local":
-            c["pos"].fill_(-1)
+            c["pos"] = -1
         elif mixer == "mlstm":
-            c["m"].fill_(xlstm_mod.M_INIT)
+            c["m"] = xlstm_mod.M_INIT
         elif mixer == "slstm":
-            c["state"]["m"].fill_(xlstm_mod.M_INIT)
-    return caches
+            c["state"]["m"] = xlstm_mod.M_INIT
+    return fills
+
+
+def init_cache(cfg, part, B: int, S: int, device):
+    """Caches on ``device``, each leaf at its ``cache_fills`` value."""
+    from repro_torch.train.tree import tree_map
+
+    return tree_map(lambda s, f: torch.full(s.shape, f, dtype=s.dtype, device=device),
+                    cache_specs(cfg, part, B, S), cache_fills(cfg, part, B, S))
 
 
 # --------------------------------------------------------------------------- #
@@ -272,31 +280,41 @@ def _local_ring_decode(params, cfg, part, x, *, positions, cache):
     ``pos >= 0``."""
     cd = cm.dtype_of(cfg.compute_dtype)
     hd = cfg.resolved_head_dim
-    B = x.shape[0]
-    W = cache["k"].shape[1]
     q, k_new, v_new = _qkv(params, cfg, x, cd)
     cos, sin = cm.rope_angles(positions[:, None], hd, cfg.rope_local_theta)
     q = cm.apply_rope(q, cos, sin)
     k_new = cm.apply_rope(k_new, cos, sin)
-    rows = torch.arange(B, device=x.device)
-    slot = (positions % W).long()
-    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
-    cache["pos"][rows, slot] = positions.to(cache["pos"].dtype)
-    # attend over valid ring slots
-    KV, H = cfg.n_kv_heads, cfg.n_heads
-    G = H // KV
-    q4 = (q[:, 0] * cm.scalar(hd ** -0.5, q.dtype)).reshape(B, KV, G, hd)
-    s = torch.einsum("bkgd,bskd->bkgs", q4, cache["k"].to(cd)).to(torch.float32)
-    if cfg.logit_softcap:
-        s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
-    valid = cache["pos"] >= 0
-    s = torch.where(valid[:, None, None], s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(cd), cache["v"].to(cd))
-    out = out.reshape(B, 1, H, hd)
+    _ring_write(cache, (k_new, v_new), positions, ("k", "v", "pos"))
+    out = _ring_attend(q, cache["k"], cache["v"], cache["pos"], cfg, cd)
     y = cm.dense(params["wo"], out, "...hk,hkd->...d", cd)
     return y, cache
+
+
+def _ring_write(cache, kv, positions, names):
+    """The new entries of ``names`` (of k, v, pos) into slot pos % W of
+    each row of a ring cache, in place."""
+    W = cache["k"].shape[1]
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    slot = (positions % W).long()
+    new = dict(zip(("k", "v"), kv or ()))
+    for name in names:
+        val = positions if name == "pos" else new[name][:, 0]
+        cache[name][rows, slot] = val.to(cache[name].dtype)
+
+
+def _ring_attend(q, k, v, pos, cfg, cd):
+    """q (B, 1, Hq, hd) over the valid slots (``pos >= 0``) of ring k/v
+    (B, W, KVq, hd), query head i reading KV head i // (Hq / KVq)."""
+    B, _, Hq, hd = q.shape
+    KVq = k.shape[2]
+    q4 = (q[:, 0] * cm.scalar(hd ** -0.5, q.dtype)).reshape(B, KVq, Hq // KVq, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", q4, k.to(cd)).to(torch.float32)
+    if cfg.logit_softcap:
+        s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+    s = torch.where((pos >= 0)[:, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(cd), v.to(cd))
+    return out.reshape(B, 1, Hq, hd)
 
 
 def apply_block_decode(bp, cfg, part, mixer: str, ffn: str, x, *, positions, cache, mesh=None,
@@ -489,7 +507,7 @@ def softmax_xent(logits, labels, valid=None, z_weight: float = 0.0, mesh=None):
     None), plus ``z_weight`` times the mean squared logsumexp.  On a mesh
     whose ``model`` axis has size 1 the loss is this plain one; a vocab
     split over a larger ``model`` axis (the reference's ``_xent_sharded``)
-    waits for item 9b.3."""
+    waits for item 9b.3b."""
     if mesh is not None and cm._mesh_axis_size(mesh, "model") > 1 and \
             logits.shape[-1] % mesh.shape["model"] == 0:
         cm._needs_mesh("softmax_xent over a vocab split across the model axis (_xent_sharded)")
@@ -558,3 +576,178 @@ def lm_decode_step(params, cfg, part, tokens, positions, caches, *, mesh=None, r
                    compute_dtype=cm.dtype_of(cfg.compute_dtype))
     logits = lm_head(params, cfg, x)[:, 0]
     return logits, caches
+
+
+# --------------------------------------------------------------------------- #
+# Tensor-parallel serving                                                      #
+# --------------------------------------------------------------------------- #
+#
+# One data shard's prefill and decode step over its model shards (``group``:
+# a ``parallel.sharding.ModelShards``), from the parameters and caches placed
+# on the mesh (``Placed`` trees: ``Model.param_shardings``/
+# ``cache_shardings``).  A Python loop over the shards inside each layer,
+# split at the layer's collectives: activations are replicated (one tensor
+# a device), each split product runs on its shard's blocks, and a split
+# that the maybe-shard rule left whole is computed whole once a device.
+
+
+def _cache_split(placed) -> Any:
+    """"seq", "kv" or None: how a block position's placed cache (k: (L, B,
+    S, KV, hd)) is split over ``model``."""
+    sh = placed["k"].sharding
+    return "seq" if sh.pieces(2) > 1 else ("kv" if sh.pieces(3) > 1 else None)
+
+
+def embed_tokens_tp(ps, cfg, toks, group, patches=None):
+    """``embed_tokens`` over the model shards (``toks``/``patches`` one
+    tensor a shard).  A vocab-split table: each shard looks up the tokens
+    in its rows (zeros elsewhere), the lookups summed (one term a token is
+    not zero: exact); the scale and the patches after."""
+    from repro_torch.parallel import collectives
+
+    cd = cm.dtype_of(cfg.compute_dtype)
+    rows = ps[0]["embed"]["embedding"].shape[0]
+    if rows == cfg.vocab:
+        xs = group.once(lambda p, t: cm.embed_lookup(p["embed"], t, cd), ps, toks)
+    else:
+        xs = collectives.all_reduce(group.mesh, "model", group.each(
+            lambda j, p, t: cm.embed_lookup_range(p["embed"], t, j * rows, cd),
+            range(group.n), ps, toks))
+    if cfg.embed_scale:
+        xs = group.once(lambda x: x * cm.scalar(cfg.d_model ** 0.5, cd), xs)
+    if patches is not None:
+        xs = group.once(lambda p, pt, x: torch.cat(
+            [cm.dense(p["frontend_proj"], pt, "...f,fd->...d", cd), x], dim=1), ps, patches, xs)
+    return xs
+
+
+def lm_head_tp(ps, cfg, xs, group):
+    """``lm_head`` over the model shards: vocab-split logits gathered along
+    the vocabulary on the group's first device (greedy ties then go to the
+    lowest index, as off the mesh); a whole head runs there alone."""
+    from repro_torch.parallel import collectives
+
+    cd = cm.dtype_of(cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        rows = ps[0]["embed"]["embedding"].shape[0]
+
+        def head(p, x):
+            return torch.einsum("...d,vd->...v", x, p["embed"]["embedding"].to(cd))
+    else:
+        rows = ps[0]["lm_head"]["kernel"].shape[-1]
+
+        def head(p, x):
+            return cm.dense(p["lm_head"], x, "...d,dv->...v", cd)
+
+    if rows == cfg.vocab:
+        return head(ps[0], xs[0])
+    return collectives.gather(group.mesh, "model", group.each(head, ps, xs), dim=-1)
+
+
+def _ffn_tp(bps, cfg, ffn: str, xs, group):
+    if ffn == "none":
+        return xs
+    hs = group.once(lambda bp, x: _norm(bp["ln2"], cfg, x), bps, xs)
+    fps = [bp["ffn"] for bp in bps]
+    ys = mlp_apply_tp(fps, cfg, hs, group) if ffn == "mlp" else \
+        moe_mod.moe_apply_tp(fps, cfg, hs, group)
+    if cfg.norm_style == "sandwich":
+        ys = group.once(lambda bp, y: _norm(bp["ln2_post"], cfg, y), bps, ys)
+    return group.once(torch.add, xs, ys)
+
+
+def _block_tp(bps, cfg, mixer: str, ffn: str, xs, group, attend):
+    """A block over the model shards, its mixer ``attend(hs)``: norms,
+    sandwich norms and residual adds on the replicated activations."""
+    hs = group.once(lambda bp, x: _norm(bp["ln1"], cfg, x), bps, xs)
+    ys = attend(hs)
+    if cfg.norm_style == "sandwich":
+        ys = group.once(lambda bp, y: _norm(bp["ln1_post"], cfg, y), bps, ys)
+    return _ffn_tp(bps, cfg, ffn, group.once(torch.add, xs, ys), group)
+
+
+def _local_ring_decode_tp(mps, cfg, hs, group, *, positions, caches, split):
+    """``_local_ring_decode`` over the model shards: each shard's query
+    heads over the ring (its KV heads split with them, or whole and written
+    once a device), ``wo`` row parallel."""
+    from repro_torch.models.attention import _head_split, _kv_for, _qkv_tp
+
+    cd = cm.dtype_of(cfg.compute_dtype)
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    Hl, heads_split, _ = _head_split(mps, cfg)
+    angles = group.once(lambda pos: cm.rope_angles(pos[:, None], hd, cfg.rope_local_theta),
+                        positions)
+    qs, kvs = _qkv_tp(mps, cfg, hs, group, angles, cd)
+    (group.each if split == "kv" else group.once)(
+        lambda c, kv, pos: _ring_write(c, kv, pos, ("k", "v")), caches, kvs, positions)
+    group.once(lambda c, pos: _ring_write(c, None, pos, ("pos",)), caches, positions)
+    outs = (group.each if heads_split else group.once)(
+        lambda j, q, c: _ring_attend(q, _kv_for(c["k"], j, Hl, H, KV),
+                                     _kv_for(c["v"], j, Hl, H, KV), c["pos"], cfg, cd),
+        range(group.n), qs, caches)
+    return cm.dense_row_parallel(group, [p["wo"] for p in mps], outs, "...hk,hkd->...d", cd,
+                                 heads_split)
+
+
+def _stack_tp(ps, cs, cfg, xs, group, mixer_fn):
+    """The block groups over the model shards: ``mixer_fn(mixer, i, mixer
+    blocks, cache blocks)`` gives block position i's mixer (a function of
+    the normed activations); then the final norm."""
+    for g in range(cfg.n_groups):
+        gps = [_group(p["blocks"], g) for p in ps]
+        gcs = [_group(c, g) for c in cs]
+        for i, (mixer, ffn) in enumerate(cfg.pattern):
+            bps, bcs = [gp[f"p{i}"] for gp in gps], [gc[f"p{i}"] for gc in gcs]
+            xs = _block_tp(bps, cfg, mixer, ffn, xs, group,
+                           mixer_fn(mixer, i, [bp["mixer"] for bp in bps], bcs))
+    return group.once(lambda p, x: cm.rmsnorm(p["final_norm"], x, cfg.norm_eps,
+                                              compute_dtype=cm.dtype_of(cfg.compute_dtype)),
+                      ps, xs)
+
+
+def lm_prefill_tp(params, cfg, part, tokens, caches, group, *, patches=None):
+    """``lm_prefill`` of one data shard's rows ``tokens`` (on any device)
+    over its model shards ``group``, from placed ``params`` and ``caches``
+    (written in place).  Returns the last logits (B, V) on the group's
+    first device."""
+    from repro_torch.models.attention import self_attention_tp
+    from repro_torch.parallel import collectives
+
+    ps, cs = group.blocks(params), group.blocks(caches)
+    toks = collectives.broadcast(group.mesh, "model", tokens)
+    pts = None if patches is None else collectives.broadcast(group.mesh, "model", patches)
+    xs = embed_tokens_tp(ps, cfg, toks, group, pts)
+
+    def mixer_fn(mixer, i, mps, bcs):
+        return lambda hs: self_attention_tp(mps, cfg, part, hs, group, kind=mixer, caches=bcs,
+                                            split=_cache_split(caches[f"p{i}"]))
+
+    xs = _stack_tp(ps, cs, cfg, xs, group, mixer_fn)
+    return lm_head_tp(ps, cfg, [x[:, -1:] for x in xs], group)[:, 0]
+
+
+def lm_decode_step_tp(params, cfg, part, tokens, positions, caches, group):
+    """``lm_decode_step`` of one data shard's rows over its model shards
+    ``group`` (tokens (B, 1) and positions (B,) on any device, handed to
+    the shards in one broadcast), from placed ``params`` and ``caches``
+    (updated in place).  Returns logits (B, V) on the group's first
+    device."""
+    from repro_torch.models.attention import self_attention_decode_tp
+    from repro_torch.parallel import collectives
+
+    ps, cs = group.blocks(params), group.blocks(caches)
+    both = collectives.broadcast(group.mesh, "model", torch.stack(
+        [tokens[:, 0].long(), positions.long()], dim=1))
+    toks = group.once(lambda t: t[:, :1].to(tokens.dtype), both)
+    pos = group.once(lambda t: t[:, 1].to(positions.dtype), both)
+    xs = embed_tokens_tp(ps, cfg, toks, group)
+
+    def mixer_fn(mixer, i, mps, bcs):
+        split = _cache_split(caches[f"p{i}"])
+        if mixer == "attn_local":
+            return lambda hs: _local_ring_decode_tp(mps, cfg, hs, group, positions=pos,
+                                                    caches=bcs, split=split)
+        return lambda hs: self_attention_decode_tp(mps, cfg, part, hs, group, kind=mixer,
+                                                   positions=pos, caches=bcs, split=split)
+
+    return lm_head_tp(ps, cfg, _stack_tp(ps, cs, cfg, xs, group, mixer_fn), group)[:, 0]

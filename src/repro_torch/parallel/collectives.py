@@ -1,6 +1,10 @@
 """Collectives over a single-controller mesh, and the sequence-parallel
 Viterbi decoder built on them.  (The LM's data-parallel train step reduces
-its gradients with ``all_reduce``; ``psum_scalar`` sums per-shard scalars.)
+its gradients with ``all_reduce``; ``psum_scalar`` sums per-shard scalars;
+tensor-parallel serving reduces its row-parallel products with
+``all_reduce``, gathers split heads, partials and experts with
+``all_gather(dim=)``, its vocab-split logits with ``gather(dim=)``, and
+hands each step's tokens to its shards with ``broadcast``.)
 
 The Viterbi forward pass is a product in the (min,+) semiring, which is
 associative, so a length-T decode splits across the ``model`` mesh axis:
@@ -71,34 +75,53 @@ def _shard_devices(mesh, axis: str, per_shard: Sequence[torch.Tensor], what: str
     return devices
 
 
-def gather(mesh, axis: str, per_shard: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+def gather(mesh, axis: str, per_shard: Sequence[torch.Tensor], device=None,
+           dim: Optional[int] = None) -> torch.Tensor:
     """The shards' tensors (one per index of ``axis``, each on its shard's
     device) stacked along a new leading axis on ``device`` — the mesh's
-    first shard's by default: one copy from each other device."""
+    first shard's by default: one copy from each other device.  With
+    ``dim`` they are concatenated along that dimension instead (the blocks
+    of a split dimension, in shard order)."""
     calls["gather"] += 1
     devices = _shard_devices(mesh, axis, per_shard, "gather")
-    out = _stack_on(per_shard, devices[0] if device is None else device)
+    out = _stack_on(per_shard, devices[0] if device is None else device, dim)
     nbytes["gather"] += tensor_bytes(out)
     return out
 
 
-def _stack_on(per_shard: Sequence[torch.Tensor], device) -> torch.Tensor:
+def _stack_on(per_shard: Sequence[torch.Tensor], device, dim: Optional[int] = None):
     dev = torch.device(device)
-    return torch.stack([t.to(dev) for t in per_shard])
+    parts = [t.to(dev) for t in per_shard]
+    return torch.stack(parts) if dim is None else torch.cat(parts, dim=dim)
 
 
-def all_gather(mesh, axis: str, per_shard: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def all_gather(mesh, axis: str, per_shard: Sequence[torch.Tensor],
+               dim: Optional[int] = None) -> List[torch.Tensor]:
     """:func:`gather` onto every shard's device: entry i of the result lies
-    on shard i's device.  Shards that share a device share one stacked
-    tensor."""
+    on shard i's device.  Shards that share a device share one stacked (or,
+    with ``dim``, concatenated) tensor."""
     calls["all_gather"] += 1
     devices = _shard_devices(mesh, axis, per_shard, "all_gather")
     stacked: Dict[torch.device, torch.Tensor] = {}
     for dev in devices:
         if dev not in stacked:
-            stacked[dev] = _stack_on(per_shard, dev)
+            stacked[dev] = _stack_on(per_shard, dev, dim)
     nbytes["all_gather"] += tensor_bytes(stacked[devices[0]])
     return [stacked[dev] for dev in devices]
+
+
+def broadcast(mesh, axis: str, x: torch.Tensor) -> List[torch.Tensor]:
+    """``x`` (on any device) on every shard's device of ``axis``: entry i of
+    the result lies on shard i's device, shards that share a device share
+    one tensor (``x`` itself on its own device)."""
+    calls["broadcast"] += 1
+    copies: Dict[torch.device, torch.Tensor] = {}
+    devices = mesh.shard_devices(axis)
+    for dev in devices:
+        if dev not in copies:
+            copies[dev] = x if x.device == dev else x.to(dev)
+    nbytes["broadcast"] += tensor_bytes(x)
+    return [copies[dev] for dev in devices]
 
 
 def ring_shift(mesh, axis: str, per_shard: Sequence[torch.Tensor]) -> List[torch.Tensor]:

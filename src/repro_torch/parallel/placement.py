@@ -17,6 +17,10 @@ placements computed without devices.  ``place`` puts a whole tensor on a
   already on: the block is the tensor itself, or a view of it);
 * ``Placed.gather`` reassembles the whole tensor on one device: gather
   after place is the identity, exactly.
+
+``build`` makes a placed tensor block by block from a function of each
+block's shape, coordinates and device, with no whole tensor anywhere
+(``place`` is ``build`` of the given tensor's slices).
 """
 from __future__ import annotations
 
@@ -111,20 +115,34 @@ class NamedSharding:
             out.append(idx)
         return tuple(out)
 
-    def place(self, x: torch.Tensor) -> "Placed":
-        """``x`` as one block a cell of the mesh, each on its cell's device."""
-        block = self.shard_shape(x.shape)
+    def build(self, shape, dtype, make_block) -> "Placed":
+        """A tensor of ``shape`` made block by block, with no whole copy
+        anywhere: ``make_block(block_shape, coords, device)`` makes each
+        distinct block once, on the first cell's device that holds it;
+        every other device that holds it gets a copy."""
+        block = self.shard_shape(shape)
         blocks = np.empty(self.mesh.devices.shape, dtype=object)
-        made: Dict[Tuple[torch.device, Tuple[int, ...]], torch.Tensor] = {}
+        made: Dict[Tuple[int, ...], torch.Tensor] = {}
+        copies: Dict[Tuple[torch.device, Tuple[int, ...]], torch.Tensor] = {}
         for cell in np.ndindex(*self.mesh.devices.shape):
             dev = self.mesh.devices[cell]
             coords = self.block_coords(cell)
+            if coords not in made:
+                made[coords] = make_block(block, coords, dev)
             key = (dev, coords)
-            if key not in made:
-                sl = tuple(slice(c * b, (c + 1) * b) for c, b in zip(coords, block))
-                made[key] = (x if self.is_replicated else x[sl]).to(dev).contiguous()
-            blocks[cell] = made[key]
-        return Placed(self, blocks, tuple(x.shape), x.dtype)
+            if key not in copies:
+                copies[key] = made[coords].to(dev)
+            blocks[cell] = copies[key]
+        return Placed(self, blocks, tuple(shape), dtype)
+
+    def place(self, x: torch.Tensor) -> "Placed":
+        """``x`` as one block a cell of the mesh, each on its cell's device."""
+
+        def make(block, coords, dev):
+            sl = tuple(slice(c * b, (c + 1) * b) for c, b in zip(coords, block))
+            return (x if self.is_replicated else x[sl]).to(dev).contiguous()
+
+        return self.build(x.shape, x.dtype, make)
 
 
 class Placed:

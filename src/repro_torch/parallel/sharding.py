@@ -5,11 +5,12 @@ trees on a mesh.
 The resolution logic (maybe-shard divisibility, no axis reuse) lives in
 models/common.py; this module packages it for the launchers, the serving
 engine and the train step.  ``PartitionSpec`` and ``NamedSharding`` are
-``parallel/placement.py``'s.  What this port executes on a mesh is data
-parallelism: ``require_data_parallel_tree`` refuses, before anything is
-allocated, a tree whose placement splits anything but batch dimensions over
-the batch axes (tensor-parallel and FSDP/ZeRO execution wait for item
-9b.3).
+``parallel/placement.py``'s.  What this port executes on a mesh:
+data parallelism, and for serving tensor parallelism over ``model``
+(``require_executable_tree(serving=True)``); anything else is refused,
+before anything is allocated, naming its sub-item of item 9b.3.  A data
+shard's cells along ``model`` are a :class:`ModelShards` (``model_shards``):
+the serving path's per-layer loop over them.
 """
 from __future__ import annotations
 
@@ -94,22 +95,34 @@ def step_shardings(model, mesh, shape_kind: str, B: int, S: int, rules=None):
 # --------------------------------------------------------------------------- #
 
 
-def require_data_parallel_tree(shardings_tree, specs, what: str) -> None:
-    """Raise ``NotImplementedError`` naming item 9b.3 when a leaf of the
-    spec tree ``specs``, placed by the matching leaf of ``shardings_tree``,
-    is split anywhere but a ``batch`` dimension over the batch axes (a
-    parameter or optimizer-state leaf may not be split at all: it has no
-    batch dimension)."""
+def require_executable_tree(shardings_tree, specs, what: str, serving: bool = False) -> None:
+    """Raise ``NotImplementedError`` naming its sub-item of 9b.3 when a leaf
+    of the spec tree ``specs``, placed by the matching leaf of
+    ``shardings_tree``, is split in a way this port does not execute
+    (``models.common.split_refusal``: a batch dimension over the batch axes
+    always runs; with ``serving`` the tensor-parallel serving splits over
+    ``model`` too)."""
     for sh, spec in zip(tree_leaves(shardings_tree), cm.spec_leaves(specs)):
-        why = cm.split_refusal(sh, spec.axes)
+        why = cm.split_refusal(sh, spec.axes, serving)
         if why is not None:
             cm._needs_mesh(f"{what} on mesh {dict(sh.mesh.shape)}: a leaf of shape "
-                           f"{spec.shape} has its {why}")
+                           f"{spec.shape} has its {why[0]}", why[1])
 
 
-def place_tree(tree, shardings_tree):
+def require_data_parallel_tree(shardings_tree, specs, what: str) -> None:
+    """``require_executable_tree`` for training: a parameter or optimizer
+    leaf may not be split at all (it has no batch dimension)."""
+    require_executable_tree(shardings_tree, specs, what)
+
+
+def place_tree(tree, shardings_tree, consume: bool = False):
     """Each tensor of ``tree`` placed by the matching NamedSharding (a leaf
-    already placed by an equal sharding stays as it is)."""
+    already placed by an equal sharding stays as it is).  Leaf by leaf;
+    with ``consume`` each whole leaf is replaced in ``tree``'s own dicts by
+    its placed value as soon as its blocks exist, so the whole tensor is
+    freed then (unless the caller holds it elsewhere): the peak is the
+    tree plus its largest leaf's blocks, where placing a copy would hold
+    two trees."""
 
     def one(x, sh):
         if isinstance(x, Placed):
@@ -118,7 +131,18 @@ def place_tree(tree, shardings_tree):
             x = x.gather()
         return sh.place(x)
 
-    return tree_map(one, tree, shardings_tree)
+    if not consume:
+        return tree_map(one, tree, shardings_tree)
+
+    def walk(node, sh_node):
+        for k in list(node):
+            if isinstance(node[k], dict):
+                walk(node[k], sh_node[k])
+            else:
+                node[k] = one(node[k], sh_node[k])
+        return node
+
+    return walk(tree, shardings_tree)
 
 
 def gather_tree(tree, device=None):
@@ -167,6 +191,55 @@ def data_shards(mesh, B: int) -> List[DataShard]:
         out.append(DataShard(i, slice(i * Bl, (i + 1) * Bl), cell, mesh.devices[cell],
                              mesh.sub(idx)))
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShards:
+    """The ``model`` shards of one data-parallel shard: ``mesh``, the cells
+    at its index of the other axes (those axes kept with size 1); ``cells``,
+    one cell of the whole mesh per index of ``model``; ``devices``, theirs.
+    A per-layer loop over them runs the tensor-parallel model: ``each``
+    calls a function once a shard (its own blocks), ``once`` once a
+    distinct device (replicated values: shards that share a device share
+    the result)."""
+
+    mesh: Any
+    cells: Tuple[Tuple[int, ...], ...]
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def n(self) -> int:
+        return len(self.cells)
+
+    def blocks(self, tree) -> list:
+        """Each shard's block tree of the placed ``tree``."""
+        return [block_tree(tree, c) for c in self.cells]
+
+    def each(self, fn, *per_shard) -> list:
+        return [fn(*args) for args in zip(*per_shard)]
+
+    def once(self, fn, *per_shard) -> list:
+        done: Dict[torch.device, Any] = {}
+        out = []
+        for dev, args in zip(self.devices, zip(*per_shard)):
+            if dev not in done:
+                done[dev] = fn(*args)
+            out.append(done[dev])
+        return out
+
+
+def model_shards(mesh, cell) -> ModelShards:
+    """The cells along ``model`` through ``cell`` (one cell of size 1 when
+    the mesh has no ``model`` axis)."""
+    names = mesh.axis_names
+    cell = tuple(cell)
+    if "model" not in names:
+        return ModelShards(mesh.sub({a: cell[i] for i, a in enumerate(names)}), (cell,),
+                           (mesh.devices[cell],))
+    k = names.index("model")
+    cells = tuple(cell[:k] + (j,) + cell[k + 1:] for j in range(mesh.shape["model"]))
+    sub = mesh.sub({a: cell[i] for i, a in enumerate(names) if a != "model"})
+    return ModelShards(sub, cells, tuple(mesh.devices[c] for c in cells))
 
 
 def check_mesh(mesh, device_type: str, what: str) -> None:

@@ -30,6 +30,7 @@ COLLECTIVE_KINDS = (
 COLLECTIVE_KIND_OF = {
     "gather": "all-gather",
     "all_gather": "all-gather",
+    "broadcast": "all-gather",
     "ring_shift": "collective-permute",
     "reduce_across_shards": "all-reduce",
     "all_reduce": "all-reduce",

@@ -12,22 +12,28 @@ generator on the model's device seeded from ``seed`` (Gumbel-max, as
 reference's for the same seed; greedy tokens are.
 
 On a mesh (``mesh=``, a ``parallel.Mesh`` of the model's device type) the
-engine is data-parallel.  The parameters are placed once, at construction,
-by ``Model.param_shardings`` (one copy a distinct device); each
-``generate`` splits the batch over the batch axes (``pod``, ``data``) and
-gives each shard caches of its rows (``Model.cache_shardings``' blocks) on
-its device.  The loop over tokens is outside and the loop over shards
-inside, so distinct cards overlap; each shard's model calls take the cells
-at its batch index as their ``mesh=`` (the decode's attention takes the
-flash decode there, as the reference's).  The tokens are gathered once, at
-the end, onto the mesh's first device (``collectives.gather``).  A batch
-that does not divide over the batch axes is replicated and runs once, on
-the first cell.  With temperature, each distinct device draws the whole
-batch's noise a step from a generator seeded with ``seed`` and each shard
-takes its rows, so a seed gives the tokens of the one-device engine.  A
-placement that splits anything but the batch (tensor parallelism, FSDP,
-a seq-sharded cache) raises ``NotImplementedError`` naming item 9b.3 before
-anything is allocated.
+engine is data and tensor parallel.  The parameters are placed once, at
+construction, by ``Model.param_shardings`` (leaf by leaf; ``consume=True``
+places the caller's own dicts in place, so no second copy of the model is
+ever held; a tree already placed, as ``Model.init_on_mesh`` makes it, stays
+as it is).  Each ``generate`` splits the batch over the batch axes
+(``pod``, ``data``) and gives each data shard its model shards (the cells
+at its batch index along ``model``: ``sharding.model_shards``) and their
+blocks of the caches (``Model.init_cache(mesh=)``: split on sequence, on KV
+heads or whole, as ``Model.cache_shardings`` places them).  The loop over
+tokens is outside; inside it the loop over data shards, and inside each
+layer the loop over model shards, split at the layer's collectives
+(``Model.prefill_shard``/``decode_shard``), so distinct cards overlap.
+Each data shard's logits come to its first model shard, which samples
+(greedy ties to the lowest index).  The tokens are gathered once, at the
+end, onto the mesh's first device (``collectives.gather``).  A batch that
+does not divide over the batch axes is replicated and runs once, on the
+first cell's model shards.  With temperature, each distinct device draws
+the whole batch's noise a step from a generator seeded with ``seed`` and
+each shard takes its rows, so a seed gives the tokens of the one-device
+engine.  A placement this port does not run (tensor-parallel blocks other
+than attention, MLP and MoE, FSDP) raises ``NotImplementedError`` naming
+its sub-item of item 9b.3 before anything is allocated.
 
 The engine prefills from tokens alone, so it refuses the encoder-decoder
 family (whose prefill needs the encoder's ``frames``) with ``ValueError``
@@ -52,6 +58,8 @@ class ServeEngine:
     temperature: float = 0.0
     eos: int = 0
 
+    consume: bool = False
+
     def __post_init__(self):
         if self.model.cfg.family == "encdec":
             raise ValueError(
@@ -63,19 +71,13 @@ class ServeEngine:
 
             m = self.model
             sharding.check_mesh(self.mesh, m.device.type, "ServeEngine(mesh=...)")
-            p_sh = m.param_shardings(self.mesh)
-            sharding.require_data_parallel_tree(p_sh, m.param_specs,
-                                                f"ServeEngine: the {m.cfg.name} parameters")
-            self._check_caches(sharding.data_parallel_size(self.mesh))
-            self.params = sharding.place_tree(self.params, p_sh)
-
-    def _check_caches(self, B: int):
-        from repro_torch.parallel import sharding
-
-        m = self.model
-        sharding.require_data_parallel_tree(
-            m.cache_shardings(self.mesh, B, self.max_len), m.cache_specs(B, self.max_len),
-            f"ServeEngine: the {m.cfg.name} caches")
+            B = sharding.data_parallel_size(self.mesh)
+            m._check_mesh(self.mesh, None, "ServeEngine", serving=True)
+            sharding.require_executable_tree(
+                m.cache_shardings(self.mesh, B, self.max_len), m.cache_specs(B, self.max_len),
+                f"ServeEngine: the {m.cfg.name} caches", True)
+            self.params = sharding.place_tree(self.params, m.param_shardings(self.mesh),
+                                              consume=self.consume)
 
     def _sample(self, logits, gen: torch.Generator, noise=None):
         """Greedy, or Gumbel-max at the temperature: the noise of
@@ -124,11 +126,10 @@ class ServeEngine:
         m, mesh = self.model, self.mesh
         prompts = torch.as_tensor(prompts)
         B, S_p = prompts.shape
-        self._check_caches(B)
         shards = sharding.data_shards(mesh, B)
+        groups = [sharding.model_shards(mesh, s.cell) for s in shards]
         Bl = shards[0].rows.stop - shards[0].rows.start
-        params = [sharding.block_tree(self.params, s.cell) for s in shards]
-        caches = [m.init_cache(Bl, self.max_len, device=s.device) for s in shards]
+        caches = m.init_cache(B, self.max_len, mesh=mesh)
         gens = {s.device: torch.Generator(device=s.device).manual_seed(seed) for s in shards}
         V = m.cfg.vocab
 
@@ -142,16 +143,16 @@ class ServeEngine:
 
         u = noise()
         tok, out, done, positions = [], [], [], []
-        for s, p, c in zip(shards, params, caches):
-            logits, _ = m.prefill(p, {"tokens": prompts[s.rows].to(s.device)}, c, mesh=s.mesh)
+        for s, g in zip(shards, groups):
+            logits = m.prefill_shard(self.params, prompts[s.rows].to(s.device), caches, g)
             tok.append(sample(logits, s, u))
             out.append([tok[-1]])
             positions.append(torch.full((Bl,), S_p, dtype=torch.int32, device=s.device))
             done.append(torch.zeros((Bl,), dtype=torch.bool, device=s.device))
         for _ in range(max_new_tokens - 1):
             u = noise()
-            for i, (s, p, c) in enumerate(zip(shards, params, caches)):
-                logits, _ = m.decode_step(p, tok[i], positions[i], c, mesh=s.mesh)
+            for i, (s, g) in enumerate(zip(shards, groups)):
+                logits = m.decode_shard(self.params, tok[i], positions[i], caches, g)
                 nxt = sample(logits, s, u)
                 done[i] = done[i] | (tok[i][:, 0] == self.eos)
                 nxt = torch.where(done[i][:, None], self.eos, nxt)

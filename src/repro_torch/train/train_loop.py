@@ -23,7 +23,8 @@ batch into ``microbatches`` chunks of contiguous rows, each a mean over its
 own rows).  A placement that splits a parameter or optimizer-state leaf
 (tensor parallelism, FSDP/ZeRO) and a family with MoE aux losses on more
 than one data shard (the load-balance loss couples the batch's rows) raise
-``NotImplementedError`` naming item 9b.3 when the step is built.
+``NotImplementedError`` naming its sub-item of item 9b.3 (9b.3b, 9b.3c,
+9b.3e) when the step is built.
 """
 from __future__ import annotations
 
@@ -133,7 +134,7 @@ def _data_parallel_step(model, optimizer: Optimizer, lr_fn: Callable, mesh, rule
                                         f"{what}: the optimizer state")
     if model.cfg.moe is not None and sharding.data_parallel_size(mesh) > 1:
         cm._needs_mesh(f"{what}: {model.cfg.name} on {sharding.data_parallel_size(mesh)} data "
-                       "shards (its MoE load-balance loss couples the batch's rows)")
+                       "shards (its MoE load-balance loss couples the batch's rows)", "9b.3e")
     mb = model.part.microbatches
     devices = mesh.distinct_devices()
     home = devices[0]

@@ -263,3 +263,35 @@ def test_source_has_no_jax_or_reference_imports():
                 if root in ("jax", "jaxlib", "repro"):
                     offenders.append(f"{path}:{node.lineno}: {name}")
     assert not offenders, offenders
+
+
+ROOT = SRC.parent
+SCRIPTS = ["chip_smoke.py"] + sorted(p.relative_to(ROOT).as_posix()
+                                     for p in (ROOT / "tools").glob("*.py"))
+
+
+def _imported_roots(tree):
+    """(line, module) of each import of ``tree``, and of each
+    ``importlib.import_module`` / ``__import__`` of a constant name."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from ((node.lineno, a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.lineno, node.module or ""
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("import_module", "__import__"):
+                yield node.lineno, node.args[0].value
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_chip_smoke_and_tools_import_neither_jax_nor_reference(script):
+    """``chip_smoke.py`` and every ``tools/*.py`` run on the card without
+    JAX: none of them imports jax, jaxlib or the reference package."""
+    tree = ast.parse((ROOT / script).read_text())
+    offenders = [f"{script}:{line}: {name}" for line, name in _imported_roots(tree)
+                 if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not offenders, offenders
+    assert len(SCRIPTS) > 5

@@ -7,7 +7,8 @@ synchronizing call a tick; the analysis layer's hot-path catalog and
 sanitizer on the card; the paper's unfused ACS step; the LM's serving and
 training paths (a train step against its CPU run, its one host sync,
 crash -> restore -> resume, the launchers), with the MoE, MLA,
-recurrent (Mamba, xLSTM) and encoder-decoder (seamless-m4t) families.
+recurrent (Mamba, xLSTM) and encoder-decoder (seamless-m4t) families, and
+the LM on a mesh (data parallel, and tensor-parallel serving).
 
 Every test here is marked ``gpu`` and takes the ``card`` fixture, which
 skips inside the test when no CUDA device is present (so every worker
@@ -2157,4 +2158,75 @@ def test_lm_mesh_over_two_cards_equals_two_cells_of_one(card):
     _, on_one, on_two = _mesh_step_runs(first, [one_card, two_cards])
     _mesh_runs_close(on_two, on_one, tol=1e-2)
     assert [t.device for t in tree_leaves(on_two[1])[0].blocks.flat] == [first, second]
+    assert torch.cuda.current_device() == 0
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel serving (heads, ff, vocab and experts split over model)      #
+# --------------------------------------------------------------------------- #
+
+
+def _tp_step_logits(model, params, prompts, mesh, max_len):
+    """Prefill logits and the next decode step's (the prefill's greedy
+    tokens fed back) on ``mesh`` from placed ``params``."""
+    from repro_torch.parallel.sharding import place_tree
+
+    placed = place_tree(params, model.param_shardings(mesh))
+    B, S = prompts.shape
+    with torch.inference_mode():
+        caches = model.init_cache(B, max_len, mesh=mesh)
+        logits, _ = model.prefill(placed, {"tokens": prompts}, caches, mesh=mesh)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        step, _ = model.decode_step(placed, tok, torch.full((B,), S, dtype=torch.int32,
+                                                            device=tok.device), caches, mesh=mesh)
+    return logits, step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "qwen3_moe_30b_a3b"])
+def test_lm_tensor_parallel_on_two_cells_matches_cpu_and_makes_no_sync(card, arch):
+    """``ServeEngine`` over a (1, 2) mesh of two cells on the card: heads,
+    ff, vocab (and experts) split, the cache split on sequence; no sync at
+    any length; its prefill logits within float32 tolerance of the same
+    mesh on the CPU and the decode step's within the bf16 caches' (1e-2)."""
+    from repro_torch.serve import ServeEngine
+
+    cpu_model, cpu_params, model, params = _lm_models(arch, card, "float32")
+    prompts = torch.randint(1, model.cfg.vocab, (4, 8), device=card)
+    engine = ServeEngine(model, params, max_len=24, mesh=make_mesh((1, 2), ("data", "model"),
+                                                                   devices=[card] * 2))
+    engine.generate(prompts, 4)  # warm
+    counts = [_count_syncs(lambda n=n: engine.generate(prompts, n))[1] for n in (6, 16)]
+    assert counts == [0, 0], counts
+    got = _tp_step_logits(model, params, prompts, engine.mesh, 24)
+    want = _tp_step_logits(cpu_model, cpu_params, prompts.cpu(),
+                           make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2), 24)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_lm_tensor_parallel_over_two_cards_equals_two_cells_of_one(card):
+    """Over cuda:0 and cuda:1 each card holds its blocks (half the heads,
+    ff and vocab), the served tokens equal two cells of one card's and the
+    logits come to cuda:0.  Skips below two cards."""
+    from repro_torch.serve import ServeEngine
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    first, second = torch.device("cuda", 0), torch.device("cuda", 1)
+    torch.cuda.set_device(first)
+    _, _, model, params = _lm_models("qwen2_5_3b", first, "float32")
+    prompts = torch.randint(1, model.cfg.vocab, (4, 8), device=first)
+    one_card = make_mesh((1, 2), ("data", "model"), devices=[first] * 2)
+    two_cards = make_mesh((1, 2), ("data", "model"), devices=[first, second])
+    want = ServeEngine(model, params, max_len=24, mesh=one_card).generate(prompts, 12)
+    engine = ServeEngine(model, params, max_len=24, mesh=two_cards)
+    got = engine.generate(prompts, 12)
+    assert torch.equal(got["tokens"], want["tokens"]) and got["tokens"].device == first
+    wq = engine.params["blocks"]["p0"]["mixer"]["wq"]["kernel"]
+    assert [t.device for t in wq.blocks.flat] == [first, second]
+    assert wq.blocks.flat[0].shape[2] == model.cfg.n_heads // 2
+    logits = _tp_step_logits(model, params, prompts, two_cards, 24)[1]
+    assert logits.device == first and torch.isfinite(logits).all()
     assert torch.cuda.current_device() == 0

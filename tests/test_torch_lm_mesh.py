@@ -47,7 +47,6 @@ from repro.train.train_loop import make_train_step as r_make_train_step
 import repro_torch.configs.base as PCB
 import repro_torch.models.attention as PA
 import repro_torch.models.common as PM
-import repro_torch.models.moe as PMOE
 import repro_torch.models.transformer as PT
 import repro_torch.parallel.sharding as PS
 from repro_torch.convert import lm_params_from_arrays
@@ -588,9 +587,18 @@ def _tp():
     return _cpu_mesh((1, 2))
 
 
+def _smoke(arch):
+    return p_build(PCB.get_smoke_arch(arch), device="cpu")
+
+
 REFUSALS = {
-    "engine_tensor_parallel": lambda pm: ServeEngine(pm, None, max_len=8, mesh=_tp()),
-    "engine_seq_sharded_cache": None,  # below
+    # tensor-parallel serving runs attention, MLP and MoE
+    # (tests/test_torch_lm_tp.py); MLA, Mamba, xLSTM and the
+    # encoder-decoder family over model wait for item 9b.3d
+    "engine_mla_over_model": lambda pm: ServeEngine(_smoke("deepseek_v2_lite_16b"), None,
+                                                    max_len=8, mesh=_tp()),
+    "engine_mamba_over_model": lambda pm: ServeEngine(_smoke("jamba_v0_1_52b"), None,
+                                                      max_len=8, mesh=_tp()),
     "step_tensor_parallel": lambda pm: make_train_step(pm, popt.adamw(), lambda s: 0.0,
                                                        mesh=_tp()),
     "step_fsdp": lambda pm: make_train_step(
@@ -604,9 +612,10 @@ REFUSALS = {
         lambda s: 0.0, mesh=_cpu_mesh((2, 1))),
     "xent_sharded": lambda pm: PT.softmax_xent(torch.zeros(1, 1, 4),
                                                torch.zeros(1, 1, dtype=torch.int32), mesh=_tp()),
-    "prefill_tensor_parallel": lambda pm: pm.prefill(None, {}, None, mesh=_tp()),
-    "moe_expert_parallel": lambda pm: PMOE.moe_apply(
-        None, PCB.get_smoke_arch("qwen3_moe_30b_a3b").model, None, mesh=_tp()),
+    "engine_xlstm_over_model": lambda pm: ServeEngine(_smoke("xlstm_350m"), None, max_len=8,
+                                                      mesh=_tp()),
+    "prefill_encdec_over_model": lambda pm: _smoke("seamless_m4t_large_v2").prefill(
+        None, {}, None, mesh=_tp()),
     "constrain_seq_shard": lambda pm: PM.constrain(torch.zeros(2, 4, 8), _tp(), None,
                                                    ("batch", "seq_shard", None)),
     "train_tensor_parallel": lambda pm: train(pm, None, steps=1, mesh=_tp()),
@@ -616,15 +625,6 @@ REFUSALS = {
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_declared_refusals_name_item_9b3(case):
     pm = p_build(PCB.get_smoke_arch(ARCH), device="cpu")
-    if case == "engine_seq_sharded_cache":
-        # nothing of the parameters is split (their model rules dropped),
-        # but the flash decode's kv_seq rule splits the cache over model
-        rules = {k: None for k, v in PM.DEFAULT_RULES.items() if v == "model"}
-        pm.param_shardings = functools.partial(type(pm).param_shardings, pm, rules=rules)
-        with pytest.raises(NotImplementedError, match=r"item 9b\.3") as err:
-            ServeEngine(pm, None, max_len=8, mesh=_tp())
-        assert "caches" in str(err.value)
-        return
     with pytest.raises(NotImplementedError, match=r"item 9b\.3"):
         REFUSALS[case](pm)
 

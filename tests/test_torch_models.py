@@ -474,7 +474,8 @@ def test_refused_families_raise_naming_item_11(arch):
 
 def _tp_mesh():
     """A (1, 2) (data, model) CPU mesh: the smoke model's heads and ff split
-    over model — tensor parallelism, item 9b.3."""
+    over model — tensor parallelism (served for attention, MLP and MoE;
+    MLA's waits for item 9b.3d, training's for 9b.3b)."""
     from repro_torch.launch.mesh import make_mesh
 
     return make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
@@ -486,13 +487,18 @@ def _tp_params_refused(pm):
     require_data_parallel_tree(pm.param_shardings(_tp_mesh()), pm.param_specs, "params")
 
 
+def _mla():
+    """deepseek-v2-lite at smoke size: MLA over model waits for item 9b.3d."""
+    return p_build(PCB.get_smoke_arch("deepseek_v2_lite_16b"), device="cpu")
+
+
 MESH_CALLS = {
-    "engine": lambda pm, pp: ServeEngine(pm, pp, max_len=8, mesh=_tp_mesh()),
-    "prefill": lambda pm, pp: pm.prefill(pp, {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
-                                         pm.init_cache(1, 8), mesh=_tp_mesh()),
-    "decode_step": lambda pm, pp: pm.decode_step(
-        pp, torch.zeros((1, 1), dtype=torch.int64), torch.zeros(1, dtype=torch.int32),
-        pm.init_cache(1, 8), mesh=_tp_mesh()),
+    "engine": lambda pm, pp: ServeEngine(_mla(), None, max_len=8, mesh=_tp_mesh()),
+    "prefill": lambda pm, pp: _mla().prefill(
+        None, {"tokens": torch.zeros((1, 4), dtype=torch.int64)}, None, mesh=_tp_mesh()),
+    "decode_step": lambda pm, pp: _mla().decode_step(
+        None, torch.zeros((1, 1), dtype=torch.int64), torch.zeros(1, dtype=torch.int32), None,
+        mesh=_tp_mesh()),
     "param_shardings": lambda pm, pp: _tp_params_refused(pm),
     "constrain": lambda pm, pp: PM.constrain(torch.zeros(2, 4), _tp_mesh(), None,
                                              ("batch", "heads")),
@@ -501,9 +507,11 @@ MESH_CALLS = {
 
 @pytest.mark.parametrize("call", sorted(MESH_CALLS))
 def test_mesh_raises_naming_item_9b(call):
-    """A mesh whose placement would split the model (tensor parallelism)
-    raises naming item 9b.3; data-parallel meshes run
-    (``tests/test_torch_lm_mesh.py``)."""
+    """A mesh whose placement would split what this port does not run
+    split (MLA's serving, the parameters for training) raises naming item
+    9b.3; data-parallel meshes run (``tests/test_torch_lm_mesh.py``), and
+    so does tensor-parallel serving of attention, MLP and MoE
+    (``tests/test_torch_lm_tp.py``)."""
     _, _, _, _, pm, pp = _pair("qwen2_5_3b", "float32")
     with pytest.raises(NotImplementedError, match="item 9b"):
         MESH_CALLS[call](pm, pp)

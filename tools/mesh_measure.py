@@ -45,12 +45,31 @@ and the later losses within rtol 1e-3; step time, host clock through a
 synchronize of every card, of steps 1-2 after step 0, tokens/s).  Each
 card's name and power limit are printed.
 
+``tp`` (run only when named) — tensor-parallel serving over the host's
+cards.  qwen3-moe-30b-a3b at all 48 layers over a (1, 4) (data, model)
+mesh of four distinct cards (heads, KV heads, vocab and 32 of 128 experts
+a card): the weights drawn block by block on their cards
+(``Model.init_on_mesh``: no card ever holds a whole leaf, let alone the
+~120e9-byte model), each card's bytes and peak beside the blocks it holds;
+``ServeEngine`` on 4 prompts of 16, 32 greedy tokens: no host sync a token
+(``sanitized()``, 32 against 16 tokens), two calls bit-equal, generate time
+of 32 and 16 tokens (2 rounds each after a warm-up) and decode time a
+token from their difference; teacher forcing on the mesh at capacity
+factor 64 (prefill of 16 then a decode step against a prefill over all 17,
+bf16 and float32 compute over the bf16 caches; the routes of both passes
+recorded, the rows whose routes agree held to (0.25, 0.05) and (0.05,
+0.02) (atol, rtol)).  Then qwen2.5-3b at full width over (1, n), n = 1,
+2, 4: one card's one-device engine, the (1, n) mesh of n cells on cuda:0
+and of n distinct cards — the tokens equal on the last two, their
+equality with one device's reported — and each one's decode time a token.
+
 Exits non-zero without a card or when a check fails.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -70,6 +89,13 @@ LM_SHARDS = (1, 2, 4)
 LM_SERVE_ROWS, LM_PROMPT, LM_NEW = 4, 16, 32
 LM_TRAIN_ROWS, LM_SEQ, LM_STEPS = 2, 4096, 3
 LM_PARAM_TOL, LM_LOSS_RTOL = 1e-2, 1e-3
+
+#: ``tp``: the MoE's (arch, mesh), qwen2.5's model-axis sizes, the
+#: teacher-forcing capacity factor and tolerances (atol, rtol) by compute dtype
+TP_MOE = ("qwen3_moe_30b_a3b", (1, 4))
+TP_SHARDS = (1, 2, 4)
+TP_TF_CAPACITY = 64.0
+TP_TF_TOL = {"bfloat16": (0.25, 0.05), "float32": (0.05, 0.02)}
 
 #: (label, K, B, info bits, BSC flip probability, shard counts)
 CASES = (("nasa_1030", 7, 1024, 1024, 0.03, (1, 2)),
@@ -284,15 +310,207 @@ def _lm_rows(torch, args, cards, n_cards) -> list:
     return rows
 
 
+def _host_syncs(fn):
+    from repro_torch.analysis import sanitized
+
+    with sanitized(transfer_guard=None, debug_nans=False) as rep:
+        out = fn()
+    return out, rep.host_syncs, dict(rep.sync_sites)
+
+
+def _gen_times(torch, engine, prompts) -> dict:
+    """generate of LM_NEW and LM_NEW // 2 tokens, 2 rounds each after a
+    warm-up: the rounds and the decode time a token from their medians."""
+    full = _rounds(torch, lambda: engine.generate(prompts, LM_NEW), 2)
+    half = _rounds(torch, lambda: engine.generate(prompts, LM_NEW // 2), 2)
+    return {"generate_ms": full, "generate_half_ms": half,
+            "decode_ms_per_token": (statistics.median(full) - statistics.median(half))
+            / (LM_NEW - LM_NEW // 2),
+            "tokens_per_s": LM_SERVE_ROWS * LM_NEW / (statistics.median(full) / 1e3)}
+
+
+def _tf_on_mesh(torch, model, params, toks, mesh, dtype) -> dict:
+    """Teacher forcing on ``mesh`` at TP_TF_CAPACITY: prefill(S) + decode
+    against a prefill over S+1, the routes of both passes' last position."""
+    import dataclasses
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model_zoo import Model
+
+    cfg = model.cfg
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=TP_TF_CAPACITY))
+    m = Model(cfg=cfg, part=model.part, param_specs=model.param_specs, device=model.device)
+    B, S1 = toks.shape
+    routes, orig = [], moe_mod.route
+
+    def record(probs, k):
+        vals, idx = orig(probs, k)
+        routes.append(idx[:, -1].sort(-1).values)
+        return vals, idx
+
+    moe_mod.route = record
+    try:
+        with torch.inference_mode():
+            full, _ = m.prefill(params, {"tokens": toks}, m.init_cache(B, S1, mesh=mesh),
+                                mesh=mesh)
+            caches = m.init_cache(B, S1, mesh=mesh)
+            m.prefill(params, {"tokens": toks[:, :-1]}, caches, mesh=mesh)
+            dec, _ = m.decode_step(params, toks[:, -1:], torch.full(
+                (B,), S1 - 1, dtype=torch.int32, device=toks.device), caches, mesh=mesh)
+    finally:
+        moe_mod.route = orig
+    L = cfg.n_layers
+    flips = [(layer, r) for layer in range(L) for r in range(B)
+             if not torch.equal(routes[layer][r], routes[2 * L + layer][r])]
+    atol, rtol = TP_TF_TOL[dtype]
+    full, dec = full.float(), dec.float()
+    over = ((dec - full).abs() > atol + rtol * full.abs()).sum(-1).tolist()
+    rows = sorted({r for _, r in flips})
+    return {"max_abs_diff": (dec - full).abs().max().item(), "over_by_row": over,
+            "argmax_equal": (dec.argmax(-1) == full.argmax(-1)).tolist(),
+            "route_flips": flips, "atol": atol, "rtol": rtol,
+            "over_in_rows_with_equal_routes": sum(n for r, n in enumerate(over)
+                                                  if r not in rows)}
+
+
+def _tp_rows(torch, args, cards, n_cards) -> list:
+    """The ``tp`` case's rows (see the module doc); raises on a check."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build
+    from repro_torch.models.common import spec_leaves
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.tree import tree_leaves
+
+    card0 = torch.device("cuda", 0)
+    rows = []
+    arch, shape = TP_MOE
+    n = shape[0] * shape[1]
+    if n > n_cards:
+        print(f"[tp] {arch} over {shape}: not run, {n_cards} cards")
+    else:
+        model = build(get_arch(arch), device=card0)
+        mesh = make_mesh(shape, ("data", "model"))
+        devices = list(mesh.devices.flat)
+        whole = sum(s.nbytes for s in spec_leaves(model.param_specs))
+        held = {d: 0 for d in devices}
+        for spec, sh in zip(spec_leaves(model.param_specs),
+                            tree_leaves(model.param_shardings(mesh))):
+            for d in devices:
+                held[d] += math.prod(sh.shard_shape(spec.shape)) * spec.dtype.itemsize
+        _free(torch)
+        live = {d: torch.cuda.memory_allocated(d) for d in devices}
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
+        t0 = time.perf_counter()
+        params = model.init_on_mesh(mesh, args.seed)
+        _sync_all(torch)
+        init_s = time.perf_counter() - t0
+        placed = {str(d): torch.cuda.memory_allocated(d) - live[d] for d in devices}
+        place_peak = {str(d): torch.cuda.max_memory_allocated(d) - live[d] for d in devices}
+        row = dict(case="tp", arch=model.cfg.name, layers=model.cfg.n_layers,
+                   mesh=dict(mesh.shape), whole_bytes=whole,
+                   blocks_bytes={str(d): b for d, b in held.items()}, placed_bytes=placed,
+                   placing_peak_bytes=place_peak, init_s=init_s)
+        print(f"[tp] {model.cfg.name} ({model.cfg.n_layers} layers, {whole} bytes whole) over "
+              f"{dict(mesh.shape)} of {[str(d) for d in devices]}: drawn in {init_s!r} s; bytes "
+              f"a card {placed} (its blocks {row['blocks_bytes']}), peak while placing "
+              f"{place_peak} ({cards[:n]})")
+        if any(v > 2 * held[d] or v >= whole // 2 for d, v in zip(devices, place_peak.values())):
+            raise RuntimeError(f"tp: a card held more than its blocks while placing: {row}")
+        gen = torch.Generator(device=card0).manual_seed(args.seed)
+        prompts = torch.randint(0, model.cfg.vocab, (LM_SERVE_ROWS, LM_PROMPT), generator=gen,
+                                device=card0)
+        engine = ServeEngine(model, params, max_len=LM_PROMPT + LM_NEW, mesh=mesh)
+        engine.generate(prompts, LM_NEW)
+        _sync_all(torch)
+        out, syncs, sites = _host_syncs(lambda: engine.generate(prompts, LM_NEW))
+        _, syncs_half, _ = _host_syncs(lambda: engine.generate(prompts, LM_NEW // 2))
+        again = engine.generate(prompts, LM_NEW)
+        row.update(host_syncs_generate=syncs, host_syncs_half=syncs_half, sync_sites=sites,
+                   generate_bit_equal=bool(torch.equal(out["tokens"], again["tokens"])),
+                   **_gen_times(torch, engine, prompts))
+        toks = torch.randint(0, model.cfg.vocab, (LM_SERVE_ROWS, LM_PROMPT + 1), generator=gen,
+                             device=card0)
+        for dtype in TP_TF_TOL:
+            row[f"teacher_forcing_{dtype}"] = _tf_on_mesh(torch, model, engine.params, toks,
+                                                          mesh, dtype)
+        row["peak_bytes"] = {str(d): torch.cuda.max_memory_allocated(d) - live[d]
+                             for d in devices}
+        print(f"[tp] {model.cfg.name} over {n} cards: host syncs in generate {syncs} for "
+              f"{LM_NEW} tokens, {syncs_half} for {LM_NEW // 2} ({sites}); two calls bit-equal "
+              f"{row['generate_bit_equal']}; decode {row['decode_ms_per_token']!r} ms a token "
+              f"(generate ms {row['generate_ms']}, {LM_NEW // 2} tokens "
+              f"{row['generate_half_ms']}), {row['tokens_per_s']!r} tokens/s; peak a card "
+              f"{row['peak_bytes']}; teacher forcing bf16 {row['teacher_forcing_bfloat16']}, "
+              f"float32 {row['teacher_forcing_float32']} ({cards[:n]})")
+        if syncs != syncs_half or not row["generate_bit_equal"]:
+            raise RuntimeError(f"tp: syncs a token or two calls differ: {row}")
+        for dtype in TP_TF_TOL:
+            tf = row[f"teacher_forcing_{dtype}"]
+            kept = [r for r in range(LM_SERVE_ROWS) if r not in {r for _, r in tf["route_flips"]}]
+            if tf["over_in_rows_with_equal_routes"] or (
+                    dtype == "float32" and not all(tf["argmax_equal"][r] for r in kept)):
+                raise RuntimeError(f"tp: teacher forcing {dtype} beyond tolerance: {tf}")
+        rows.append(row)
+        del engine, params, out, again
+        _free(torch)
+    model = build(get_arch("qwen2_5_3b"), device=card0)
+    gen = torch.Generator(device=card0).manual_seed(args.seed)
+    params = model.init(gen)
+    prompts = torch.randint(0, model.cfg.vocab, (LM_SERVE_ROWS, LM_PROMPT), generator=gen,
+                            device=card0)
+    one = ServeEngine(model, params, max_len=LM_PROMPT + LM_NEW)
+    want = one.generate(prompts, LM_NEW)["tokens"]
+    one_times = _gen_times(torch, one, prompts)
+    del one
+    for n in TP_SHARDS:
+        if n > n_cards:
+            print(f"[tp] qwen2.5-3b over (1, {n}): not run, {n_cards} cards")
+            continue
+        row = dict(case="tp", arch=model.cfg.name, mesh={"data": 1, "model": n},
+                   one_device=one_times)
+        tokens = {}
+        for name, mesh in (("one_card", make_mesh((1, n), ("data", "model"),
+                                                  devices=[card0] * n)),
+                           ("n_cards", make_mesh((1, n), ("data", "model")))):
+            engine = ServeEngine(model, params, max_len=LM_PROMPT + LM_NEW, mesh=mesh)
+            tokens[name] = engine.generate(prompts, LM_NEW)["tokens"]
+            row[name] = _gen_times(torch, engine, prompts)
+            del engine
+            _free(torch)
+        row["tokens_equal_one_card_n_cards"] = bool(torch.equal(tokens["one_card"],
+                                                                tokens["n_cards"].to(card0)))
+        row["rows_equal_one_device"] = int((tokens["n_cards"].to(card0) == want).all(1).sum())
+        print(f"[tp] qwen2.5-3b over (1, {n}): decode ms a token one device "
+              f"{one_times['decode_ms_per_token']!r}, {n} cells of one card "
+              f"{row['one_card']['decode_ms_per_token']!r}, {n} cards "
+              f"{row['n_cards']['decode_ms_per_token']!r}; tokens/s "
+              f"{one_times['tokens_per_s']!r} / {row['one_card']['tokens_per_s']!r} / "
+              f"{row['n_cards']['tokens_per_s']!r}; tokens equal one card vs {n} cards "
+              f"{row['tokens_equal_one_card_n_cards']}, rows equal one device "
+              f"{row['rows_equal_one_device']}/{LM_SERVE_ROWS} ({cards[:n]})")
+        if not row["tokens_equal_one_card_n_cards"]:
+            raise RuntimeError(f"tp: qwen2.5-3b tokens differ on {n} cards")
+        rows.append(row)
+    del params
+    _free(torch)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("cases", nargs="*", help="seq, sched and/or lm (default: seq and sched)")
+    ap.add_argument("cases", nargs="*",
+                    help="seq, sched, lm and/or tp (default: seq and sched)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="JSON lines file of the rows")
     args = ap.parse_args(argv)
     args.cases = args.cases or ["seq", "sched"]
-    if set(args.cases) - {"seq", "sched", "lm"}:
-        ap.error(f"unknown cases {sorted(set(args.cases) - {'seq', 'sched', 'lm'})}")
+    if set(args.cases) - {"seq", "sched", "lm", "tp"}:
+        ap.error(f"unknown cases {sorted(set(args.cases) - {'seq', 'sched', 'lm', 'tp'})}")
 
     import torch
 
@@ -306,7 +524,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.common import launch_counts, plain_counts, reset_counts
     from repro_torch.launch.mesh import make_mesh
 
-    if {"seq", "sched"} & set(args.cases):  # the lm case launches no kernel of the port's
+    if {"seq", "sched"} & set(args.cases):  # lm and tp launch no kernel of the port's
         _build.build_all()
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -354,6 +572,8 @@ def main(argv=None) -> int:
         rows += _sched_rows(torch, args, cards, n_cards)
     if "lm" in args.cases:
         rows += _lm_rows(torch, args, cards, n_cards)
+    if "tp" in args.cases:
+        rows += _tp_rows(torch, args, cards, n_cards)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "w") as f:
